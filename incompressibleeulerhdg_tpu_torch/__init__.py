@@ -1,0 +1,21 @@
+"""incompressibleeulerhdg_tpu_torch -- the HDG incompressible Euler solver in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of the JAX package ``incompressibleeulerhdg_tpu``, which stays the
+reference it is tested against.  The layout mirrors the JAX package:
+
+- ``fem``           ``Geom`` tensors and ``HDGDiscretisation``
+- ``ops``           structured facet<->cell moves, fields, forms, projection
+- ``linalg``        condensation, GMRES, GTMG, the tentative operator and
+                    its Schwarz sweep, small inverses
+- ``models``        the Taylor-Green vortex
+- ``timesteppers``  HDG IMEX (projection path)
+- ``kernels``       build and launch of the CUDA kernels in ``csrc/``
+- ``convert``       JAX package objects -> port objects (for the tests)
+
+The numpy-only modules of the JAX package (``mesh``, ``fem.quadrature``,
+``fem.lagrange``, ``fem.spaces``, ``timesteppers.tableaus``,
+``utils.logging``) are imported, not copied; none of them imports JAX.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,206 @@
+"""Build, load and launch the hand-written CUDA kernels of the port.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (``build/torch_kernels/lib<name>-<hash>.so`` at the
+repository root, keyed by the hash of the sources and flags), loaded with
+``ctypes``.  Nothing is compiled or loaded at import time: the first launch
+of a kernel builds it, and :func:`build_all` builds every kernel at once
+(in parallel), e.g. as a timed set-up phase.
+
+Every wrapper that launches a kernel adds one to ``LAUNCHES[name]`` at the
+launch, and only there, so a run can show which kernels its main path went
+through (:func:`reset_launches` zeroes the counts).
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "KERNELS",
+    "LAUNCHES",
+    "build_all",
+    "reset_launches",
+    "launch",
+    "stream_ptr",
+]
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
+
+# name -> (C entry point, argtypes, TPU kernel it replaces)
+KERNELS = {
+    "fact_apply": (
+        "iehdg_fact_apply",
+        [_I, _I, _I, _P, _L, _L, _P, _LP, _I, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/preconditioners.py:830 _fact_pallas",
+    ),
+    "cross_pair": (
+        "iehdg_cross_pair",
+        [_I, _I, _I, _P, _P, _L, _L, _P, _P, _LP, _I, _P, _P, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/preconditioners.py:1007 _cross_pair_pallas",
+    ),
+    "patch_solve": (
+        "iehdg_patch_solve",
+        [_I, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/preconditioners.py:1199 _patch_pallas",
+    ),
+    "gauss_jordan": (
+        "iehdg_gauss_jordan",
+        [_I, _I, _I, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/smallinv.py:52 _gj_pallas",
+    ),
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_LIBS = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches():
+    """Set every kernel's launch count to zero."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def source_path(name):
+    """Repository-relative path of a kernel's CUDA source."""
+    return f"{_PKG.name}/csrc/{name}.cu"
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def _lib_path(name):
+    h = hashlib.sha256()
+    for f in (_CSRC / f"{name}.cu", _CSRC / "common.cuh"):
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start_build(name, so):
+    """Start nvcc on one kernel source; returns (process, temporary output)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp
+
+
+def _finish_build(name, so, proc, tmp):
+    """Wait for nvcc; install the library, or return nvcc's error report."""
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        return f"nvcc failed for {name} (exit {proc.returncode}):\n{err}"
+    os.replace(tmp, so)
+    return None
+
+
+def _load(name, so):
+    lib = ctypes.CDLL(str(so))
+    entry, argtypes, _ = KERNELS[name]
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.iehdg_error_string.argtypes = [ctypes.c_int]
+    lib.iehdg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _get(name):
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            so = _lib_path(name)
+            if not so.exists():
+                err = _finish_build(name, so, *_start_build(name, so))
+                if err:
+                    raise RuntimeError(err)
+            lib = _LIBS[name] = _load(name, so)
+        return lib
+
+
+def build_all():
+    """Compile (in parallel) and load every kernel; returns wall seconds."""
+    t0 = time.perf_counter()
+    jobs = [(name, so) for name, so in ((n, _lib_path(n)) for n in KERNELS) if not so.exists()]
+    started = [(name, so, *_start_build(name, so)) for name, so in jobs]
+    errors = [e for e in (_finish_build(*job) for job in started) if e]
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for name in KERNELS:
+        _get(name)
+    return time.perf_counter() - t0
+
+
+def stream_ptr(t):
+    """Raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name, *args):
+    """Call kernel ``name``'s C entry point, count the launch, raise on error."""
+    lib = _get(name)
+    entry = KERNELS[name][0]
+    code = getattr(lib, entry)(*args)
+    if code != 0:
+        msg = lib.iehdg_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({code})")
+    LAUNCHES[name] += 1
+
+
+def dtype_code(dtype):
+    """C-interface scalar code of a torch dtype (raises on other types)."""
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.float64:
+        return 1
+    raise TypeError(f"CUDA kernels take float32 or float64, not {dtype}")
+
+
+def check_cuda(name, *tensors):
+    """Validate tensors handed to a kernel: one CUDA device, one dtype,
+    contiguous.  Returns (device index, dtype code)."""
+    dev = tensors[0].device
+    dtype = tensors[0].dtype
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all tensors must lie on one CUDA device")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    return dev.index, dtype_code(dtype)
+
+
+def seg_array(bounds):
+    """ctypes int64 array of segment bounds (at most 8 segments)."""
+    bounds = [int(b) for b in bounds]
+    if len(bounds) - 1 > 8:
+        raise ValueError("at most 8 column segments")
+    return (ctypes.c_longlong * len(bounds))(*bounds), len(bounds) - 1

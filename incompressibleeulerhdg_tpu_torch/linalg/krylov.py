@@ -1,0 +1,168 @@
+"""Restarted GMRES with iteration-count observables, as eager loops.
+
+Counterpart of incompressibleeulerhdg_tpu/linalg/krylov.py ``gmres`` (left
+preconditioned, with an optional nullspace projector) and ``gmres_right``
+(flexible, right preconditioned, with a fused preconditioner + operator).
+The JAX ``lax.while_loop`` becomes a Python loop: the Krylov basis and all
+vector work stay on the device, and each Arnoldi step makes ONE host read
+(the new Hessenberg column and its norm), on which the host applies the
+Givens rotations in float64 and decides whether to continue.
+
+Vectors are flat 1-D tensors; callers flatten their field layouts.
+"""
+
+import numpy as np
+import torch
+
+__all__ = ["gmres", "gmres_right", "deflate_constant"]
+
+
+def deflate_constant(nullvec):
+    """Projector v -> v - (nullvec . v) nullvec for a unit ``nullvec``."""
+
+    def proj(v):
+        return v - nullvec * torch.dot(nullvec, v)
+
+    return proj
+
+
+def _identity(v):
+    return v
+
+
+class _Arnoldi:
+    """One GMRES(m) cycle's basis, triangularised Hessenberg and Givens
+    rotations.  The basis V (m+1, n) lives on the device; R, the rotations
+    and g live on the host in float64."""
+
+    def __init__(self, r, beta, m, tiny):
+        self.m = m
+        self.tiny = tiny
+        self.V = r.new_zeros((m + 1, r.shape[0]))
+        self.V[0] = r / max(beta, tiny)
+        self.R = np.zeros((m, m))
+        self.cs = np.zeros(m)
+        self.sn = np.zeros(m)
+        self.g = np.zeros(m + 1)
+        self.g[0] = beta
+
+    def step(self, j, w):
+        """Orthogonalise w = op(V[j]) against V[:j+1] (Gram-Schmidt as two
+        dense products, as the JAX code does), append V[j+1], update the
+        rotations; returns |g[j+1]|, the residual estimate."""
+        Vj = self.V[: j + 1]
+        h = Vj @ w
+        w = w - Vj.T @ h
+        hnext = torch.linalg.vector_norm(w)
+        self.V[j + 1] = w / torch.clamp(hnext, min=self.tiny)
+        hh = torch.cat([h, hnext[None]]).cpu().numpy().astype(np.float64)
+        for i in range(j):
+            hi = self.cs[i] * hh[i] + self.sn[i] * hh[i + 1]
+            hh[i + 1] = -self.sn[i] * hh[i] + self.cs[i] * hh[i + 1]
+            hh[i] = hi
+        denom = np.hypot(hh[j], hh[j + 1])
+        if denom > self.tiny:
+            c, s = hh[j] / denom, hh[j + 1] / denom
+        else:
+            c, s = 1.0, 0.0
+        self.cs[j], self.sn[j] = c, s
+        hh[j] = denom
+        self.R[: j + 1, j] = hh[: j + 1]
+        self.g[j + 1] = -s * self.g[j]
+        self.g[j] = c * self.g[j]
+        return abs(self.g[j + 1])
+
+    def solve(self, n_ok, like):
+        """y of the leading n_ok x n_ok triangular system, as a tensor."""
+        y = np.zeros(n_ok)
+        for i in range(n_ok - 1, -1, -1):
+            y[i] = (self.g[i] - self.R[i, i + 1 : n_ok] @ y[i + 1 :]) / self.R[i, i]
+        return torch.as_tensor(y, dtype=like.dtype, device=like.device)
+
+
+def _tiny(dtype):
+    return 1e-300 if dtype == torch.float64 else 1e-30
+
+
+def _norm(v):
+    return float(torch.linalg.vector_norm(v))
+
+
+def gmres(matvec, b, *, M=None, rtol=1e-12, restart=30, maxiter=200, project=None):
+    """Left-preconditioned restarted GMRES from x = 0: solves ``M A x = M b``.
+
+    Converged when the preconditioned residual norm drops below
+    ``rtol * ||M b||``.  ``project`` is applied to b and to every
+    operator output (nullspace deflation).  A restart cycle that reduces the
+    residual by less than 5% ends the iteration (stagnation guard).
+
+    :returns: (x, iters, relres) with iters an int and relres a float
+    """
+    M = M or _identity
+    project = project or _identity
+    m = restart
+    tiny = _tiny(b.dtype)
+    b = project(b)
+    Mb_norm = _norm(M(b))
+    target = rtol * Mb_norm
+    x = torch.zeros_like(b)
+    res, iters, go = float("inf"), 0, True
+    while res > target and iters < maxiter and go:
+        r = M(project(b - matvec(x)))
+        beta = _norm(r)
+        arn = _Arnoldi(r, beta, m, tiny)
+        j, res_c = 0, beta
+        while j < m and res_c > target:
+            res_c = arn.step(j, M(project(matvec(arn.V[j]))))
+            j += 1
+        if j > 0:
+            x = x + arn.V[:j].T @ arn.solve(j, x)
+        go = j > 0 and res_c < 0.95 * res
+        res = res_c
+        iters += j
+    return x, iters, res / max(Mb_norm, tiny)
+
+
+def gmres_right(opM, matvec, b, *, rtol=1e-12, restart=30, maxiter=200):
+    """Right-preconditioned flexible GMRES from x = 0 with a fused
+    preconditioner.
+
+    ``opM(v) -> (M v, A M v)``.  The preconditioned directions z_j are
+    stored and x is rebuilt as ``x + Z y`` from them (re-applying M instead
+    floors the attainable residual in float32 at scale); ``matvec`` gives
+    the exact starting residual of each cycle.  Converged on the true
+    residual ``||b - A x|| <= rtol ||b||``; the returned relres
+    is recomputed from an exact final residual.  A non-finite residual stops
+    the cycle at its last finite step, and a non-finite iterate is never
+    returned.
+
+    :returns: (x, iters, relres) with iters an int and relres a float
+    """
+    m = restart
+    tiny = _tiny(b.dtype)
+    bnorm = _norm(b)
+    target = rtol * bnorm
+    x = torch.zeros_like(b)
+    res, iters, go = float("inf"), 0, True
+    while res > target and iters < maxiter and go:
+        r = b - matvec(x)
+        beta = _norm(r)
+        arn = _Arnoldi(r, beta, m, tiny)
+        Z = b.new_zeros((m, b.shape[0]))
+        j, res_c = 0, beta
+        while j < m and res_c > target and np.isfinite(res_c):
+            z, w = opM(arn.V[j])
+            Z[j] = z
+            res_c = arn.step(j, w)
+            j += 1
+        n_ok = j if np.isfinite(res_c) else max(j - 1, 0)
+        x_new = x + Z[:n_ok].T @ arn.solve(n_ok, x) if n_ok else x
+        if bool(torch.isfinite(x_new).all()):
+            x = x_new
+        else:
+            res_c = float("inf")
+        go = j > 0 and res_c < 0.95 * res
+        res = res_c
+        iters += j
+    relres = _norm(b - matvec(x)) / max(bnorm, tiny)
+    return x, iters, relres

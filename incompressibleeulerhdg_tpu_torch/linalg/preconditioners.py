@@ -1,0 +1,434 @@
+"""Assembled tentative operator, its colored Schwarz preconditioner, and
+kernels K1-K3.
+
+Counterpart of incompressibleeulerhdg_tpu/linalg/preconditioners.py on the
+flat FACTORED branch of uniform structured meshes (the branch the JAX CPU
+reference runs, preconditioners.py:562-592).  Per stage the tentative
+operator M - c f_impl is assembled batch-last with the 2x2 component
+structure factored out:
+
+    D  = I2 (x) Sown + Pcell[half]       Sown (d1, d1, nc), Pcell (2, nu, nu)
+    Bx = I2 (x) Ks01 + Bp[color]         Ks01 (d1, d1, nf), Bp (ncol, nu, nu)
+    Cx = I2 (x) Ks10 + Cp[color]
+
+together with the patch factors of the multiplicative colored facet-pair
+Schwarz sweep: the own-cell inverses Dinv (nu, nu, nc), their plus-cell
+copies Dinv0 (nu, nu, nf) and the per-facet Schur inverses Sinv (nu, nu, nf).
+
+The three kernels of the TPU package that apply these tables are hand-written
+CUDA here, each beside its plain PyTorch version (the JAX fallback):
+
+- K1 :func:`fact_apply`  (csrc/fact_apply.cu)  -- (I2 (x) A + P[segment]) x
+- K2 :func:`cross_pair`  (csrc/cross_pair.cu)  -- both cross applies in one pass
+- K3 :func:`patch_solve` (csrc/patch_solve.cu) -- one colour's patch solves
+
+A CPU tensor goes to the plain version; a CUDA tensor launches the kernel.
+"""
+
+from dataclasses import dataclass
+
+import torch
+
+from .. import kernels
+from ..ops import structured as st
+from ..ops.fields import interior_mask
+from .smallinv import gauss_jordan_inv_bl
+
+__all__ = [
+    "TentativeOperator",
+    "build_tentative_operator",
+    "dense_blocks",
+    "fact_apply",
+    "fact_apply_plain",
+    "cross_pair",
+    "cross_pair_plain",
+    "patch_solve",
+    "patch_solve_plain",
+]
+
+
+@dataclass
+class TentativeOperator:
+    """Per-stage factored tentative operator and its Schwarz factors."""
+
+    Dinv: torch.Tensor  # (nu, nu, nc) own-cell inverses
+    Sinv: torch.Tensor  # (nu, nu, nf) patch Schur inverses (identity on boundary)
+    Dinv0: torch.Tensor  # (nu, nu, nf) Dinv of each facet's plus cell
+    Sown: torch.Tensor  # (d1, d1, nc) scalar own-cell blocks
+    Pcell: torch.Tensor  # (2, nu, nu) per-half constant penalty blocks
+    Ks01: torch.Tensor  # (d1, d1, nf) scalar cross blocks, plus rows
+    Ks10: torch.Tensor  # (d1, d1, nf) scalar cross blocks, minus rows
+    Bp: torch.Tensor  # (ncol, nu, nu) per-colour constant cross penalty
+    Cp: torch.Tensor  # (ncol, nu, nu)
+
+
+def _bm(A, x):
+    """Batch-last block matvec: (n, n, m) x (n, m) -> (n, m)."""
+    return torch.einsum("ijn,jn->in", A, x)
+
+
+def _bm2(A, x):
+    """Scalar block applied to both components: (d1, d1, m) x (nu, m)."""
+    d1 = A.shape[0]
+    return torch.einsum("ijn,ajn->ain", A, x.reshape(2, d1, -1)).reshape(x.shape)
+
+
+def _kron2(A):
+    """I2 (x) A: (d1, d1, m) -> (nu, nu, m)."""
+    d1, _, m = A.shape
+    out = A.new_zeros((2, d1, 2, d1, m))
+    out[0, :, 0] = A
+    out[1, :, 1] = A
+    return out.reshape(2 * d1, 2 * d1, m)
+
+
+# ----------------------------------------------------------------------
+# K1: factored block apply
+# ----------------------------------------------------------------------
+
+
+def fact_apply_plain(A, P, bounds, x, aoff=0):
+    """Plain version of K1 (the JAX fallback ``_bm2(A, x) + P @ x``):
+    out[:, c] = (I2 (x) A[:, :, aoff + c] + P[s]) x[:, c] with s the segment
+    ``bounds[s] <= c < bounds[s + 1]``; zero penalty past ``bounds[-1]``."""
+    m = x.shape[1]
+    z = _bm2(A[:, :, aoff : aoff + m], x)
+    parts = [P[k] @ x[:, bounds[k] : bounds[k + 1]] for k in range(len(bounds) - 1)]
+    if m > bounds[-1]:
+        parts.append(x.new_zeros((x.shape[0], m - bounds[-1])))
+    return z + torch.cat(parts, dim=1)
+
+
+def fact_apply(A, P, bounds, x, aoff=0):
+    """K1: (I2 (x) A[:, :, aoff + c] + P[segment of c]) x[:, c] for every
+    column c of x (nu, m); A (d1, d1, M), P (nseg, nu, nu), ``bounds`` the
+    nseg + 1 segment offsets into x's columns."""
+    if x.device.type == "cpu":
+        return fact_apply_plain(A, P, bounds, x, aoff)
+    A, P, x = A.contiguous(), P.contiguous(), x.contiguous()
+    d1 = A.shape[0]
+    nu, m = x.shape
+    if A.shape[1] != d1 or nu != 2 * d1 or P.shape[1:] != (nu, nu) or \
+            P.shape[0] != len(bounds) - 1 or aoff + m > A.shape[2]:
+        raise ValueError(f"fact_apply: shapes A {tuple(A.shape)} P {tuple(P.shape)} x {tuple(x.shape)}")
+    dev, code = kernels.check_cuda("fact_apply", A, P, x)
+    out = torch.empty_like(x)
+    if m == 0:
+        return out
+    seg, nseg = kernels.seg_array(bounds)
+    kernels.launch("fact_apply", dev, code, d1, A.data_ptr(), A.shape[2], aoff,
+                   P.data_ptr(), seg, nseg, x.data_ptr(), out.data_ptr(), m,
+                   kernels.stream_ptr(x))
+    return out
+
+
+# ----------------------------------------------------------------------
+# K2: fused cross pair
+# ----------------------------------------------------------------------
+
+
+def cross_pair_plain(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
+    """Plain version of K2 (the JAX fallback: two factored applies)."""
+    return (fact_apply_plain(K01, Bp, bounds, x1, aoff),
+            fact_apply_plain(K10, Cp, bounds, x0, aoff))
+
+
+def cross_pair(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
+    """K2: y0 = (I2 (x) K01 + Bp[s]) x1 and y1 = (I2 (x) K10 + Cp[s]) x0 in
+    one pass over columns c of x0/x1 (nu, m) (tables at column aoff + c)."""
+    if x0.device.type == "cpu":
+        return cross_pair_plain(K01, K10, Bp, Cp, bounds, x0, x1, aoff)
+    K01, K10, Bp, Cp = K01.contiguous(), K10.contiguous(), Bp.contiguous(), Cp.contiguous()
+    x0, x1 = x0.contiguous(), x1.contiguous()
+    d1 = K01.shape[0]
+    nu, m = x0.shape
+    if K10.shape != K01.shape or x1.shape != x0.shape or nu != 2 * d1 or \
+            Bp.shape != Cp.shape or Bp.shape[1:] != (nu, nu) or \
+            Bp.shape[0] != len(bounds) - 1 or aoff + m > K01.shape[2]:
+        raise ValueError(f"cross_pair: shapes K {tuple(K01.shape)} P {tuple(Bp.shape)} x {tuple(x0.shape)}")
+    dev, code = kernels.check_cuda("cross_pair", K01, K10, Bp, Cp, x0, x1)
+    y0 = torch.empty_like(x0)
+    y1 = torch.empty_like(x0)
+    if m == 0:
+        return y0, y1
+    seg, nseg = kernels.seg_array(bounds)
+    kernels.launch("cross_pair", dev, code, d1, K01.data_ptr(), K10.data_ptr(),
+                   K01.shape[2], aoff, Bp.data_ptr(), Cp.data_ptr(), seg, nseg,
+                   x0.data_ptr(), x1.data_ptr(), y0.data_ptr(), y1.data_ptr(), m,
+                   kernels.stream_ptr(x0))
+    return y0, y1
+
+
+# ----------------------------------------------------------------------
+# K3: fused colour patch solve
+# ----------------------------------------------------------------------
+
+
+def patch_solve_plain(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
+    """Plain version of K3 (the JAX factored-branch composition,
+    preconditioners.py:1374-1379)."""
+    m = r0.shape[1]
+    seg = (0, m)
+    Di = Dinv0[:, :, off : off + m]
+    w = _bm(Di, r0)
+    t = r1 - fact_apply_plain(K10, Cp_k[None], seg, w, off)
+    y1 = _bm(Sinv[:, :, off : off + m], t)
+    y0 = _bm(Di, r0 - fact_apply_plain(K01, Bp_k[None], seg, y1, off))
+    return y0, y1
+
+
+def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
+    """K3: the exact 2x2 block-Schur patch solves of the facets at table
+    columns off .. off + m - 1 for residual sides r0/r1 (nu, m):
+
+        w = Dinv0 r0;  t = r1 - (I2 (x) K10 + Cp) w;  y1 = Sinv t;
+        y0 = Dinv0 (r0 - (I2 (x) K01 + Bp) y1)
+    """
+    if r0.device.type == "cpu":
+        return patch_solve_plain(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off)
+    ts = [t.contiguous() for t in (Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1)]
+    Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1 = ts
+    d1 = K01.shape[0]
+    nu, m = r0.shape
+    ld = Dinv0.shape[2]
+    if nu != 2 * d1 or Dinv0.shape != (nu, nu, ld) or Sinv.shape != Dinv0.shape or \
+            K01.shape != (d1, d1, ld) or K10.shape != K01.shape or \
+            Bp_k.shape != (nu, nu) or Cp_k.shape != (nu, nu) or \
+            r1.shape != r0.shape or off + m > ld:
+        raise ValueError(f"patch_solve: shapes Dinv0 {tuple(Dinv0.shape)} K {tuple(K01.shape)} r {tuple(r0.shape)}")
+    dev, code = kernels.check_cuda("patch_solve", *ts)
+    y0 = torch.empty_like(r0)
+    y1 = torch.empty_like(r0)
+    if m == 0:
+        return y0, y1
+    kernels.launch("patch_solve", dev, code, d1, Dinv0.data_ptr(), Sinv.data_ptr(),
+                   K01.data_ptr(), K10.data_ptr(), ld, off, Bp_k.data_ptr(),
+                   Cp_k.data_ptr(), r0.data_ptr(), r1.data_ptr(), y0.data_ptr(),
+                   y1.data_ptr(), m, kernels.stream_ptr(r0))
+    return y0, y1
+
+
+# ----------------------------------------------------------------------
+# per-stage build
+# ----------------------------------------------------------------------
+
+
+def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
+    """Assemble the factored blocks and the Schwarz factors of one stage.
+
+    The 2x2 cell patch [[D_plus, Bx], [Cx, D_minus]] of every interior facet
+    is factorised in block-Schur form: own-cell inverses (K4) plus the
+    per-facet Schur inverse of S = D_minus - Cx Dinv_plus Bx (K4, per
+    colour).  ``c`` = a_ii * dt is a float.
+    """
+    if geom.uniform is None or geom.shift is None:
+        raise NotImplementedError("the port assembles uniform structured meshes only")
+    star_bl, snq = star
+    d1 = geom.d1
+    nu = 2 * d1
+    nc, nf = geom.n_cells, geom.n_facets
+    dtype, dev = star_bl.dtype, star_bl.device
+    c = float(c)
+    upw = 1.0 if upwind else 0.0
+
+    # own-cell scalar blocks: mass + c * volume convection + facet terms
+    star_q = torch.einsum("qi,aic->aqc", geom.phi1, star_bl)
+    jinv = geom.jac_inv
+    R = torch.stack([jinv[b, 0] * star_q[0] + jinv[b, 1] * star_q[1] for b in (0, 1)])
+    Gvol = torch.einsum("q,qi,qjb->ijbq", geom.wq, geom.phi1, geom.gphi1)
+    S_own = c * geom.det_jac * torch.einsum("ijbq,bqc->ijc", Gvol, R)
+    S_own = S_own + geom.det_jac * geom.m1[:, :, None]
+
+    Gt = torch.einsum("tqi,tqj->tijq", geom.tphi1, geom.tphi1)
+    Pt = torch.einsum("q,tqi,tqj->tij", geom.wqf, geom.tphi1, geom.tphi1)
+    six = torch.arange(6, device=dev)[:, None]
+    Ct = star_bl.new_zeros((6, geom.wqf.shape[0], nc))
+    sn_slots = st.slot_gather(geom, snq)
+    flen_slots = st.slot_gather(geom, geom.flen)
+    for l in range(3):
+        int_l = 1.0 - geom.cf_bnd[l].to(dtype)
+        w_l = geom.wqf[:, None] * flen_slots[l][None, :]
+        sn_l = sn_slots[l]
+        coeff = (-c) * (0.5 * geom.cfsign[l] * sn_l - upw * torch.abs(sn_l)) * w_l * int_l
+        onehot = (geom.cf_tab[l][None, :] == six).to(dtype)
+        Ct = Ct + onehot[:, None, :] * coeff[None, :, :]
+    S_own = (S_own + torch.einsum("tijq,tqc->ijc", Gt, Ct)).contiguous()
+
+    # own-cell penalty: a constant per cell half (congruent facets)
+    Pcell = []
+    for h in (0, 1):
+        Ph = star_bl.new_zeros((2, d1, 2, d1))
+        for (t, _ln, nx_, ny_) in geom.uniform[1][h]:
+            nvec = torch.tensor([nx_, ny_], dtype=dtype, device=dev)
+            nn = nvec[:, None] * nvec[None, :]
+            Ph = Ph + (c * alpha) * nn[:, None, :, None] * Pt[t][None, :, None, :]
+        Pcell.append(Ph.reshape(nu, nu))
+    Pcell = torch.stack(Pcell)
+    nch = geom.shift[0] * geom.shift[1]
+    D_bl = _kron2(S_own)
+    D_bl[:, :, :nch] += Pcell[0][:, :, None]
+    D_bl[:, :, nch:] += Pcell[1][:, :, None]
+    Dinv_bl = gauss_jordan_inv_bl(D_bl)
+
+    # scalar cross blocks and per-colour constant cross penalties
+    U0 = geom.tphi1[geom.ftab[0]]  # (nf, nqf, d1)
+    U1 = geom.tphi1[geom.ftab[1]]
+    msk = interior_mask(geom, 1)
+    wf = geom.wqf[:, None] * geom.flen[None, :]
+    s01 = (-c) * (-0.5 * snq + upw * torch.abs(snq)) * wf * msk[None, :]
+    s10 = (-c) * (0.5 * snq + upw * torch.abs(snq)) * wf * msk[None, :]
+    K01s = torch.einsum("fqi,fqj,qf->ijf", U0, U1, s01).contiguous()
+    K10s = torch.einsum("fqi,fqj,qf->ijf", U1, U0, s10).contiguous()
+    Bp, Cp = [], []
+    for (t0, t1, _ln, nx_, ny_) in geom.uniform[0]:
+        PM = torch.einsum("q,qi,qj->ij", geom.wqf, geom.tphi1[t0], geom.tphi1[t1])
+        nvec = torch.tensor([nx_, ny_], dtype=dtype, device=dev)
+        nn = nvec[:, None] * nvec[None, :]
+        coef = (-c) * alpha
+        Bp.append(coef * (nn[:, None, :, None] * PM[None, :, None, :]).reshape(nu, nu))
+        Cp.append(coef * (nn[:, None, :, None] * PM.T[None, :, None, :]).reshape(nu, nu))
+    Bp = torch.stack(Bp)
+    Cp = torch.stack(Cp)
+
+    # patch Schur factors, colour by colour
+    Dup = st.grid_halves(geom, D_bl)[1]
+    Dinv_lo = st.grid_halves(geom, Dinv_bl)[0]
+    Sinv_parts, Dinv0_parts = [], []
+    for k, (l, lu, i0, j0, ni, nj, off) in enumerate(geom.shift[4]):
+        rect = (i0, j0, ni, nj)
+        b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
+        D1 = st.rect_flat(st.roll2(geom, Dup, off), rect)
+        Dinv0_k = st.rect_flat(Dinv_lo, rect)
+        Dinv0_parts.append(Dinv0_k)
+        Bx_k = _kron2(K01s[:, :, b0:b1]) + Bp[k][:, :, None]
+        Cx_k = _kron2(K10s[:, :, b0:b1]) + Cp[k][:, :, None]
+        Sc = D1 - torch.einsum("ikf,kjf->ijf", Cx_k,
+                               torch.einsum("ikf,kjf->ijf", Dinv0_k, Bx_k))
+        Sinv_parts.append(gauss_jordan_inv_bl(Sc))
+    nbnd = nf - geom.n_int
+    if nbnd:
+        eye = torch.eye(nu, dtype=dtype, device=dev)
+        Sinv_parts.append(eye[:, :, None].expand(nu, nu, nbnd))
+        Dinv0_parts.append(Dinv_bl[:, :, geom.fcells[0, geom.n_int :]])
+    return TentativeOperator(
+        Dinv=Dinv_bl,
+        Sinv=torch.cat(Sinv_parts, dim=2),
+        Dinv0=torch.cat(Dinv0_parts, dim=2),
+        Sown=S_own,
+        Pcell=Pcell,
+        Ks01=K01s,
+        Ks10=K10s,
+        Bp=Bp,
+        Cp=Cp,
+    )
+
+
+def dense_blocks(geom, op):
+    """Dense (D (nu, nu, nc), Bx (nu, nu, nf), Cx) tables of a factored
+    operator (test helper; the hot paths never materialise them)."""
+    nch = geom.shift[0] * geom.shift[1]
+    D = _kron2(op.Sown)
+    D[:, :, :nch] += op.Pcell[0][:, :, None]
+    D[:, :, nch:] += op.Pcell[1][:, :, None]
+    b = geom.fcol_bounds
+    msk = interior_mask(geom, 1)
+
+    def expand(Ks, Pk):
+        X = _kron2(Ks)
+        pen = torch.zeros_like(X)
+        for k in range(len(b) - 1):
+            pen[:, :, b[k] : b[k + 1]] = Pk[k][:, :, None]
+        return X + pen * msk
+
+    return D, expand(op.Ks01, op.Bp), expand(op.Ks10, op.Cp)
+
+
+# ----------------------------------------------------------------------
+# operator application and the fused colored sweep
+# ----------------------------------------------------------------------
+
+
+def _cross_pair_full(geom, op, u0, u1):
+    """Both full-field cross applies: (Ks01 + Bp) u1 and (Ks10 + Cp) u0."""
+    return cross_pair(op.Ks01, op.Ks10, op.Bp, op.Cp, geom.fcol_bounds, u0, u1)
+
+
+def _cross_pair_color(geom, op, k, x0, x1):
+    """Both cross applies of colour k on its facet values."""
+    b0 = geom.fcol_bounds[k]
+    return cross_pair(op.Ks01, op.Ks10, op.Bp[k : k + 1], op.Cp[k : k + 1],
+                      (0, x0.shape[1]), x0, x1, aoff=b0)
+
+
+def _matvec_bl(geom, op, ub):
+    """Assembled operator on a component-major (nu, nc) field."""
+    nch = geom.shift[0] * geom.shift[1]
+    r = fact_apply(op.Sown, op.Pcell, (0, nch, geom.n_cells), ub)
+    z0, z1 = _cross_pair_full(geom, op, st.gather_plus(geom, ub), st.gather_minus(geom, ub))
+    return r + st.scatter_sides_sum(geom, z0, z1 * interior_mask(geom, 2))
+
+
+def _patch_color_structured(geom, op, k, rb):
+    """Exact solves of colour k's facet-pair patches on a (nu, nc) residual;
+    zero on cells without a colour-k facet."""
+    l, lu, i0, j0, ni, nj, off = geom.shift[4][k]
+    rect = (i0, j0, ni, nj)
+    lo, up = st.grid_halves(geom, rb)
+    r0 = st.rect_flat(lo, rect)
+    r1 = st.rect_flat(st.roll2(geom, up, off), rect)
+    y0, y1 = patch_solve(op.Dinv0, op.Sinv, op.Ks01, op.Ks10, op.Bp[k], op.Cp[k],
+                         r0, r1, geom.fcol_bounds[k])
+    z_lo = st.rect_pad(geom, y0, rect)
+    z_up = st.roll2(geom, st.rect_pad(geom, y1, rect), (-off[0], -off[1]))
+    return st.grid_join(geom, z_lo, z_up)
+
+
+def _color_cov(geom, k):
+    """(nc,) mask of the cells colour k's patches cover."""
+    l, lu, i0, j0, ni, nj, off = geom.shift[4][k]
+    b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
+    lo = st.rect_pad(geom, torch.ones(b1 - b0, dtype=geom.dtype, device=geom.device),
+                     (i0, j0, ni, nj))
+    return st.grid_join(geom, lo, st.roll2(geom, lo, (-off[0], -off[1])))
+
+
+def _cross_offcolor(geom, op, k, dz):
+    """Cross-coupling part of ``A dz`` through the facets of colours != k."""
+    lo_dz, up_dz = st.grid_halves(geom, dz)
+    acc_lo = 0.0
+    acc_up = 0.0
+    for j, (l, lu, i0, j0, ni, nj, off) in enumerate(geom.shift[4]):
+        if j == k:
+            continue
+        rect = (i0, j0, ni, nj)
+        z0 = st.rect_flat(lo_dz, rect)
+        z1 = st.rect_flat(st.roll2(geom, up_dz, off), rect)
+        y0, y1 = _cross_pair_color(geom, op, j, z0, z1)
+        acc_lo = acc_lo + st.rect_pad(geom, y0, rect)
+        acc_up = acc_up + st.roll2(geom, st.rect_pad(geom, y1, rect), (-off[0], -off[1]))
+    return st.grid_join(geom, acc_lo, acc_up)
+
+
+def _colored_apply_fused_bl(geom, op, vb):
+    """Symmetric multiplicative colored sweep (colours forward, then back)
+    returning ``z = M v`` and the exact ``A z`` (one explicit matvec at the
+    end).
+
+    Each colour's pair solves are exact and each cell has at most one facet
+    per colour, so the residual after a colour is ``-(off-colour cross)(dz)``
+    on its patch cells and ``r - (off-colour cross)(dz)`` elsewhere: no
+    matvec between colours.  Needs every cell to carry an interior facet.
+    """
+    if geom.fcol_orphans:
+        raise ValueError("the fused sweep needs every cell to carry an interior facet")
+    ncol = len(geom.fcol_bounds) - 1
+    order = list(range(ncol)) + list(range(ncol - 2, -1, -1))
+    z = None
+    r = vb
+    for i, k in enumerate(order):
+        dz = _patch_color_structured(geom, op, k, r)
+        z = dz if z is None else z + dz
+        if i == len(order) - 1:
+            break
+        r = r * (1.0 - _color_cov(geom, k))[None, :] - _cross_offcolor(geom, op, k, dz)
+    return z, _matvec_bl(geom, op, z)

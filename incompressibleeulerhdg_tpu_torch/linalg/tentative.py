@@ -1,0 +1,42 @@
+"""Tentative (advective) velocity solve.
+
+Counterpart of incompressibleeulerhdg_tpu/linalg/tentative.py in its default
+fused mode: right-preconditioned flexible GMRES whose preconditioner is one
+symmetric multiplicative colored facet-pair Schwarz sweep returning ``M v``
+together with the exact ``A M v`` (one sweep + one matvec per Arnoldi
+step).  The operator is
+
+    a(u, w) = (w, u) - c * f_impl(w, u, Q*),    c = a_ii * dt
+"""
+
+from ..ops.fields import mass_apply
+from ..ops.forms import f_impl_apply
+from .krylov import gmres_right
+from .preconditioners import _matvec_bl, _colored_apply_fused_bl
+
+__all__ = ["tentative_matvec", "tentative_solve"]
+
+
+def tentative_matvec(geom, star, u, c, alpha=1.0, upwind=True):
+    """M - c * f_impl(., Q*) from the weak form (reference for the assembled
+    operator)."""
+    return mass_apply(geom, geom.m1, u) - c * f_impl_apply(geom, star, u, alpha, upwind)
+
+
+def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=28, maxiter=200):
+    """Solve (M - c f_impl) u = rhs with the stage's assembled
+    :class:`TentativeOperator` ``op``, preconditioned by one symmetric
+    colored sweep.  Returns (u (2, d1, nc), iters, relres)."""
+    shape = rhs.shape
+    nu, nc = shape[0] * shape[1], shape[2]
+
+    def matvec(v):
+        return _matvec_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
+
+    def opM(v):
+        z, Az = _colored_apply_fused_bl(geom, op, v.reshape(nu, nc))
+        return z.reshape(-1), Az.reshape(-1)
+
+    u, iters, relres = gmres_right(opM, matvec, rhs.reshape(-1), rtol=rtol,
+                                   restart=restart, maxiter=maxiter)
+    return u.reshape(shape), iters, relres

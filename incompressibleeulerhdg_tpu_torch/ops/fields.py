@@ -1,0 +1,132 @@
+"""Batched field evaluation primitives shared by all weak-form operators.
+
+Counterpart of incompressibleeulerhdg_tpu/ops/fields.py, structured-mesh
+subset.  Fields are batch-last: scalar ``(d, nc)``, vector ``(2, d, nc)``,
+trace ``(nt, nf)``; quadrature values ``([2,] nq, nc)`` / ``([2,] nqf, nf)``.
+Per-facet trace tables are the 6 reference tables indexed by each facet's
+orientation code ``ftab`` (2 * local facet + flip).
+"""
+
+import torch
+
+from .structured import gather_plus, gather_minus, scatter_sides_sum
+
+__all__ = [
+    "cell_values",
+    "cell_grads",
+    "cell_div",
+    "facet_traces",
+    "facet_trace_plus",
+    "trace_values",
+    "scatter_facets",
+    "facet_integrate_trace",
+    "cell_integrate",
+    "integral",
+    "mass_apply",
+    "mass_solve",
+    "l2_norm_sq",
+    "interior_mask",
+]
+
+
+def cell_values(phi, u):
+    """DG field at cell quadrature points: (..., nd, nc) -> (..., nq, nc)."""
+    return torch.einsum("qi,...ic->...qc", phi, u)
+
+
+def cell_grads(geom, gphi, u):
+    """Physical gradients at cell quadrature points: (..., 2, nq, nc), the
+    new axis (before nq) the derivative direction."""
+    gref = torch.einsum("qib,...ic->...bqc", gphi, u)
+    jinv = geom.jac_inv
+    return torch.stack(
+        [gref[..., 0, :, :] * jinv[0, a] + gref[..., 1, :, :] * jinv[1, a]
+         for a in (0, 1)],
+        dim=-3,
+    )
+
+
+def cell_div(geom, u):
+    """Divergence of a velocity field at cell quadrature points: (nq, nc)."""
+    g = cell_grads(geom, geom.gphi1, u)
+    return g[0, 0] + g[1, 1]
+
+
+def _eval_side(geom, tphi, u, side):
+    """Trace of a DG field on one facet side: (..., nqf, nf)."""
+    ug = gather_plus(geom, u) if side == 0 else gather_minus(geom, u)
+    U = tphi[geom.ftab[side]]  # (nf, nqf, nd)
+    return torch.einsum("fqi,...if->...qf", U, ug)
+
+
+def facet_traces(geom, tphi, u):
+    """Both-side traces at facet quadrature points, each (..., nqf, nf); the
+    minus trace is zero on boundary facets (mask with :func:`interior_mask`)."""
+    return _eval_side(geom, tphi, u, 0), _eval_side(geom, tphi, u, 1)
+
+
+def facet_trace_plus(geom, tphi, u):
+    """Plus-side trace only: (..., nqf, nf)."""
+    return _eval_side(geom, tphi, u, 0)
+
+
+def trace_values(geom, lam):
+    """DGT trace field at facet quadrature points: (nqf, nf)."""
+    return torch.einsum("qj,jf->qf", geom.tr, lam)
+
+
+def interior_mask(geom, ndim=2):
+    """(..., nf) float mask (1 on interior facets) with ndim-1 leading axes."""
+    m = (torch.arange(geom.n_facets, device=geom.device) < geom.n_int).to(geom.dtype)
+    return m.reshape((1,) * (ndim - 1) + (-1,))
+
+
+def _adjoint_side(geom, tphi, g, side):
+    """Integrate an integrand against one side's trace basis: (..., nd, nf)."""
+    U = tphi[geom.ftab[side]]  # (nf, nqf, nd)
+    w = geom.wqf[:, None] * geom.flen[None, :]
+    return torch.einsum("fqi,...qf->...if", U, w * g)
+
+
+def scatter_facets(geom, tphi, g0, g1):
+    """Adjoint of facet trace evaluation: accumulate facet integrands into
+    cells.  g0/g1 (..., nqf, nf) multiply the test function's plus/minus
+    trace; g1 is masked to interior facets."""
+    c0 = _adjoint_side(geom, tphi, g0, 0)
+    c1 = _adjoint_side(geom, tphi, g1 * interior_mask(geom, g1.ndim), 1)
+    return scatter_sides_sum(geom, c0, c1)
+
+
+def facet_integrate_trace(geom, integrand):
+    """Integrate against the DGT test basis: (nqf, nf) -> (nt, nf)."""
+    w = geom.wqf[:, None] * geom.flen[None, :]
+    return torch.einsum("qj,qf->jf", geom.tr, w * integrand)
+
+
+def cell_integrate(geom, phi, integrand):
+    """(..., nq, nc) -> (..., nd, nc): detJ * sum_q wq phi[q, i] g[..., q, c]."""
+    return geom.det_jac * torch.einsum("qi,...qc->...ic", geom.wq[:, None] * phi, integrand)
+
+
+def integral(geom, phi, u):
+    """Integral of a DG field over the domain (summed over components), as a
+    0-d tensor."""
+    vals = cell_values(phi, u)
+    return torch.einsum("c,q,...qc->", geom.det_jac, geom.wq, vals)
+
+
+def mass_apply(geom, mref, u):
+    """Block-diagonal DG mass matrix (affine cells: detJ * M_ref)."""
+    return geom.det_jac * torch.einsum("ij,...jc->...ic", mref, u)
+
+
+def mass_solve(geom, minv, r):
+    """Solve M u = r for the block-diagonal DG mass matrix."""
+    return torch.einsum("ij,...jc->...ic", minv, r) / geom.det_jac
+
+
+def l2_norm_sq(geom, phi, u):
+    """Squared L2 norm of a scalar (d, nc) or vector (2, d, nc) DG field."""
+    vals = cell_values(phi, u)
+    sq = vals**2 if vals.ndim == 2 else torch.sum(vals**2, dim=0)
+    return torch.einsum("c,q,qc->", geom.det_jac, geom.wq, sq)

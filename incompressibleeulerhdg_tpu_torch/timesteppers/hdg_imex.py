@@ -1,0 +1,272 @@
+"""HDG IMEX timesteppers, projection (Richardson) path.
+
+Counterpart of incompressibleeulerhdg_tpu/timesteppers/hdg_imex.py.  Per
+timestep:
+
+- evaluate the forcing at the stage times;
+- for each stage i = 1..s-1: BDM-project the previous stage velocity, build
+  the star fields and the stage's tentative operator, then run two
+  Richardson sweeps of (tentative GMRES solve -> condensed-trace
+  pressure solve -> increment); shift the stage pressure to zero mean;
+- final-stage mixed solve from the unrolled final residual;
+- pressure reconstruction from the new velocity.
+
+The stage loop is a Python loop on eager tensors.  Iteration counts of every
+solve are returned by :meth:`step` and averaged by :meth:`solve`.  The
+settings are the JAX package's defaults, fixed: upwind flux, 2 Richardson
+sweeps, tentative GMRES restart 28 with one symmetric colored sweep per
+application.
+"""
+
+import math
+
+import torch
+
+from incompressibleeulerhdg_tpu.timesteppers.tableaus import (
+    TABLEAUS,
+    unroll_residual_coefficients,
+)
+from incompressibleeulerhdg_tpu.utils.logging import PerformanceLog, Averager
+
+from .common import IncompressibleEuler
+from ..ops import fields as F
+from ..ops.forms import (
+    star_fields,
+    f_impl_apply,
+    pressure_gradient_apply,
+    weak_divergence_apply,
+    reconstruct_trace_rhs,
+)
+from ..ops.projection import project_bdm
+from ..ops.reconstruction import pressure_reconstruction_rhs
+from ..linalg.condense import build_condensed_system
+from ..linalg.gtmg import build_gtmg, gtmg_apply
+from ..linalg.pressure import pressure_solve
+from ..linalg.tentative import tentative_solve
+from ..linalg.preconditioners import build_tentative_operator
+
+__all__ = [
+    "IncompressibleEulerHDGIMEX",
+    "IncompressibleEulerHDGIMEXImplicit",
+    "IncompressibleEulerHDGIMEXARS2_232",
+    "IncompressibleEulerHDGIMEXARS3_443",
+    "IncompressibleEulerHDGIMEXSSP2_332",
+    "IncompressibleEulerHDGIMEXSSP3_433",
+]
+
+
+N_RICHARDSON = 2
+TENTATIVE_RESTART = 28
+ALPHA_PENALTY = 1.0
+TAU = 1.0
+
+
+class IncompressibleEulerHDGIMEX(IncompressibleEuler):
+    """IMEX timestepper parameterised by a Butcher tableau (projection path).
+
+    :arg disc: HDGDiscretisation
+    :arg dt: timestep size
+    """
+
+    tableau_name = None  # set by subclasses
+
+    def __init__(self, disc, dt):
+        super().__init__(disc, dt)
+        self.tau = TAU
+        tab = self.tableau = TABLEAUS[self.tableau_name]
+        alpha, beta, alpha_f, beta_f = unroll_residual_coefficients(tab)
+        t = lambda a: torch.as_tensor(a, dtype=disc.dtype, device=disc.device)
+        self._alpha, self._beta = t(alpha), t(beta)
+        self._alpha_f, self._beta_f = t(alpha_f), t(beta_f)
+        self._cs = build_condensed_system(disc, tau=self.tau)
+        self._gtmg = build_gtmg(disc, self._cs)
+        self.niter_tentative = Averager()
+        self.niter_pressure = Averager()
+        self.niter_final_pressure = Averager()
+        self.niter_pressure_reconstruction = Averager()
+        self.max_relres = 0.0
+
+    @property
+    def nstages(self):
+        return self.tableau.nstages
+
+    # ------------------------------------------------------------------
+    # phases of one step
+    # ------------------------------------------------------------------
+
+    def _shift(self, p, lam):
+        m = F.integral(self.geom, self.geom.phi0, p) / self.domain_volume
+        return p - m, lam - m
+
+    def _precond(self, v):
+        return gtmg_apply(self.geom, self._cs, self._gtmg, v)
+
+    def _pressure_solve(self, f_u, f_p, f_lam):
+        return pressure_solve(self.geom, self._cs, f_u, f_p, f_lam,
+                              rtol=self.rtol_pressure, precond=self._precond)
+
+    def _forcing(self, f_rhs_fn, tn):
+        """Forcing at all stage times: (s, 2, d1, nc)."""
+        c_expl = self.tableau.c_expl.tolist()
+        return torch.stack([
+            self.disc.interpolate_velocity(f_rhs_fn(tn + cj * self._dt)) for cj in c_expl
+        ])
+
+    def _weighted(self, coeffs, SQ, b_all):
+        """Unrolled (stage or final) residual: M (sum alpha Q + dt sum beta b)."""
+        comb = (torch.einsum("s,s...->...", coeffs[0], SQ)
+                + self._dt * torch.einsum("s,s...->...", coeffs[1], b_all))
+        return F.mass_apply(self.geom, self.geom.m1, comb)
+
+    def _sweep(self, star, op, r_i, Q_i, p_i, lam_i, c):
+        """One Richardson iteration: tentative solve -> pressure solve ->
+        increment.  The tentative rhs stays in WEAK form (f_impl_apply): the
+        assembled matvec differs by float32 assembly rounding and moves the
+        Richardson fixed point."""
+        geom = self.geom
+        b_tent = (r_i - F.mass_apply(geom, geom.m1, Q_i)
+                  + c * (f_impl_apply(geom, star, Q_i, ALPHA_PENALTY)
+                         + pressure_gradient_apply(geom, p_i, lam_i)))
+        dQt, n_t, rr_t = tentative_solve(geom, op, b_tent, rtol=self.rtol_tentative,
+                                         restart=TENTATIVE_RESTART)
+        f_p = (-1.0 / c) * weak_divergence_apply(geom, dQt)
+        du, dp, dlam, n_p, rr_p = self._pressure_solve(
+            torch.zeros_like(Q_i), f_p, torch.zeros_like(lam_i))
+        dp, dlam = self._shift(dp, dlam)
+        return Q_i + dQt + c * du, p_i + dp, lam_i + dlam, n_t, n_p, max(rr_t, rr_p)
+
+    def _reconstruct(self, f_rhs_fn, Q_new, tn):
+        """Pressure reconstruction from the new velocity."""
+        b_new = self.disc.interpolate_velocity(f_rhs_fn(tn + self._dt))
+        f_p, f_lam = pressure_reconstruction_rhs(self.geom, Q_new, b_new)
+        _, p_new, lam_new, n_pr, rr_pr = self._pressure_solve(
+            torch.zeros_like(Q_new), f_p, f_lam)
+        p_new, lam_new = self._shift(p_new, lam_new)
+        return p_new, lam_new, n_pr, rr_pr
+
+    def step(self, stage_Q, stage_p, stage_lam, tn, f_rhs_fn):
+        """One IMEX timestep from time ``tn`` (a float).
+
+        stage_Q/p/lam: lists (length s) of per-stage states carried over
+        between steps; index 0 holds the current solution.  Returns the new
+        lists and a dict of iteration counts and the largest Krylov relres.
+        """
+        geom = self.geom
+        s = self.nstages
+        dt = self._dt
+        a_impl = self.tableau.a_impl
+        stage_Q, stage_p, stage_lam = list(stage_Q), list(stage_p), list(stage_lam)
+        b_all = self._forcing(f_rhs_fn, tn)
+        its_t, its_p, relres = [], [], []
+        for i in range(1, s):
+            c = float(a_impl[i][i]) * dt
+            star = star_fields(geom, project_bdm(geom, self._proj, stage_Q[i - 1]))
+            op = build_tentative_operator(geom, star, c, ALPHA_PENALTY)
+            r_i = self._weighted((self._alpha[i], self._beta[i]), torch.stack(stage_Q), b_all)
+            Q_i, p_i, lam_i = stage_Q[i], stage_p[i], stage_lam[i]
+            for _ in range(N_RICHARDSON):
+                Q_i, p_i, lam_i, n_t, n_p, rr = self._sweep(star, op, r_i, Q_i, p_i, lam_i, c)
+                its_t.append(n_t)
+                its_p.append(n_p)
+                relres.append(rr)
+            del op, star
+            stage_p[i], stage_lam[i] = self._shift(p_i, lam_i)
+            stage_Q[i] = Q_i
+
+        r_fin = self._weighted((self._alpha_f, self._beta_f), torch.stack(stage_Q), b_all)
+        Q_new, _, _, n_fp, rr_fp = self._pressure_solve(
+            r_fin, r_fin.new_zeros((geom.d0, geom.n_cells)),
+            r_fin.new_zeros((self._cs.nt, geom.n_facets)))
+        p_new, lam_new, n_pr, rr_pr = self._reconstruct(f_rhs_fn, Q_new, tn)
+        stage_Q[0], stage_p[0], stage_lam[0] = Q_new, p_new, lam_new
+        counts = dict(
+            tentative=its_t,
+            pressure=its_p,
+            final_pressure=n_fp,
+            reconstruction=n_pr,
+            max_relres=max(relres + [rr_fp, rr_pr]),
+        )
+        return stage_Q, stage_p, stage_lam, counts
+
+    def _reconstruct_trace(self, Q, p):
+        """Facet mass solve for lambda(0): (nt, nf)."""
+        geom = self.geom
+        rhs = reconstruct_trace_rhs(geom, Q, p, tau=self.tau)
+        fac = self.tau * (1.0 + F.interior_mask(geom, 1))  # 2 tau interior, tau boundary
+        return torch.einsum("ij,jf->if", geom.mtinv, rhs) / (fac * geom.flen)[None, :]
+
+    def initial_state(self, Q_initial, p_initial):
+        """Stage lists at t = 0 from initial-condition expressions."""
+        Q0 = self.disc.interpolate_velocity(Q_initial)
+        p0 = self.shift_pressure(self.disc.interpolate_pressure(p_initial))
+        lam0 = self._reconstruct_trace(Q0, p0)
+        s = self.nstages
+        return ([Q0] + [torch.zeros_like(Q0)] * (s - 1),
+                [p0] + [torch.zeros_like(p0)] * (s - 1),
+                [lam0] + [torch.zeros_like(lam0)] * (s - 1))
+
+    def solve(self, Q_initial, p_initial, f_rhs, T_final, warmup=False):
+        """Propagate (Q, p) from the initial expressions to T_final.
+
+        :arg f_rhs: ``t -> ((x, y) -> (fx, fy))`` forcing factory
+        :arg warmup: take a single timestep only
+        :returns: (Q, p) final coefficient tensors
+        """
+        n_steps = self.get_timesteps(T_final, warmup)
+        stage_Q, stage_p, stage_lam = self.initial_state(Q_initial, p_initial)
+        for av in (self.niter_tentative, self.niter_pressure,
+                   self.niter_final_pressure, self.niter_pressure_reconstruction):
+            av.reset()
+        self.max_relres = 0.0
+        for k in range(n_steps):
+            with PerformanceLog("timestep"):
+                stage_Q, stage_p, stage_lam, counts = self.step(
+                    stage_Q, stage_p, stage_lam, k * self._dt, f_rhs)
+                if stage_Q[0].is_cuda:
+                    torch.cuda.synchronize(stage_Q[0].device)
+            for n in counts["tentative"]:
+                self.niter_tentative.update(n)
+            for n in counts["pressure"]:
+                self.niter_pressure.update(n)
+            self.niter_final_pressure.update(counts["final_pressure"])
+            self.niter_pressure_reconstruction.update(counts["reconstruction"])
+            r = counts["max_relres"]  # a NaN residual counts as diverged
+            self.max_relres = max(self.max_relres, float("inf") if math.isnan(r) else r)
+        print("average number of solver iterations")
+        print(40 * "-")
+        print(f"  tentative velocity its      : {self.niter_tentative.value:8.2f}")
+        print(f"  pressure its                : {self.niter_pressure.value:8.2f}")
+        print(f"  final pressure its          : {self.niter_final_pressure.value:8.2f}")
+        print(f"  pressure reconstruction its : {self.niter_pressure_reconstruction.value:8.2f}")
+        print(f"  max Krylov relative residual: {self.max_relres:8.2e}")
+        return stage_Q[0], stage_p[0]
+
+
+class IncompressibleEulerHDGIMEXImplicit(IncompressibleEulerHDGIMEX):
+    """First-order implicit method as IMEX."""
+
+    tableau_name = "imex_implicit"
+
+
+class IncompressibleEulerHDGIMEXARS2_232(IncompressibleEulerHDGIMEX):
+    """ARS2(2,3,2)."""
+
+    tableau_name = "imex_ars2_232"
+
+
+class IncompressibleEulerHDGIMEXARS3_443(IncompressibleEulerHDGIMEX):
+    """ARS3(4,4,3)."""
+
+    tableau_name = "imex_ars3_443"
+
+
+class IncompressibleEulerHDGIMEXSSP2_332(IncompressibleEulerHDGIMEX):
+    """SSP2(3,3,2), the main-path scheme."""
+
+    tableau_name = "imex_ssp2_332"
+
+
+class IncompressibleEulerHDGIMEXSSP3_433(IncompressibleEulerHDGIMEX):
+    """SSP3(4,3,3)."""
+
+    tableau_name = "imex_ssp3_433"

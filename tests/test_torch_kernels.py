@@ -1,0 +1,296 @@
+"""Kernels K1-K4 of the PyTorch port: their plain versions against the JAX
+package's Pallas kernels and JAX fallbacks, and (on a CUDA card only) the
+hand-written CUDA kernels against their plain versions.
+
+- float32: each plain version against the Pallas kernel run in interpret
+  mode on the CPU, with the tolerances of the JAX package's own kernel tests
+  (tests/test_structured.py, tests/test_linalg.py);
+- float64: each plain version against the JAX fallback path on a real
+  operator, at 1e-12 relative, including colour offsets and the misaligned
+  colour sizes of a non-periodic 16 x 8 mesh;
+- the CPU dispatch: a wrapper given CPU tensors runs its plain version.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh
+from incompressibleeulerhdg_tpu.fem.discretisation import HDGDiscretisation as JDisc
+from incompressibleeulerhdg_tpu.ops.forms import star_fields as j_star_fields
+from incompressibleeulerhdg_tpu.linalg import preconditioners as JP
+from incompressibleeulerhdg_tpu.linalg.smallinv import _gj_pallas, gauss_jordan_inv_bl as j_gj
+
+from incompressibleeulerhdg_tpu_torch import convert, kernels
+from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as TP
+from incompressibleeulerhdg_tpu_torch.linalg import smallinv as TI
+
+torch.set_num_threads(1)
+
+D1, BLOCK, NTILE = 6, 128, 3  # d1 = 6 is k = 1, an instantiated kernel width
+
+
+def f32(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def maxerr(a, b):
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+
+
+# ----------------------------------------------------------------------
+# float32: plain version vs the Pallas kernel (interpret mode)
+# ----------------------------------------------------------------------
+
+
+def test_fact_apply_plain_matches_pallas():
+    rng = np.random.default_rng(11)
+    nu, M = 2 * D1, BLOCK * NTILE
+    A, P, x = f32(rng, D1, D1, M), f32(rng, NTILE, nu, nu), f32(rng, nu, M)
+    tiles = tuple(BLOCK * i for i in range(NTILE + 1))
+    ref = JP._fact_pallas(JP.tile_table(jnp.asarray(A), BLOCK), jnp.asarray(P),
+                          jnp.asarray(x), BLOCK, interpret=True)
+    got = TP.fact_apply_plain(t(A), t(P), tiles, t(x))
+    assert maxerr(got, ref) <= 1e-4
+    # a nonzero offset: tiles 1, 2 only
+    ref2 = JP._fact_pallas(JP.tile_table(jnp.asarray(A), BLOCK), jnp.asarray(P[1:]),
+                           jnp.asarray(x[:, BLOCK:]), BLOCK, offset=BLOCK, interpret=True)
+    got2 = TP.fact_apply_plain(t(A), t(P[1:]), tiles[:3], t(x[:, BLOCK:]), aoff=BLOCK)
+    assert maxerr(got2, ref2) <= 1e-4
+
+
+def test_cross_pair_plain_matches_pallas():
+    rng = np.random.default_rng(17)
+    nu, M = 2 * D1, BLOCK * NTILE
+    K01, K10 = f32(rng, D1, D1, M), f32(rng, D1, D1, M)
+    BpT, CpT = f32(rng, NTILE, nu, nu), f32(rng, NTILE, nu, nu)
+    x0, x1 = f32(rng, nu, M), f32(rng, nu, M)
+    tiles = tuple(BLOCK * i for i in range(NTILE + 1))
+    tt = lambda a: JP.tile_table(jnp.asarray(a), BLOCK)
+    ref = JP._cross_pair_pallas(tt(K01), tt(K10), jnp.asarray(BpT), jnp.asarray(CpT),
+                                jnp.asarray(x0), jnp.asarray(x1), BLOCK, interpret=True)
+    got = TP.cross_pair_plain(t(K01), t(K10), t(BpT), t(CpT), tiles, t(x0), t(x1))
+    assert max(maxerr(got[0], ref[0]), maxerr(got[1], ref[1])) <= 1e-4
+    sl = slice(BLOCK, None)
+    ref2 = JP._cross_pair_pallas(tt(K01), tt(K10), jnp.asarray(BpT[1:]), jnp.asarray(CpT[1:]),
+                                 jnp.asarray(x0[:, sl]), jnp.asarray(x1[:, sl]), BLOCK,
+                                 offset=BLOCK, interpret=True)
+    got2 = TP.cross_pair_plain(t(K01), t(K10), t(BpT[1:]), t(CpT[1:]), tiles[:3],
+                               t(x0[:, sl]), t(x1[:, sl]), aoff=BLOCK)
+    assert max(maxerr(got2[0], ref2[0]), maxerr(got2[1], ref2[1])) <= 1e-4
+
+
+def test_patch_solve_plain_matches_pallas():
+    rng = np.random.default_rng(13)
+    nu, M = 2 * D1, BLOCK * NTILE
+    Di, Si = f32(rng, nu, nu, M), f32(rng, nu, nu, M)
+    K01, K10 = f32(rng, D1, D1, M), f32(rng, D1, D1, M)
+    Bp, Cp = f32(rng, nu, nu), f32(rng, nu, nu)
+    r0, r1 = f32(rng, nu, M), f32(rng, nu, M)
+    tt = lambda a: JP.tile_table(jnp.asarray(a), BLOCK)
+    sl = slice(BLOCK, None)  # the colour starts at a nonzero offset
+    ref = JP._patch_pallas(tt(Di), tt(Si), tt(K01), tt(K10), jnp.asarray(Bp), jnp.asarray(Cp),
+                           jnp.asarray(r0[:, sl]), jnp.asarray(r1[:, sl]), BLOCK,
+                           offset=BLOCK, interpret=True)
+    got = TP.patch_solve_plain(t(Di), t(Si), t(K01), t(K10), t(Bp), t(Cp),
+                               t(r0[:, sl]), t(r1[:, sl]), BLOCK)
+    scale = max(1.0, float(np.abs(np.asarray(ref[0])).max()))
+    # the Pallas test's tolerance (atol 1e-3), relative to the solution size
+    assert maxerr(got[0], ref[0]) <= 1e-3 * scale
+    assert maxerr(got[1], ref[1]) <= 1e-3 * scale
+
+
+def test_gauss_jordan_plain_matches_pallas():
+    rng = np.random.default_rng(5)
+    n, m = 8, 700  # m not a multiple of the Pallas block
+    A = (rng.standard_normal((n, n, m)) * 0.1 + 3.0 * np.eye(n)[:, :, None]).astype(np.float32)
+    ref = _gj_pallas(jnp.asarray(A), interpret=True)
+    assert maxerr(TI.gauss_jordan_inv_plain(t(A)), ref) <= 5e-5
+
+
+# ----------------------------------------------------------------------
+# float64: plain version vs the JAX fallback on a real operator
+# ----------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def misaligned():
+    """Flat factored operator on the misaligned non-periodic 16 x 8 mesh."""
+    disc = JDisc(unit_square_mesh(16, 8), 1)
+    geom = disc.geom
+    rng = np.random.default_rng(29)
+    star = j_star_fields(geom, jnp.asarray(rng.standard_normal((2, geom.d1, geom.n_cells))))
+    jop = JP.build_tentative_operator(geom, star, 0.01, 1.0, True)
+    assert jop.Sown is not None and jop.Ks01.ndim == 3
+    assert any((b1 - b0) % 128 for b0, b1 in zip(geom.fcol_bounds, geom.fcol_bounds[1:]))
+    return disc, geom, jop, convert.tentative_operator_from_jax(jop), rng
+
+
+def close64(got, ref):
+    ref = np.asarray(ref)
+    assert maxerr(got, ref) <= 1e-12 * np.abs(ref).max()
+
+
+def test_fact_apply_plain_matches_fallback(misaligned):
+    disc, geom, jop, top, rng = misaligned
+    nu = 2 * geom.d1
+    nch = geom.shift[0] * geom.shift[1]
+    xc = rng.standard_normal((nu, geom.n_cells))
+    close64(TP.fact_apply_plain(top.Sown, top.Pcell, (0, nch, geom.n_cells), t(xc)),
+            JP._fact_apply(geom, jop.Sown, jop.Pcell, jnp.asarray(xc), per="half"))
+    xf = rng.standard_normal((nu, geom.n_facets))
+    close64(TP.fact_apply_plain(top.Ks01, top.Bp, geom.fcol_bounds, t(xf)),
+            JP._fact_apply(geom, jop.Ks01, jop.Bp, jnp.asarray(xf), per="color"))
+    for k in range(len(geom.fcol_bounds) - 1):
+        b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
+        xk = xf[:, : b1 - b0]
+        close64(TP.fact_apply_plain(top.Ks10, top.Cp[k:k + 1], (0, b1 - b0), t(xk), aoff=b0),
+                JP._fact_color_apply(geom, jop.Ks10, jop.Cp[k], jnp.asarray(xk), k))
+
+
+def test_cross_pair_plain_matches_fallback(misaligned):
+    disc, geom, jop, top, rng = misaligned
+    nu = 2 * geom.d1
+    u0, u1 = rng.standard_normal((2, nu, geom.n_facets))
+    got = TP.cross_pair_plain(top.Ks01, top.Ks10, top.Bp, top.Cp, geom.fcol_bounds, t(u0), t(u1))
+    ref = JP._cross_pair_full(geom, jop, jnp.asarray(u0), jnp.asarray(u1))
+    close64(got[0], ref[0])
+    close64(got[1], ref[1])
+    k = 2
+    b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
+    got = TP.cross_pair_plain(top.Ks01, top.Ks10, top.Bp[k:k + 1], top.Cp[k:k + 1],
+                              (0, b1 - b0), t(u0[:, : b1 - b0]), t(u1[:, : b1 - b0]), aoff=b0)
+    ref = JP._cross_pair_color(geom, jop, k, jnp.asarray(u0[:, : b1 - b0]),
+                               jnp.asarray(u1[:, : b1 - b0]))
+    close64(got[0], ref[0])
+    close64(got[1], ref[1])
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_patch_solve_plain_matches_fallback(misaligned, k):
+    """K3's plain version inside the port's colour patch solve against the
+    JAX factored branch (preconditioners.py:1374-1379), every colour."""
+    disc, geom, jop, top, rng = misaligned
+    tgeom = convert.geom_from_jax(disc)
+    rb = rng.standard_normal((2 * geom.d1, geom.n_cells))
+    close64(TP._patch_color_structured(tgeom, top, k, t(rb)),
+            JP._patch_color_structured(geom, jop, k, jnp.asarray(rb)))
+
+
+def test_gauss_jordan_plain_matches_fallback():
+    rng = np.random.default_rng(6)
+    n, m = 20, 300
+    A = rng.standard_normal((n, n, m)) * 0.1 + 3.0 * np.eye(n)[:, :, None]
+    close64(TI.gauss_jordan_inv_plain(t(A)), j_gj(jnp.asarray(A)))
+    close64(TI.gauss_jordan_inv_plain(t(A)),
+            np.linalg.inv(A.transpose(2, 0, 1)).transpose(1, 2, 0))
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    """A CPU tensor goes to the plain version and launches no kernel."""
+    rng = np.random.default_rng(3)
+    kernels.reset_launches()
+    nu, m = 2 * D1, 50
+    A, P, x = (t(rng.standard_normal(s)) for s in ((D1, D1, m), (1, nu, nu), (nu, m)))
+    assert torch.equal(TP.fact_apply(A, P, (0, m), x), TP.fact_apply_plain(A, P, (0, m), x))
+    y = TP.cross_pair(A, A, P, P, (0, m), x, x)
+    assert all(torch.equal(a, b) for a, b in zip(y, TP.cross_pair_plain(A, A, P, P, (0, m), x, x)))
+    Di = t(rng.standard_normal((nu, nu, m)))
+    y = TP.patch_solve(Di, Di, A, A, P[0], P[0], x, x, 0)
+    ref = TP.patch_solve_plain(Di, Di, A, A, P[0], P[0], x, x, 0)
+    assert all(torch.equal(a, b) for a, b in zip(y, ref))
+    G = Di + 5.0 * torch.eye(nu, dtype=Di.dtype)[:, :, None]
+    assert torch.equal(TI.gauss_jordan_inv_bl(G), TI.gauss_jordan_inv_plain(G))
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+def test_kernel_sources_and_metadata():
+    """Every kernel has its CUDA source, names the Pallas function it
+    replaces, and notes the bound and the design in its header."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    assert set(kernels.KERNELS) == {"fact_apply", "cross_pair", "patch_solve", "gauss_jordan"}
+    for name, (entry, argtypes, replaces) in kernels.KERNELS.items():
+        src = (root / kernels.source_path(name)).read_text()
+        fn = replaces.split()[-1]
+        path, line = replaces.split()[0].split(":")
+        assert fn in src and entry in src and "What bounds it" in src
+        assert f"def {fn}(" in (root / path).read_text().splitlines()[int(line) - 1]
+
+
+# ----------------------------------------------------------------------
+# CUDA card only: each kernel against its plain version
+# ----------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_fact_apply(cuda, dtype):
+    g = torch.Generator().manual_seed(1)
+    d1, m = 10, 1000
+    A = torch.randn(d1, d1, m + 77, generator=g, dtype=dtype).to(cuda)
+    P = torch.randn(2, 2 * d1, 2 * d1, generator=g, dtype=dtype).to(cuda)
+    x = torch.randn(2 * d1, m, generator=g, dtype=dtype).to(cuda)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    assert _rel(TP.fact_apply(A, P, (0, 300, 900), x, aoff=77),
+                TP.fact_apply_plain(A, P, (0, 300, 900), x, aoff=77)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_cross_pair(cuda, dtype):
+    g = torch.Generator().manual_seed(2)
+    d1, m = 6, 1000
+    K = torch.randn(2, d1, d1, m + 5, generator=g, dtype=dtype).to(cuda)
+    P = torch.randn(2, 3, 2 * d1, 2 * d1, generator=g, dtype=dtype).to(cuda)
+    x = torch.randn(2, 2 * d1, m, generator=g, dtype=dtype).to(cuda)
+    b = (0, 100, 500, 990)
+    got = TP.cross_pair(K[0], K[1], P[0], P[1], b, x[0], x[1], aoff=5)
+    ref = TP.cross_pair_plain(K[0], K[1], P[0], P[1], b, x[0], x[1], aoff=5)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_patch_solve(cuda, dtype):
+    g = torch.Generator().manual_seed(3)
+    d1, ld, m, off = 10, 1200, 1001, 150
+    Di, Si = torch.randn(2, 2 * d1, 2 * d1, ld, generator=g, dtype=dtype).to(cuda)
+    K01, K10 = torch.randn(2, d1, d1, ld, generator=g, dtype=dtype).to(cuda)
+    Bp, Cp = torch.randn(2, 2 * d1, 2 * d1, generator=g, dtype=dtype).to(cuda)
+    r0, r1 = torch.randn(2, 2 * d1, m, generator=g, dtype=dtype).to(cuda)
+    got = TP.patch_solve(Di, Si, K01, K10, Bp, Cp, r0, r1, off)
+    ref = TP.patch_solve_plain(Di, Si, K01, K10, Bp, Cp, r0, r1, off)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_gauss_jordan(cuda, dtype):
+    g = torch.Generator().manual_seed(4)
+    for n in (12, 20, 32):
+        A = (0.1 * torch.randn(n, n, 777, generator=g, dtype=dtype)
+             + 3.0 * torch.eye(n, dtype=dtype)[:, :, None]).to(cuda)
+        tol = 5e-5 if dtype == torch.float32 else 1e-11
+        assert float((TI.gauss_jordan_inv_bl(A) - TI.gauss_jordan_inv_plain(A)).abs().max()) <= tol
