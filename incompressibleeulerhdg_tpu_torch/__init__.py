@@ -6,16 +6,21 @@ reference it is tested against.  The layout mirrors the JAX package:
 
 - ``fem``           ``Geom`` tensors and ``HDGDiscretisation``
 - ``ops``           structured facet<->cell moves, fields, forms, projection
-- ``linalg``        condensation, GMRES, GTMG, the tentative operator and
-                    its Schwarz sweep, small inverses
+- ``linalg``        condensation, GMRES and FGMRES, GTMG, the tentative
+                    operator and its Schwarz sweep, the monolithic stage
+                    solve, small inverses
 - ``models``        the Taylor-Green vortex
-- ``timesteppers``  HDG IMEX (projection path)
+- ``timesteppers``  HDG IMEX (projection or monolithic) and HDG implicit
+- ``cli``           the command-line driver (``python -m
+                    incompressibleeulerhdg_tpu_torch.cli.driver``)
+- ``tools``         the Gauss-Jordan kernel A/B on the card
 - ``kernels``       build and launch of the CUDA kernels in ``csrc/``
 - ``convert``       JAX package objects -> port objects (for the tests)
 
 The numpy-only modules of the JAX package (``mesh``, ``fem.quadrature``,
 ``fem.lagrange``, ``fem.spaces``, ``timesteppers.tableaus``,
-``utils.logging``) are imported, not copied; none of them imports JAX.
+``utils.logging``, ``utils.checkpoint``, ``utils.vtk``) are imported, not
+copied; none of them imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,234 @@
+"""Command-line driver of the PyTorch port.
+
+Counterpart of incompressibleeulerhdg_tpu/cli/driver.py with the same flags
+and printed lines: run banner, the stand-alone pressure-solver benchmark,
+the solve with its averaged iteration counts and timer table, the error
+norms against the analytic Taylor-Green vortex, and ``solution.vtu``.  The
+port runs the HDG discretisation on the structured unit square (Taylor-Green)
+with the HDG IMEX and HDG implicit schemes, projection or monolithic, on one
+device; ``--device`` picks it (default ``cuda``; no card is an error, never a
+silent CPU run).  Flags of the JAX driver that the port does not run yet
+raise NotImplementedError, naming their ROADMAP item, before any work.
+
+Run:  python -m incompressibleeulerhdg_tpu_torch.cli.driver --help
+"""
+
+import argparse
+
+import torch
+
+from incompressibleeulerhdg_tpu.utils.logging import PerformanceLog, log_summary
+from incompressibleeulerhdg_tpu.utils.vtk import sample_dg_at_corners, write_vtu
+
+from ..fem.discretisation import HDGDiscretisation
+from ..mesh import unit_square_mesh
+from ..models.problems import TaylorGreen
+from ..ops import fields as F
+from ..timesteppers.common import to_host
+from ..timesteppers.hdg_implicit import IncompressibleEulerHDGImplicit
+from ..timesteppers.hdg_imex import (
+    IncompressibleEulerHDGIMEXImplicit,
+    IncompressibleEulerHDGIMEXARS2_232,
+    IncompressibleEulerHDGIMEXARS3_443,
+    IncompressibleEulerHDGIMEXSSP2_332,
+    IncompressibleEulerHDGIMEXSSP3_433,
+)
+
+IMEX_CLASSES = {
+    "imex_implicit": IncompressibleEulerHDGIMEXImplicit,
+    "imex_ars2_232": IncompressibleEulerHDGIMEXARS2_232,
+    "imex_ars3_443": IncompressibleEulerHDGIMEXARS3_443,
+    "imex_ssp2_332": IncompressibleEulerHDGIMEXSSP2_332,
+    "imex_ssp3_433": IncompressibleEulerHDGIMEXSSP3_433,
+}
+
+
+def build_parser():
+    parser = argparse.ArgumentParser("Mesh specifications and polynomial degree")
+    parser.add_argument("--problem", choices=["taylorgreen", "kelvinhelmholtz", "shear"],
+                        default="taylorgreen", help="model problem to solve")
+    parser.add_argument("--nx", type=int, default=8, help="number of grid cells in x-direction")
+    parser.add_argument("--refinement", type=int, default=2,
+                        help="refinement level for unit disk mesh")
+    parser.add_argument("--degree", type=int, default=1, help="polynomial degree")
+    parser.add_argument("--tfinal", type=float, default=1.0, help="final time")
+    parser.add_argument("--kappa", type=float, default=0.5, help="exponential decay factor")
+    parser.add_argument("--dt", type=float, default=0.04, help="timestep size")
+    parser.add_argument("--discretisation", choices=["conforming", "dg", "hdg"], default="hdg",
+                        help="discretisation method")
+    parser.add_argument("--use_projection_method", action="store_true", default=False,
+                        help="use projection method for timestepping")
+    parser.add_argument("--richardson", type=int, default=2,
+                        help="number of Richardson iterations")
+    parser.add_argument("--flux", choices=["upwind", "centered"], default="upwind",
+                        help="numerical flux")
+    parser.add_argument("--timestepper", choices=["implicit", *IMEX_CLASSES],
+                        default="imex_ssp2_332", help="timestepper")
+    parser.add_argument("--forcing", choices=["exponential", "constant"], default="exponential",
+                        help="forcing")
+    parser.add_argument("--test_pressure_solver", action="store_true", default=False,
+                        help="carry out a single solve with the pressure solver for testing")
+    parser.add_argument("--warmup", action="store_true", default=False,
+                        help="only perform one timestep")
+    parser.add_argument("--animation", action="store_true", default=False,
+                        help="save velocity and pressure fields at the end of each timestep "
+                        "as an animation")
+    parser.add_argument("--tracer_advection", action="store_true", default=False,
+                        help="advect tracer field")
+    parser.add_argument("--dtype", choices=["float32", "float64"], default="float64",
+                        help="runtime floating-point precision (float32 for the card's fast path)")
+    parser.add_argument("--n_devices", type=int, default=1,
+                        help="distribute the solve over N devices")
+    parser.add_argument("--checkpoint_every", type=int, default=0,
+                        help="save the solver state every N timesteps (0 = off)")
+    parser.add_argument("--checkpoint_file", type=str, default="checkpoint.npz",
+                        help="checkpoint file path")
+    parser.add_argument("--resume", action="store_true", default=False,
+                        help="resume from --checkpoint_file (validated against this config)")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="device of every tensor (cuda: the first card; no card is an error)")
+    return parser
+
+
+def check_args(args):
+    """The JAX driver's checks of invalid combinations, then refusal of the
+    flags the port does not run yet."""
+    if args.discretisation == "conforming" and args.timestepper != "implicit":
+        raise RuntimeError(
+            f"Invalid timestepping method for conforming discretisation: '{args.timestepper}'")
+    if args.discretisation == "dg":
+        if args.use_projection_method:  # the JAX driver's assert, kept under -O too
+            raise AssertionError("Can not use projection method with DG discretsation")
+        if args.timestepper != "implicit":
+            raise RuntimeError(
+                f"Invalid timestepping method for DG discretisation: '{args.timestepper}'")
+    todo = []
+    if args.problem != "taylorgreen":
+        todo.append(f"--problem {args.problem} (ROADMAP Queue 1, M9)")
+    if args.discretisation == "dg":
+        todo.append("--discretisation dg (ROADMAP Queue 1, M10)")
+    if args.discretisation == "conforming":
+        todo.append("--discretisation conforming (ROADMAP Queue 1, M11)")
+    if args.tracer_advection:
+        todo.append("--tracer_advection (ROADMAP Queue 1, M12)")
+    if args.animation:
+        todo.append("--animation (ROADMAP Queue 1, M12)")
+    if args.n_devices > 1:
+        todo.append("--n_devices > 1 (ROADMAP Queue 1, M14)")
+    if todo:
+        raise NotImplementedError("not ported to PyTorch yet: " + "; ".join(todo))
+
+
+def select_device(name):
+    """torch.device for ``--device``; exits when a card is asked for and none
+    is visible."""
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda: torch.cuda.is_available() is False; "
+                             "run on a CUDA card or pass --device cpu")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return torch.device("cuda:0")
+    return torch.device("cpu")
+
+
+def make_timestepper(args, disc):
+    if args.timestepper == "implicit":
+        return IncompressibleEulerHDGImplicit(disc, args.dt, flux=args.flux,
+                                              use_projection_method=args.use_projection_method)
+    return IMEX_CLASSES[args.timestepper](disc, args.dt, flux=args.flux,
+                                          use_projection_method=args.use_projection_method,
+                                          n_richardson=args.richardson)
+
+
+def main(argv=None):
+    """Run the driver; returns a dict with the timestepper and, where
+    computed, the error norms or the pressure-solver benchmark's numbers."""
+    args = build_parser().parse_args(argv)
+    check_args(args)
+    device = select_device(args.device)
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+
+    with PerformanceLog("setup"):
+        mesh = unit_square_mesh(args.nx)
+        disc = HDGDiscretisation(mesh, args.degree, dtype=dtype, device=device)
+        timestepper = make_timestepper(args, disc)
+
+    print("+-------------------------------------------------+")
+    print("! timesteppers for incompressible Euler equations !")
+    print("! (PyTorch port)                                  !")
+    print("+-------------------------------------------------+")
+    print()
+    print(f"model problem = {args.problem}")
+    print(f"mesh size = {args.nx} x {args.nx}")
+    print(f"forcing = {args.forcing}")
+    print(f"kappa = {args.kappa}")
+    print(f"polynomial degree = {args.degree}")
+    print(f"final time = {args.tfinal}")
+    print(f"timestep size = {args.dt}")
+    print(f"discretisation = {args.discretisation}")
+    print(f"numerical flux = {args.flux}")
+    print(f"number of Richardson iterations = {args.richardson}")
+    print(f"use projection method = {args.use_projection_method}")
+    print(f"advect tracer = {args.tracer_advection}")
+    print(f"timestepping method = {timestepper.label}")
+    print(f"dtype = {args.dtype}")
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
+    print(f"torch device = {device} ({name})")
+    print()
+
+    result = {"timestepper": timestepper}
+    if args.test_pressure_solver:
+        if not hasattr(timestepper, "test_pressure_solver"):
+            raise RuntimeError("selected timestepper has no pressure solver to test")
+        print("=== Testing pressure solver")
+        print()
+        t_solve, its = timestepper.test_pressure_solver(seed=123456789)
+        print(f"    solve time           = {t_solve:12.4f} s")
+        print(f"    number of iterations = {its}")
+        return dict(result, solve_time=t_solve, iterations=its)
+
+    if args.warmup:
+        print("WARNING: performing a single timestep only!")
+        print()
+
+    model_problem = TaylorGreen(disc, args.forcing, args.kappa)
+    Q_0, p_0 = model_problem.initial_condition()
+    solve_kwargs = {}
+    if args.checkpoint_every or args.resume:
+        solve_kwargs = dict(checkpoint_every=args.checkpoint_every,
+                            checkpoint_path=args.checkpoint_file, resume=args.resume)
+    Q, p = timestepper.solve(Q_0, p_0, model_problem.f_rhs(), args.tfinal, warmup=args.warmup,
+                             **solve_kwargs)
+    result.update(Q=Q, p=p)
+
+    log_summary()
+
+    if not args.warmup:
+        geom = disc.geom
+        divQ = F.mass_solve(geom, geom.m0inv,
+                            F.cell_integrate(geom, geom.phi0, F.cell_div(geom, Q)))
+        fields = {
+            "velocity": sample_dg_at_corners(disc, to_host(Q)),
+            "pressure": sample_dg_at_corners(disc, to_host(p)),
+            "divergence": sample_dg_at_corners(disc, to_host(divQ)),
+        }
+        Q_exact, p_exact = model_problem.solution(args.tfinal)
+        Q_err_nrm = timestepper.velocity_error_norm(Q, Q_exact)
+        p_err_nrm = timestepper.pressure_error_norm(p, p_exact)
+        print()
+        print(f"velocity error = {Q_err_nrm}")
+        print(f"pressure error = {p_err_nrm}")
+        print()
+        fields["velocity_exact"] = sample_dg_at_corners(disc, to_host(Q_exact))
+        fields["velocity_error"] = sample_dg_at_corners(disc, to_host(Q - Q_exact))
+        fields["pressure_exact"] = sample_dg_at_corners(disc, to_host(p_exact))
+        fields["pressure_error"] = sample_dg_at_corners(disc, to_host(p - p_exact))
+        write_vtu("solution.vtu", mesh, fields)
+        print("wrote solution.vtu")
+        result.update(velocity_error=Q_err_nrm, pressure_error=p_err_nrm)
+    return result
+
+
+if __name__ == "__main__":
+    main()

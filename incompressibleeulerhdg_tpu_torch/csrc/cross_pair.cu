@@ -19,17 +19,59 @@
 // fused TPU kernel), every table entry read once for both velocity
 // components, and the per-colour (nu, nu) constants read through the L1
 // broadcast (one address per warp).
+//
+// Registers: the fused pass keeps four nu-long vectors a thread (both
+// sides' inputs and sums), 168 values at d1 = 21 -- above the 255 registers
+// of a thread in float64.  Above d1 = 15 the two sides therefore go to two
+// threads (blockIdx.y picks the side), each with two nu-vectors, the
+// register budget of K1; they share no table, so nothing is read twice.
+// (Running both sides one after the other in one thread made ptxas spill:
+// 15 KB of spill stores a thread in float32, sm_90a.)
 #include "common.cuh"
 
+// y[:, c] = (I2 (x) K[:, :, c] + P) x[:, c] for one column; P null: no penalty
 template <typename T, int D1>
-__global__ void __launch_bounds__(128) cross_pair_kernel(
+__device__ __forceinline__ void cross_side(const T* __restrict__ Kc, long long ldk,
+                                           const T* __restrict__ P,
+                                           const T* __restrict__ x,
+                                           T* __restrict__ y, long long m,
+                                           long long c) {
+  constexpr int NU = 2 * D1;
+  T v[NU], a[NU];
+#pragma unroll
+  for (int j = 0; j < NU; ++j) v[j] = x[j * m + c];
+#pragma unroll
+  for (int r = 0; r < NU; ++r) a[r] = T(0);
+  if (P != nullptr) {
+#pragma unroll
+    for (int r = 0; r < NU; ++r) {
+      T b = T(0);
+#pragma unroll
+      for (int j = 0; j < NU; ++j) b += __ldg(P + r * NU + j) * v[j];
+      a[r] = b;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < D1; ++i) {
+#pragma unroll
+    for (int j = 0; j < D1; ++j) {
+      const T k = __ldg(Kc + (long long)(i * D1 + j) * ldk);
+      a[i] += k * v[j];
+      a[D1 + i] += k * v[D1 + j];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < NU; ++r) y[r * m + c] = a[r];
+}
+
+// both sides of one column in one pass (d1 <= 15)
+template <typename T, int D1>
+__device__ __forceinline__ void cross_fused(
     const T* __restrict__ K01, const T* __restrict__ K10, long long ldk,
     long long aoff, const T* __restrict__ Bp, const T* __restrict__ Cp,
-    Segs seg, const T* __restrict__ x0, const T* __restrict__ x1,
-    T* __restrict__ y0, T* __restrict__ y1, long long m) {
+    const Segs& seg, const T* __restrict__ x0, const T* __restrict__ x1,
+    T* __restrict__ y0, T* __restrict__ y1, long long m, long long c) {
   constexpr int NU = 2 * D1;
-  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (c >= m) return;
   T v0[NU], v1[NU];
 #pragma unroll
   for (int j = 0; j < NU; ++j) {
@@ -81,12 +123,34 @@ __global__ void __launch_bounds__(128) cross_pair_kernel(
 }
 
 template <typename T, int D1>
+__global__ void __launch_bounds__(128) cross_pair_kernel(
+    const T* __restrict__ K01, const T* __restrict__ K10, long long ldk,
+    long long aoff, const T* __restrict__ Bp, const T* __restrict__ Cp,
+    Segs seg, const T* __restrict__ x0, const T* __restrict__ x1,
+    T* __restrict__ y0, T* __restrict__ y1, long long m) {
+  constexpr int NU = 2 * D1;
+  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (c >= m) return;
+  if constexpr (D1 > 15) {
+    const int s = segment_of(seg, c);
+    const bool side1 = blockIdx.y == 1;  // y1 from x0, else y0 from x1
+    const T* P = side1 ? Cp : Bp;
+    cross_side<T, D1>((side1 ? K10 : K01) + aoff + c, ldk,
+                      s >= 0 ? P + (long long)s * NU * NU : nullptr,
+                      side1 ? x0 : x1, side1 ? y1 : y0, m, c);
+  } else {
+    cross_fused<T, D1>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, c);
+  }
+}
+
+template <typename T, int D1>
 static void launch(const void* K01, const void* K10, long long ldk,
                    long long aoff, const void* Bp, const void* Cp, Segs seg,
                    const void* x0, const void* x1, void* y0, void* y1,
                    long long m, cudaStream_t stream) {
   const int threads = 128;
-  cross_pair_kernel<T, D1><<<blocks_for(m, threads), threads, 0, stream>>>(
+  const dim3 grid(blocks_for(m, threads), D1 > 15 ? 2 : 1);
+  cross_pair_kernel<T, D1><<<grid, threads, 0, stream>>>(
       (const T*)K01, (const T*)K10, ldk, aoff, (const T*)Bp, (const T*)Cp, seg,
       (const T*)x0, (const T*)x1, (T*)y0, (T*)y1, m);
 }
@@ -101,6 +165,7 @@ static int dispatch_d1(int d1, const void* K01, const void* K10, long long ldk,
     case 6: launch<T, 6>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st); break;
     case 10: launch<T, 10>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st); break;
     case 15: launch<T, 15>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st); break;
+    case 21: launch<T, 21>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -75,6 +75,7 @@ static int dispatch_d1(int d1, const void* A, long long lda, long long aoff,
     case 6: launch<T, 6>(A, lda, aoff, P, seg, x, out, m, stream); break;
     case 10: launch<T, 10>(A, lda, aoff, P, seg, x, out, m, stream); break;
     case 15: launch<T, 15>(A, lda, aoff, P, seg, x, out, m, stream); break;
+    case 21: launch<T, 21>(A, lda, aoff, P, seg, x, out, m, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

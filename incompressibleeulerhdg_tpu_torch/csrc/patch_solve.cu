@@ -29,11 +29,14 @@
 // flight.  Dinv0 is applied twice and streamed twice.
 #include "common.cuh"
 
-// threads per block: the three nu-vectors of a block stay below the 48 KB of
-// static shared memory up to d1 = 15 in float64
-template <typename T>
+// threads per block: the three nu-vectors of a block (3 nu BT values) stay
+// below the 48 KB of static shared memory: 128 (float32) or 64 (float64)
+// threads up to d1 = 15, half as many at d1 = 21 (32,256 bytes a block
+// either way).  The shared memory a thread needs, not the block size, bounds
+// the threads an SM holds, so the smaller blocks cost no occupancy.
+template <typename T, int D1>
 struct PatchThreads {
-  static constexpr int value = sizeof(T) == 4 ? 128 : 64;
+  static constexpr int value = (sizeof(T) == 4 ? 128 : 64) / (D1 > 15 ? 2 : 1);
 };
 
 template <typename T, int D1>
@@ -44,7 +47,7 @@ __global__ void patch_solve_kernel(
     const T* __restrict__ r0, const T* __restrict__ r1, T* __restrict__ y0,
     T* __restrict__ y1, long long m) {
   constexpr int NU = 2 * D1;
-  constexpr int BT = PatchThreads<T>::value;
+  constexpr int BT = PatchThreads<T, D1>::value;
   __shared__ T smem[3 * NU * BT];
   const int tid = threadIdx.x;
   T* u = smem + tid;            // r0, later r0 - (I2 (x) K01 + Bp) y1
@@ -133,7 +136,7 @@ static void launch(const void* Di, const void* Si, const void* K01,
                    const void* Bp, const void* Cp, const void* r0,
                    const void* r1, void* y0, void* y1, long long m,
                    cudaStream_t stream) {
-  constexpr int threads = PatchThreads<T>::value;
+  constexpr int threads = PatchThreads<T, D1>::value;
   patch_solve_kernel<T, D1><<<blocks_for(m, threads), threads, 0, stream>>>(
       (const T*)Di, (const T*)Si, (const T*)K01, (const T*)K10, ldt, off,
       (const T*)Bp, (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0, (T*)y1, m);
@@ -150,6 +153,7 @@ static int dispatch_d1(int d1, const void* Di, const void* Si, const void* K01,
     case 6: launch<T, 6>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st); break;
     case 10: launch<T, 10>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st); break;
     case 15: launch<T, 15>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st); break;
+    case 21: launch<T, 21>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -5,7 +5,9 @@ with a plain C interface (``build/torch_kernels/lib<name>-<hash>.so`` at the
 repository root, keyed by the hash of the sources and flags), loaded with
 ``ctypes``.  Nothing is compiled or loaded at import time: the first launch
 of a kernel builds it, and :func:`build_all` builds every kernel at once
-(in parallel), e.g. as a timed set-up phase.
+(in parallel), e.g. as a timed set-up phase.  nvcc runs with ``-Xptxas -v``;
+its report (registers, shared memory, spills of every instantiation) is kept
+beside each library and read by :func:`ptxas_report`.
 
 Every wrapper that launches a kernel adds one to ``LAUNCHES[name]`` at the
 launch, and only there, so a run can show which kernels its main path went
@@ -29,6 +31,7 @@ __all__ = [
     "build_all",
     "reset_launches",
     "launch",
+    "ptxas_report",
     "stream_ptr",
 ]
 
@@ -37,7 +40,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -66,6 +69,11 @@ KERNELS = {
         "iehdg_gauss_jordan",
         [_I, _I, _I, _P, _P, _L, _P],
         "incompressibleeulerhdg_tpu/linalg/smallinv.py:52 _gj_pallas",
+    ),
+    "gauss_jordan_select": (
+        "iehdg_gauss_jordan_select",
+        [_I, _I, _I, _P, _P, _L, _P],
+        "tools/microbench_gj.py:79 _gj_old",
     ),
 }
 
@@ -112,13 +120,26 @@ def _start_build(name, so):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp
 
 
+def _report_path(so):
+    return so.with_name(so.name + ".ptxas.txt")
+
+
 def _finish_build(name, so, proc, tmp):
-    """Wait for nvcc; install the library, or return nvcc's error report."""
+    """Wait for nvcc; install the library and its ptxas report, or return
+    nvcc's error report."""
     _, err = proc.communicate()
     if proc.returncode != 0:
         return f"nvcc failed for {name} (exit {proc.returncode}):\n{err}"
+    _report_path(so).write_text(err)
     os.replace(tmp, so)
     return None
+
+
+def ptxas_report(name):
+    """ptxas's ``-v`` report of kernel ``name``'s library (built first if
+    needed): registers, shared memory and spill bytes of every instantiation."""
+    _get(name)
+    return _report_path(_lib_path(name)).read_text()
 
 
 def _load(name, so):

@@ -1,8 +1,10 @@
 """Restarted GMRES with iteration-count observables, as eager loops.
 
 Counterpart of incompressibleeulerhdg_tpu/linalg/krylov.py ``gmres`` (left
-preconditioned, with an optional nullspace projector) and ``gmres_right``
-(flexible, right preconditioned, with a fused preconditioner + operator).
+preconditioned, with an optional nullspace projector), ``gmres_right``
+(flexible, right preconditioned, with a fused preconditioner + operator) and
+``fgmres`` (flexible, right preconditioned, for an inner-iteration
+preconditioner).
 The JAX ``lax.while_loop`` becomes a Python loop: the Krylov basis and all
 vector work stay on the device, and each Arnoldi step makes ONE host read
 (the new Hessenberg column and its norm), on which the host applies the
@@ -14,7 +16,7 @@ Vectors are flat 1-D tensors; callers flatten their field layouts.
 import numpy as np
 import torch
 
-__all__ = ["gmres", "gmres_right", "deflate_constant"]
+__all__ = ["gmres", "gmres_right", "fgmres", "deflate_constant"]
 
 
 def deflate_constant(nullvec):
@@ -166,3 +168,44 @@ def gmres_right(opM, matvec, b, *, rtol=1e-12, restart=30, maxiter=200):
         iters += j
     relres = _norm(b - matvec(x)) / max(bnorm, tiny)
     return x, iters, relres
+
+
+def fgmres(matvec, b, *, M=None, x0=None, rtol=1e-12, restart=30, maxiter=200, project=None):
+    """Flexible right-preconditioned restarted GMRES from ``x0`` (default 0).
+
+    ``M`` may itself be an inner iteration (a projection cycle with nested
+    Krylov solves): the preconditioned directions z_j = M v_j are stored and
+    x is rebuilt as ``x + Z y``.  ``project`` is applied to b, to every
+    cycle's starting residual and to every operator output.  Converged when
+    the Givens residual estimate drops below ``rtol * ||b||``; a restart
+    cycle that reduces it by less than 5% ends the iteration.
+
+    :returns: (x, iters, relres) with iters an int and relres the final
+        residual estimate over ||b||, a float
+    """
+    M = M or _identity
+    project = project or _identity
+    m = restart
+    tiny = _tiny(b.dtype)
+    b = project(b)
+    bnorm = _norm(b)
+    target = rtol * bnorm
+    x = torch.zeros_like(b) if x0 is None else x0
+    res, iters, go = float("inf"), 0, True
+    while res > target and iters < maxiter and go:
+        r = project(b - matvec(x))
+        beta = _norm(r)
+        arn = _Arnoldi(r, beta, m, tiny)
+        Z = b.new_zeros((m, b.shape[0]))
+        j, res_c = 0, beta
+        while j < m and res_c > target:
+            z = M(arn.V[j])
+            Z[j] = z
+            res_c = arn.step(j, project(matvec(z)))
+            j += 1
+        if j > 0:
+            x = x + Z[:j].T @ arn.solve(j, x)
+        go = j > 0 and res_c < 0.95 * res
+        res = res_c
+        iters += j
+    return x, iters, res / max(bnorm, tiny)

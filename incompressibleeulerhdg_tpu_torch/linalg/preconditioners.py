@@ -23,6 +23,8 @@ CUDA here, each beside its plain PyTorch version (the JAX fallback):
 - K3 :func:`patch_solve` (csrc/patch_solve.cu) -- one colour's patch solves
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel.
+The kernels are instantiated for the widths d1 = (k + 2)(k + 3)/2 of the
+degrees k = 0 .. 4; a wider table on the card raises.
 """
 
 from dataclasses import dataclass
@@ -38,6 +40,7 @@ __all__ = [
     "TentativeOperator",
     "build_tentative_operator",
     "dense_blocks",
+    "tentative_operator_matvec",
     "fact_apply",
     "fact_apply_plain",
     "cross_pair",
@@ -60,6 +63,16 @@ class TentativeOperator:
     Ks10: torch.Tensor  # (d1, d1, nf) scalar cross blocks, minus rows
     Bp: torch.Tensor  # (ncol, nu, nu) per-colour constant cross penalty
     Cp: torch.Tensor  # (ncol, nu, nu)
+
+
+CUDA_D1 = (3, 6, 10, 15, 21)  # k = 0 .. 4
+
+
+def _check_width(name, d1):
+    if d1 not in CUDA_D1:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is instantiated for d1 in {CUDA_D1} (k <= 4), "
+            f"got d1 = {d1} (ROADMAP Queue 1, 'k >= 5 on the card')")
 
 
 def _bm(A, x):
@@ -107,6 +120,7 @@ def fact_apply(A, P, bounds, x, aoff=0):
         return fact_apply_plain(A, P, bounds, x, aoff)
     A, P, x = A.contiguous(), P.contiguous(), x.contiguous()
     d1 = A.shape[0]
+    _check_width("fact_apply", d1)
     nu, m = x.shape
     if A.shape[1] != d1 or nu != 2 * d1 or P.shape[1:] != (nu, nu) or \
             P.shape[0] != len(bounds) - 1 or aoff + m > A.shape[2]:
@@ -141,6 +155,7 @@ def cross_pair(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
     K01, K10, Bp, Cp = K01.contiguous(), K10.contiguous(), Bp.contiguous(), Cp.contiguous()
     x0, x1 = x0.contiguous(), x1.contiguous()
     d1 = K01.shape[0]
+    _check_width("cross_pair", d1)
     nu, m = x0.shape
     if K10.shape != K01.shape or x1.shape != x0.shape or nu != 2 * d1 or \
             Bp.shape != Cp.shape or Bp.shape[1:] != (nu, nu) or \
@@ -189,6 +204,7 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
     ts = [t.contiguous() for t in (Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1)]
     Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1 = ts
     d1 = K01.shape[0]
+    _check_width("patch_solve", d1)
     nu, m = r0.shape
     ld = Dinv0.shape[2]
     if nu != 2 * d1 or Dinv0.shape != (nu, nu, ld) or Sinv.shape != Dinv0.shape or \
@@ -366,6 +382,12 @@ def _matvec_bl(geom, op, ub):
     r = fact_apply(op.Sown, op.Pcell, (0, nch, geom.n_cells), ub)
     z0, z1 = _cross_pair_full(geom, op, st.gather_plus(geom, ub), st.gather_minus(geom, ub))
     return r + st.scatter_sides_sum(geom, z0, z1 * interior_mask(geom, 2))
+
+
+def tentative_operator_matvec(geom, op, u):
+    """Assembled operator M - c f_impl of ``op`` on a (2, d1, nc) field."""
+    _, d1, nc = u.shape
+    return _matvec_bl(geom, op, u.reshape(2 * d1, nc)).reshape(u.shape)
 
 
 def _patch_color_structured(geom, op, k, rb):

@@ -2,7 +2,8 @@
 
 Counterpart of incompressibleeulerhdg_tpu/linalg/pressure.py: static
 condensation (linalg/condense.py), deflated left-preconditioned GMRES
-(restart 30, at most 500 iterations) on the trace system, back substitution.
+(restart 30, at most 500 iterations by default) on the trace system, back
+substitution.
 """
 
 from .condense import trace_matvec, condense_rhs, back_substitute
@@ -11,7 +12,8 @@ from .krylov import gmres, deflate_constant
 __all__ = ["pressure_solve"]
 
 
-def pressure_solve(geom, cs, f_u, f_p, f_lam, *, precond, rtol=1.0e-12):
+def pressure_solve(geom, cs, f_u, f_p, f_lam, *, precond, rtol=1.0e-12, restart=30,
+                   maxiter=500):
     """Solve the condensed HDG mixed-Poisson system for (u, p, lam).
 
     :arg f_u: u-row right-hand side (2, d1, nc)
@@ -27,7 +29,7 @@ def pressure_solve(geom, cs, f_u, f_p, f_lam, *, precond, rtol=1.0e-12):
         return trace_matvec(geom, cs, v.reshape(nt, -1)).reshape(-1)
 
     lam_flat, iters, relres = gmres(
-        matvec, g, M=precond, rtol=rtol, restart=30, maxiter=500,
+        matvec, g, M=precond, rtol=rtol, restart=restart, maxiter=maxiter,
         project=deflate_constant(cs.nullvec.reshape(-1)),
     )
     lam = lam_flat.reshape(nt, -1)

@@ -1,18 +1,32 @@
 """Batched unpivoted Gauss-Jordan inverse of batch-last (n, n, B) blocks.
 
 Counterpart of incompressibleeulerhdg_tpu/linalg/smallinv.py
-``gauss_jordan_inv_bl``.  On a CUDA tensor it launches kernel K4
-(``csrc/gauss_jordan.cu``, one warp per block, n <= 32); on a CPU tensor it
-runs :func:`gauss_jordan_inv_plain`, the pivot loop of the JAX fallback
-(smallinv.py:119-136).  No pivoting: the callers invert diagonally dominant
-preconditioner blocks (mass + penalty).
+``gauss_jordan_inv_bl``.  On a CUDA tensor it launches a kernel chosen by the
+block size: K4 (``csrc/gauss_jordan.cu``, one warp per block, one row per
+lane) for n <= 32, and K5 (``csrc/gauss_jordan_select.cu``, blocks staged in
+shared memory) for 32 < n <= 48, the JAX Pallas gate; larger blocks raise.
+On a CPU tensor it runs :func:`gauss_jordan_inv_plain`, the pivot loop of
+the JAX fallback (smallinv.py:119-136).  No pivoting: the callers invert
+diagonally dominant preconditioner blocks (mass + penalty).
+
+:func:`gauss_jordan_inv_select` is K5 on its own, beside its plain version
+:func:`gauss_jordan_inv_select_plain`: the masked-select formulation of
+``tools/microbench_gj.py:_gj_old``.
 """
 
 import torch
 
 from .. import kernels
 
-__all__ = ["gauss_jordan_inv_bl", "gauss_jordan_inv_plain"]
+__all__ = [
+    "gauss_jordan_inv_bl",
+    "gauss_jordan_inv_plain",
+    "gauss_jordan_inv_select",
+    "gauss_jordan_inv_select_plain",
+]
+
+WARP_MAX_N = 32  # K4: one row per lane of a warp
+SELECT_MAX_N = 48  # K5, and the JAX Pallas gate (smallinv.py:111-117)
 
 
 def gauss_jordan_inv_plain(A):
@@ -31,20 +45,52 @@ def gauss_jordan_inv_plain(A):
     return A
 
 
+def gauss_jordan_inv_select_plain(A):
+    """Plain PyTorch transcription of the masked-select pivot step of
+    ``_gj_old_kernel_factory``: every pivot rewrites the whole block."""
+    n = A.shape[0]
+    idx = torch.arange(n, device=A.device)[:, None]  # (n, 1)
+    for k in range(n):
+        mk = idx == k
+        pivot = A[k]
+        inv_p = 1.0 / pivot[k]
+        row_k = torch.where(mk, inv_p[None, :], pivot * inv_p[None, :])
+        f = torch.where(mk, 0.0, A[:, k, :])
+        A = A - f[:, None, :] * row_k[None, :, :]
+        A = torch.where(mk[None, :, :], (-f * inv_p[None, :])[:, None, :], A)
+        A = torch.where(mk[:, :, None], row_k[None, :, :], A)
+    return A
+
+
+def _launch_gj(name, A, max_n):
+    n, n2, B = A.shape
+    if n != n2:
+        raise ValueError(f"{name}: blocks must be square, got {tuple(A.shape)}")
+    if n > max_n:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel takes n <= {max_n}, got {n} "
+            "(ROADMAP Queue 1, 'k >= 5 on the card')")
+    A = A.contiguous()
+    dev, code = kernels.check_cuda(name, A)
+    out = torch.empty_like(A)
+    if B == 0:
+        return out
+    kernels.launch(name, dev, code, n, A.data_ptr(), out.data_ptr(), B, kernels.stream_ptr(A))
+    return out
+
+
+def gauss_jordan_inv_select(A):
+    """K5: inverse of every (n, n) block of a batch-last (n, n, B) tensor,
+    n <= 48, by the masked-select Gauss-Jordan."""
+    if A.device.type == "cpu":
+        return gauss_jordan_inv_select_plain(A)
+    return _launch_gj("gauss_jordan_select", A, SELECT_MAX_N)
+
+
 def gauss_jordan_inv_bl(A):
     """Inverse of every (n, n) block of a batch-last (n, n, B) tensor."""
     if A.device.type == "cpu":
         return gauss_jordan_inv_plain(A)
-    n, n2, B = A.shape
-    if n != n2:
-        raise ValueError(f"gauss_jordan_inv_bl: blocks must be square, got {tuple(A.shape)}")
-    if n > 32:
-        raise ValueError(f"gauss_jordan_inv_bl: the CUDA kernel takes n <= 32, got {n}")
-    A = A.contiguous()
-    dev, code = kernels.check_cuda("gauss_jordan", A)
-    out = torch.empty_like(A)
-    if B == 0:
-        return out
-    kernels.launch("gauss_jordan", dev, code, n, A.data_ptr(), out.data_ptr(),
-                   B, kernels.stream_ptr(A))
-    return out
+    if A.shape[0] <= WARP_MAX_N:
+        return _launch_gj("gauss_jordan", A, WARP_MAX_N)
+    return _launch_gj("gauss_jordan_select", A, SELECT_MAX_N)

@@ -23,7 +23,7 @@ def tentative_matvec(geom, star, u, c, alpha=1.0, upwind=True):
     return mass_apply(geom, geom.m1, u) - c * f_impl_apply(geom, star, u, alpha, upwind)
 
 
-def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=28, maxiter=200):
+def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200):
     """Solve (M - c f_impl) u = rhs with the stage's assembled
     :class:`TentativeOperator` ``op``, preconditioned by one symmetric
     colored sweep.  Returns (u (2, d1, nc), iters, relres)."""

@@ -20,12 +20,16 @@ class TaylorGreen:
         Q_s = (-cos((x-1/2) pi) sin((y-1/2) pi), sin((x-1/2) pi) cos((y-1/2) pi))
         p_s = (sin^2((x-1/2) pi) + sin^2((y-1/2) pi)) / 2
 
-    decaying as exp(-kappa t) under the forcing -kappa exp(-kappa t) Q_s (the
-    JAX package's default, exponential forcing).
+    decaying as exp(-kappa t) under the forcing -kappa exp(-kappa t) Q_s
+    (``forcing="exponential"``, the default) or linearly as 1 - kappa t under
+    the constant forcing -kappa Q_s (``forcing="constant"``).
     """
 
-    def __init__(self, disc, kappa=0.5):
+    def __init__(self, disc, forcing="exponential", kappa=0.5):
+        if forcing not in ("exponential", "constant"):
+            raise ValueError("Forcing must be 'constant' or 'exponential'")
         self.disc = disc
+        self.forcing = forcing
         self.kappa = kappa
 
     @staticmethod
@@ -47,9 +51,10 @@ class TaylorGreen:
     def f_rhs(self):
         """Forcing factory ``t -> ((x, y) -> (fx, fy))`` with t a float."""
         kappa = self.kappa
+        exponential = self.forcing == "exponential"
 
         def factory(t):
-            s = -kappa * math.exp(-kappa * float(t))
+            s = -kappa * math.exp(-kappa * float(t)) if exponential else -kappa
 
             def f(x, y):
                 qx, qy = self._Q_stationary(x, y)
@@ -62,6 +67,11 @@ class TaylorGreen:
     def solution(self, t):
         """Interpolated exact solution at time t with zero-mean pressure."""
         disc = self.disc
-        Q_exact = math.exp(-self.kappa * t) * disc.interpolate_velocity(self._Q_stationary)
-        p_exact = math.exp(-2.0 * self.kappa * t) * disc.interpolate_pressure(self._p_stationary)
+        if self.forcing == "exponential":
+            q_t, p_t = math.exp(-self.kappa * t), math.exp(-2.0 * self.kappa * t)
+        else:
+            q_t = 1.0 - self.kappa * t
+            p_t = q_t ** 2
+        Q_exact = q_t * disc.interpolate_velocity(self._Q_stationary)
+        p_exact = p_t * disc.interpolate_pressure(self._p_stationary)
         return Q_exact, p_exact - F.integral(disc.geom, disc.geom.phi0, p_exact)

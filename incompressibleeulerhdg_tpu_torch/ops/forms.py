@@ -1,9 +1,9 @@
 """Batched weak-form operators of the HDG incompressible Euler discretisation.
 
-Counterpart of incompressibleeulerhdg_tpu/ops/forms.py (the forms on the
-IMEX projection path).  Each function returns test-function coefficients of
-one form given trial fields as coefficient arrays; the derivations are in the
-JAX package's docstrings.  The facet normal ``n_f`` points out of the plus
+Counterpart of incompressibleeulerhdg_tpu/ops/forms.py (the forms of the
+HDG IMEX and implicit schemes, projection and monolithic).  Each function
+returns test-function coefficients of one form given trial fields as
+coefficient arrays; the derivations are in the JAX package's docstrings.  The facet normal ``n_f`` points out of the plus
 cell.
 """
 
@@ -25,6 +25,7 @@ __all__ = [
     "star_fields",
     "f_impl_apply",
     "pressure_gradient_apply",
+    "gamma_apply",
     "weak_divergence_apply",
     "weak_divergence_values",
     "trace_mass_apply",
@@ -103,6 +104,27 @@ def pressure_gradient_apply(geom, p, lam):
     lam_q = trace_values(geom, lam)
     nrm = geom.normal[:, None, :]
     return gw + scatter_facets(geom, geom.tphi1, -lam_q[None] * nrm, lam_q[None] * nrm)
+
+
+def gamma_apply(geom, u, p, lam, tau=1.0):
+    """Coefficients of ``Gamma(psi, mu, u, p, lambda; tau)``:
+
+    psi-rows: int psi div u + sum_sides tau (p_side - lambda) psi_side (dS)
+              + tau (p - lambda) psi (ds)
+    mu-rows:  int_dS mu [ (u+-u-).n + tau (p+ + p- - 2 lambda) ]
+              + int_ds mu [ u.n + tau (p - lambda) ]
+    """
+    rp = cell_integrate(geom, geom.phi0, cell_div(geom, u))
+    u0, u1 = facet_traces(geom, geom.tphi1, u)
+    p0, p1 = facet_traces(geom, geom.tphi0, p)
+    lam_q = trace_values(geom, lam)
+    rp = rp + scatter_facets(geom, geom.tphi0, tau * (p0 - lam_q), tau * (p1 - lam_q))
+    un0 = _dot_normal(geom, u0)
+    un1 = _dot_normal(geom, u1)
+    interior = (un0 - un1) + tau * (p0 + p1 - 2.0 * lam_q)
+    boundary = un0 + tau * (p0 - lam_q)
+    mask = interior_mask(geom)
+    return rp, facet_integrate_trace(geom, torch.where(mask > 0, interior, boundary))
 
 
 def weak_divergence_values(geom, Q_q, Qn0, Qn1):

@@ -1,25 +1,29 @@
-"""HDG IMEX timesteppers, projection (Richardson) path.
+"""HDG IMEX timesteppers: projection (Richardson) and monolithic stage solves.
 
 Counterpart of incompressibleeulerhdg_tpu/timesteppers/hdg_imex.py.  Per
 timestep:
 
 - evaluate the forcing at the stage times;
-- for each stage i = 1..s-1: BDM-project the previous stage velocity, build
-  the star fields and the stage's tentative operator, then run two
-  Richardson sweeps of (tentative GMRES solve -> condensed-trace
-  pressure solve -> increment); shift the stage pressure to zero mean;
+- for each stage i = 1..s-1: BDM-project the previous stage velocity and
+  build the star fields, then either (projection) build the stage's
+  tentative operator and run ``n_richardson`` sweeps of (tentative GMRES
+  solve -> condensed-trace pressure solve -> increment), or (monolithic)
+  solve the coupled (u, p, lambda) stage system by FGMRES from the carried
+  stage state (linalg/monolithic.py); shift the stage pressure to zero mean;
 - final-stage mixed solve from the unrolled final residual;
 - pressure reconstruction from the new velocity.
 
 The stage loop is a Python loop on eager tensors.  Iteration counts of every
-solve are returned by :meth:`step` and averaged by :meth:`solve`.  The
-settings are the JAX package's defaults, fixed: upwind flux, 2 Richardson
-sweeps, tentative GMRES restart 28 with one symmetric colored sweep per
-application.
+solve are returned by :meth:`step` and averaged by :meth:`solve`, which also
+checkpoints and resumes the full stage state.  The tentative GMRES keeps the
+JAX package's defaults (restart 28, one symmetric colored sweep per
+application); its ``IEHDG_*`` knobs are not ported.
 """
 
 import math
+import time
 
+import numpy as np
 import torch
 
 from incompressibleeulerhdg_tpu.timesteppers.tableaus import (
@@ -28,7 +32,7 @@ from incompressibleeulerhdg_tpu.timesteppers.tableaus import (
 )
 from incompressibleeulerhdg_tpu.utils.logging import PerformanceLog, Averager
 
-from .common import IncompressibleEuler
+from .common import IncompressibleEuler, synchronize
 from ..ops import fields as F
 from ..ops.forms import (
     star_fields,
@@ -44,6 +48,7 @@ from ..linalg.gtmg import build_gtmg, gtmg_apply
 from ..linalg.pressure import pressure_solve
 from ..linalg.tentative import tentative_solve
 from ..linalg.preconditioners import build_tentative_operator
+from ..linalg.monolithic import monolithic_stage_solve
 
 __all__ = [
     "IncompressibleEulerHDGIMEX",
@@ -55,25 +60,35 @@ __all__ = [
 ]
 
 
-N_RICHARDSON = 2
 TENTATIVE_RESTART = 28
 ALPHA_PENALTY = 1.0
 TAU = 1.0
 
 
 class IncompressibleEulerHDGIMEX(IncompressibleEuler):
-    """IMEX timestepper parameterised by a Butcher tableau (projection path).
+    """IMEX timestepper parameterised by a Butcher tableau.
 
     :arg disc: HDGDiscretisation
     :arg dt: timestep size
+    :arg flux: "upwind" or "centered"
+    :arg use_projection_method: Richardson + projection instead of monolithic
+    :arg n_richardson: number of Richardson iterations
+    :arg label: name of the method (default: the tableau's)
     """
 
     tableau_name = None  # set by subclasses
 
-    def __init__(self, disc, dt):
-        super().__init__(disc, dt)
-        self.tau = TAU
+    def __init__(self, disc, dt, flux="upwind", use_projection_method=True, n_richardson=2,
+                 label=None):
         tab = self.tableau = TABLEAUS[self.tableau_name]
+        super().__init__(disc, dt, label or tab.label)
+        if flux not in ("upwind", "centered"):
+            raise ValueError(f"flux must be 'upwind' or 'centered', got {flux!r}")
+        self.flux = flux
+        self.upwind = flux == "upwind"
+        self.use_projection_method = use_projection_method
+        self.n_richardson = n_richardson
+        self.tau = TAU
         alpha, beta, alpha_f, beta_f = unroll_residual_coefficients(tab)
         t = lambda a: torch.as_tensor(a, dtype=disc.dtype, device=disc.device)
         self._alpha, self._beta = t(alpha), t(beta)
@@ -125,7 +140,7 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         Richardson fixed point."""
         geom = self.geom
         b_tent = (r_i - F.mass_apply(geom, geom.m1, Q_i)
-                  + c * (f_impl_apply(geom, star, Q_i, ALPHA_PENALTY)
+                  + c * (f_impl_apply(geom, star, Q_i, ALPHA_PENALTY, self.upwind)
                          + pressure_gradient_apply(geom, p_i, lam_i)))
         dQt, n_t, rr_t = tentative_solve(geom, op, b_tent, rtol=self.rtol_tentative,
                                          restart=TENTATIVE_RESTART)
@@ -161,15 +176,26 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         for i in range(1, s):
             c = float(a_impl[i][i]) * dt
             star = star_fields(geom, project_bdm(geom, self._proj, stage_Q[i - 1]))
-            op = build_tentative_operator(geom, star, c, ALPHA_PENALTY)
             r_i = self._weighted((self._alpha[i], self._beta[i]), torch.stack(stage_Q), b_all)
             Q_i, p_i, lam_i = stage_Q[i], stage_p[i], stage_lam[i]
-            for _ in range(N_RICHARDSON):
-                Q_i, p_i, lam_i, n_t, n_p, rr = self._sweep(star, op, r_i, Q_i, p_i, lam_i, c)
-                its_t.append(n_t)
-                its_p.append(n_p)
-                relres.append(rr)
-            del op, star
+            if self.use_projection_method:
+                op = build_tentative_operator(geom, star, c, ALPHA_PENALTY, self.upwind)
+                for _ in range(self.n_richardson):
+                    Q_i, p_i, lam_i, n_t, n_p, rr = self._sweep(star, op, r_i, Q_i, p_i,
+                                                                lam_i, c)
+                    its_t.append(n_t)
+                    its_p.append(n_p)
+                    relres.append(rr)
+                del op
+            else:
+                Q_i, p_i, lam_i, n_m, _ = monolithic_stage_solve(
+                    geom, self._cs, star, r_i, c, precond=self._precond,
+                    alpha=ALPHA_PENALTY, upwind=self.upwind, rtol=10 * self.rtol_pressure,
+                    x0=(Q_i, p_i, lam_i))
+                its_t.append(n_m)
+                its_p.append(n_m)
+                relres.append(0.0)
+            del star
             stage_p[i], stage_lam[i] = self._shift(p_i, lam_i)
             stage_Q[i] = Q_i
 
@@ -205,25 +231,68 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
                 [p0] + [torch.zeros_like(p0)] * (s - 1),
                 [lam0] + [torch.zeros_like(lam0)] * (s - 1))
 
-    def solve(self, Q_initial, p_initial, f_rhs, T_final, warmup=False):
-        """Propagate (Q, p) from the initial expressions to T_final.
+    def test_pressure_solver(self, seed=123456789):
+        """Stand-alone pressure-solver benchmark: seeded random velocity rhs
+        b = (f_Q, w) dx, one warm-up solve, one timed solve at rtol 1e-12.
+        Returns (seconds, iterations)."""
+        geom = self.geom
+        rng = np.random.default_rng(seed)
+        f_Q = torch.as_tensor(rng.standard_normal((2, geom.d1, geom.n_cells)),
+                              dtype=self.disc.dtype, device=self.disc.device)
+        f_u = F.mass_apply(geom, geom.m1, f_Q)
+        zp = f_u.new_zeros((geom.d0, geom.n_cells))
+        zl = f_u.new_zeros((self._cs.nt, geom.n_facets))
+
+        def solve():
+            out = pressure_solve(geom, self._cs, f_u, zp, zl, rtol=1e-12,
+                                 precond=self._precond)
+            synchronize(out[0])
+            return out
+
+        solve()  # warm-up
+        t0 = time.perf_counter()
+        out = solve()
+        return time.perf_counter() - t0, int(out[3])
+
+    def _checkpoint_config(self):
+        return {
+            "scheme": self.tableau_name,
+            "n_cells": int(self.geom.n_cells),
+            "degree": int(self.degree),
+            "dt": float(self._dt),
+            "n_richardson": int(self.n_richardson),
+            "projection": bool(self.use_projection_method),
+        }
+
+    def solve(self, Q_initial, p_initial, f_rhs, T_final, warmup=False, checkpoint_every=0,
+              checkpoint_path="checkpoint.npz", resume=False):
+        """Propagate (Q, p) from the initial expressions to T_final;
+        ``self.step_counts`` keeps each step's iteration counts.
 
         :arg f_rhs: ``t -> ((x, y) -> (fx, fy))`` forcing factory
         :arg warmup: take a single timestep only
+        :arg checkpoint_every: save the full stage state every N steps (0 = off)
+        :arg resume: load ``checkpoint_path`` (validated against this run's
+            mesh/scheme/dt) and continue from its step
         :returns: (Q, p) final coefficient tensors
         """
         n_steps = self.get_timesteps(T_final, warmup)
         stage_Q, stage_p, stage_lam = self.initial_state(Q_initial, p_initial)
+        k_start = 0
+        if resume:
+            state, k_start = self.resume_state(checkpoint_path)
+            stage_Q, stage_p, stage_lam = state["stage_Q"], state["stage_p"], state["stage_lam"]
         for av in (self.niter_tentative, self.niter_pressure,
                    self.niter_final_pressure, self.niter_pressure_reconstruction):
             av.reset()
         self.max_relres = 0.0
-        for k in range(n_steps):
+        self.step_counts = []
+        for k in range(k_start, n_steps):
             with PerformanceLog("timestep"):
                 stage_Q, stage_p, stage_lam, counts = self.step(
                     stage_Q, stage_p, stage_lam, k * self._dt, f_rhs)
-                if stage_Q[0].is_cuda:
-                    torch.cuda.synchronize(stage_Q[0].device)
+                synchronize(stage_Q[0])
+            self.step_counts.append(counts)
             for n in counts["tentative"]:
                 self.niter_tentative.update(n)
             for n in counts["pressure"]:
@@ -232,13 +301,19 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
             self.niter_pressure_reconstruction.update(counts["reconstruction"])
             r = counts["max_relres"]  # a NaN residual counts as diverged
             self.max_relres = max(self.max_relres, float("inf") if math.isnan(r) else r)
+            if checkpoint_every and (k + 1) % checkpoint_every == 0:
+                self.save_state(checkpoint_path, k + 1, {
+                    "stage_Q": stage_Q, "stage_p": stage_p, "stage_lam": stage_lam})
         print("average number of solver iterations")
         print(40 * "-")
         print(f"  tentative velocity its      : {self.niter_tentative.value:8.2f}")
-        print(f"  pressure its                : {self.niter_pressure.value:8.2f}")
-        print(f"  final pressure its          : {self.niter_final_pressure.value:8.2f}")
+        if self.use_projection_method:
+            print(f"  pressure its                : {self.niter_pressure.value:8.2f}")
+            print(f"  final pressure its          : {self.niter_final_pressure.value:8.2f}")
         print(f"  pressure reconstruction its : {self.niter_pressure_reconstruction.value:8.2f}")
-        print(f"  max Krylov relative residual: {self.max_relres:8.2e}")
+        if self.use_projection_method:
+            print(f"  max Krylov relative residual: {self.max_relres:8.2e}")
+        print()
         return stage_Q[0], stage_p[0]
 
 

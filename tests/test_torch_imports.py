@@ -32,6 +32,10 @@ PORT_MODULES = [
     "incompressibleeulerhdg_tpu_torch.linalg.tentative",
     "incompressibleeulerhdg_tpu_torch.timesteppers.common",
     "incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex",
+    "incompressibleeulerhdg_tpu_torch.timesteppers.hdg_implicit",
+    "incompressibleeulerhdg_tpu_torch.linalg.monolithic",
+    "incompressibleeulerhdg_tpu_torch.cli.driver",
+    "incompressibleeulerhdg_tpu_torch.tools.microbench_gj",
     "chip_smoke",
 ]
 

@@ -1,4 +1,4 @@
-"""Kernels K1-K4 of the PyTorch port: their plain versions against the JAX
+"""Kernels K1-K5 of the PyTorch port: their plain versions against the JAX
 package's Pallas kernels and JAX fallbacks, and (on a CUDA card only) the
 hand-written CUDA kernels against their plain versions.
 
@@ -8,8 +8,14 @@ hand-written CUDA kernels against their plain versions.
 - float64: each plain version against the JAX fallback path on a real
   operator, at 1e-12 relative, including colour offsets and the misaligned
   colour sizes of a non-periodic 16 x 8 mesh;
-- the CPU dispatch: a wrapper given CPU tensors runs its plain version.
+- the CPU dispatch: a wrapper given CPU tensors runs its plain version;
+- k = 4 (d1 = 21, n = 42): the plain versions of K1-K3 against the JAX
+  fallbacks, K5's plain version against the ``_gj_old`` Pallas kernel of
+  tools/microbench_gj.py in interpret mode, and the widths the card refuses.
 """
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -215,13 +221,131 @@ def test_kernel_sources_and_metadata():
     import pathlib
 
     root = pathlib.Path(__file__).resolve().parents[1]
-    assert set(kernels.KERNELS) == {"fact_apply", "cross_pair", "patch_solve", "gauss_jordan"}
+    assert set(kernels.KERNELS) == {"fact_apply", "cross_pair", "patch_solve", "gauss_jordan",
+                                    "gauss_jordan_select"}
     for name, (entry, argtypes, replaces) in kernels.KERNELS.items():
         src = (root / kernels.source_path(name)).read_text()
         fn = replaces.split()[-1]
         path, line = replaces.split()[0].split(":")
         assert fn in src and entry in src and "What bounds it" in src
         assert f"def {fn}(" in (root / path).read_text().splitlines()[int(line) - 1]
+
+
+# ----------------------------------------------------------------------
+# k = 4: d1 = 21 tables and n = 42 inverses
+# ----------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """Flat factored operator at k = 4 on a non-periodic 4 x 2 mesh."""
+    disc = JDisc(unit_square_mesh(4, 2), 4)
+    geom = disc.geom
+    assert geom.d1 == 21
+    rng = np.random.default_rng(31)
+    star = j_star_fields(geom, jnp.asarray(rng.standard_normal((2, geom.d1, geom.n_cells))))
+    jop = JP.build_tentative_operator(geom, star, 0.01, 1.0, True)
+    assert jop.Sown is not None and jop.Ks01.ndim == 3
+    return disc, geom, jop, convert.tentative_operator_from_jax(jop), rng
+
+
+def test_fact_apply_plain_matches_fallback_k4(wide):
+    disc, geom, jop, top, rng = wide
+    nch = geom.shift[0] * geom.shift[1]
+    xc = rng.standard_normal((42, geom.n_cells))
+    close64(TP.fact_apply_plain(top.Sown, top.Pcell, (0, nch, geom.n_cells), t(xc)),
+            JP._fact_apply(geom, jop.Sown, jop.Pcell, jnp.asarray(xc), per="half"))
+    xf = rng.standard_normal((42, geom.n_facets))
+    close64(TP.fact_apply_plain(top.Ks01, top.Bp, geom.fcol_bounds, t(xf)),
+            JP._fact_apply(geom, jop.Ks01, jop.Bp, jnp.asarray(xf), per="color"))
+
+
+def test_cross_pair_plain_matches_fallback_k4(wide):
+    disc, geom, jop, top, rng = wide
+    u0, u1 = rng.standard_normal((2, 42, geom.n_facets))
+    got = TP.cross_pair_plain(top.Ks01, top.Ks10, top.Bp, top.Cp, geom.fcol_bounds, t(u0), t(u1))
+    ref = JP._cross_pair_full(geom, jop, jnp.asarray(u0), jnp.asarray(u1))
+    close64(got[0], ref[0])
+    close64(got[1], ref[1])
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_patch_solve_plain_matches_fallback_k4(wide, k):
+    disc, geom, jop, top, rng = wide
+    rb = rng.standard_normal((42, geom.n_cells))
+    close64(TP._patch_color_structured(convert.geom_from_jax(disc), top, k, t(rb)),
+            JP._patch_color_structured(geom, jop, k, jnp.asarray(rb)))
+
+
+def _gj_old_interpret(A, block):
+    """tools/microbench_gj.py's ``_gj_old`` Pallas kernel in interpret mode.
+    Importing the tool sets three jax.config values; they are restored."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    names = ("jax_default_matmul_precision", "jax_compilation_cache_dir",
+             "jax_persistent_cache_min_compile_time_secs")
+    saved = {n: getattr(jax.config, n) for n in names}
+    try:
+        path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "microbench_gj.py"
+        spec = importlib.util.spec_from_file_location("_microbench_gj", path)
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+    finally:
+        for n, v in saved.items():
+            jax.config.update(n, v)
+    n, _, m = A.shape
+    spec = pl.BlockSpec((n, n, block), lambda i: (0, 0, i))
+    return pl.pallas_call(tool._gj_old_kernel_factory(n), grid=(m // block,), in_specs=[spec],
+                          out_specs=spec, out_shape=jax.ShapeDtypeStruct(A.shape, A.dtype),
+                          interpret=True)(A)
+
+
+@pytest.mark.parametrize("n, dtype", [(8, np.float32), (42, np.float32), (42, np.float64)])
+def test_gauss_jordan_select_plain_matches_pallas(n, dtype):
+    rng = np.random.default_rng(n)
+    A = (rng.standard_normal((n, n, 256)) * 0.1 + 3.0 * np.eye(n)[:, :, None]).astype(dtype)
+    ref = _gj_old_interpret(jnp.asarray(A), 128)
+    got = TI.gauss_jordan_inv_select_plain(t(A))
+    if dtype == np.float32:
+        assert maxerr(got, ref) <= 5e-5
+    else:
+        close64(got, ref)
+        close64(got, np.linalg.inv(A.transpose(2, 0, 1)).transpose(1, 2, 0))
+
+
+def test_gauss_jordan_select_on_cpu():
+    """K5's wrapper on CPU tensors is its plain version; the main-path
+    dispatch inverts n = 42 blocks on the CPU too."""
+    rng = np.random.default_rng(9)
+    A = t(rng.standard_normal((42, 42, 30)) * 0.1 + 3.0 * np.eye(42)[:, :, None])
+    kernels.reset_launches()
+    assert torch.equal(TI.gauss_jordan_inv_select(A), TI.gauss_jordan_inv_select_plain(A))
+    close64(TI.gauss_jordan_inv_bl(A), TI.gauss_jordan_inv_select_plain(A).numpy())
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+def test_card_refuses_widths_beyond_k4():
+    """On the card, d1 > 21 (k >= 5) and n > 48 raise NotImplementedError
+    naming the ROADMAP item, before any launch; n <= 48 passes the width
+    check (and fails only for want of a CUDA tensor)."""
+    d1 = 28
+    A = torch.empty(d1, d1, 10, device="meta")
+    Pm = torch.empty(1, 2 * d1, 2 * d1, device="meta")
+    x = torch.empty(2 * d1, 10, device="meta")
+    D = torch.empty(2 * d1, 2 * d1, 10, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TP.fact_apply(A, Pm, (0, 10), x)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TP.cross_pair(A, A, Pm, Pm, (0, 10), x, x)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TP.patch_solve(D, D, A, A, Pm[0], Pm[0], x, x, 0)
+    G = torch.empty(49, 49, 10, device="meta")
+    for fn in (TI.gauss_jordan_inv_bl, TI.gauss_jordan_inv_select):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(G)
+    with pytest.raises(ValueError, match="CUDA"):
+        TI.gauss_jordan_inv_bl(torch.empty(42, 42, 10, device="meta"))
 
 
 # ----------------------------------------------------------------------
@@ -294,3 +418,46 @@ def test_cuda_gauss_jordan(cuda, dtype):
              + 3.0 * torch.eye(n, dtype=dtype)[:, :, None]).to(cuda)
         tol = 5e-5 if dtype == torch.float32 else 1e-11
         assert float((TI.gauss_jordan_inv_bl(A) - TI.gauss_jordan_inv_plain(A)).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernels_d1_21(cuda, dtype):
+    """K1-K3 at the k = 4 width against their plain versions, with a colour
+    offset and a column count that is not a multiple of the thread block."""
+    g = torch.Generator().manual_seed(5)
+    d1, ld, m, off = 21, 1300, 1001, 150
+    nu = 2 * d1
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype).to(cuda)
+    A, K01, K10 = rnd(d1, d1, ld), rnd(d1, d1, ld), rnd(d1, d1, ld)
+    P3, Q3 = rnd(3, nu, nu), rnd(3, nu, nu)
+    x0, x1 = rnd(nu, m), rnd(nu, m)
+    Di, Si = rnd(nu, nu, ld), rnd(nu, nu, ld)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    b = (0, 100, 500, 990)
+    assert _rel(TP.fact_apply(A, P3, b, x0, aoff=off),
+                TP.fact_apply_plain(A, P3, b, x0, aoff=off)) <= tol
+    got = TP.cross_pair(K01, K10, P3, Q3, b, x0, x1, aoff=off)
+    ref = TP.cross_pair_plain(K01, K10, P3, Q3, b, x0, x1, aoff=off)
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
+    got = TP.patch_solve(Di, Si, K01, K10, P3[0], Q3[0], x0, x1, off)
+    ref = TP.patch_solve_plain(Di, Si, K01, K10, P3[0], Q3[0], x0, x1, off)
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_gauss_jordan_select(cuda, dtype):
+    """K5 against the select formulation's plain version at n = 20, 42, 48,
+    and the main-path dispatch of n = 42 blocks to K5."""
+    g = torch.Generator().manual_seed(6)
+    tol = 5e-5 if dtype == torch.float32 else 1e-11
+    for n in (20, 42, 48):
+        A = (0.1 * torch.randn(n, n, 777, generator=g, dtype=dtype)
+             + 3.0 * torch.eye(n, dtype=dtype)[:, :, None]).to(cuda)
+        ref = TI.gauss_jordan_inv_select_plain(A)
+        assert float((TI.gauss_jordan_inv_select(A) - ref).abs().max()) <= tol
+    kernels.reset_launches()
+    assert float((TI.gauss_jordan_inv_bl(A[:42, :42].contiguous())
+                  - TI.gauss_jordan_inv_plain(A[:42, :42])).abs().max()) <= tol
+    assert kernels.LAUNCHES["gauss_jordan_select"] == 1 and kernels.LAUNCHES["gauss_jordan"] == 0
