@@ -12,7 +12,12 @@ Phases, each printing its own lines:
 3. each kernel K1-K4 against its plain PyTorch version on the card, at the
    main path's shapes (256^2, k=2), in float32 and float64, with a nonzero
    colour offset and a colour size that is not a multiple of the thread
-   block; prints the errors and the median CUDA-event time of both;
+   block (K2, K3: also a table of odd width at an odd offset); prints the
+   errors, the device time per call of both (torch.profiler: the kernel's
+   own duration, and the summed durations of the plain version's kernels),
+   the bytes and the least time
+   the card could take for the work (bound), and for K4 the time of
+   ``torch.linalg.inv`` on the same blocks;
 4. the main path: HDG IMEX SSP2(3,3,2), Richardson + projection, Taylor-Green
    vortex, 256^2 unit-square mesh, k=2, float32, dt = 1/256 -- set-up,
    initial trace, one warm-up step and three timed steps; validates
@@ -32,9 +37,11 @@ Phases, each printing its own lines:
    bounds and nonzero iteration counts, with set-up and s/step printed;
 7. the launch check: every kernel K1-K5 launched on some path.
 
-The line before last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before it.
+The JSON line before the card's name and power limit has one entry per
+kernel (route, source, the TPU kernel it replaces, launches by path and per
+timed main-path step, errors, ms, plain_ms, bytes, bound_ms, bound_by,
+pct_bound, library_ms); the last line is ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero before it.
 """
 
 import contextlib
@@ -74,6 +81,13 @@ ERROR_VELOCITY_MAX_IMPLICIT = 2.5e-4
 ERROR_VELOCITY_MAX_MONOLITHIC = 2.0e-3
 WIDE_NX, WIDE_DEGREE = 128, 4
 MAIN_PATH_KERNELS = ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan")
+# the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
+# 700 W): its bytes (each input read once, each output written once) over
+# the 3.35 TB/s of HBM, or its floating-point operations (an FMA is two)
+# over the 67 TFLOP/s (float32) / 34 TFLOP/s (float64) outside the tensor
+# cores, whichever is larger
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def fail(msg):
@@ -97,22 +111,6 @@ def device_check():
     return card
 
 
-def cuda_ms(fn, reps=REPS):
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timed runs."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
-
-
 def main_shapes(nx):
     """Field sizes and colour bounds of the nx^2 unit-square mesh (the three
     interior colours hold nx^2 and twice nx (nx - 1) facets)."""
@@ -122,15 +120,43 @@ def main_shapes(nx):
     return nc, nf, bounds
 
 
+def work(name, dtype, d1, m, nseg=1, n=None):
+    """(bytes, floating-point operations) of one launch: each input read
+    once, each output written once; an FMA is two operations.  ``m``
+    columns (facets, cells or blocks); ``nseg`` penalty blocks."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nu = 2 * d1
+    if name == "fact_apply":  # A (d1, d1, m), P, x -> out
+        return size * (d1 * d1 * m + nseg * nu * nu + 2 * nu * m), 2 * (2 * d1 * d1 + nu * nu) * m
+    if name == "cross_pair":  # K01, K10, Bp, Cp, x0, x1 -> y0, y1
+        return (size * (2 * d1 * d1 * m + 2 * nseg * nu * nu + 4 * nu * m),
+                4 * (2 * d1 * d1 + nu * nu) * m)
+    if name == "patch_solve":  # Dinv0, Sinv, K01, K10, Bp, Cp, r0, r1 -> y0, y1
+        return (size * (2 * nu * nu * m + 2 * d1 * d1 * m + 2 * nu * nu + 4 * nu * m),
+                2 * (5 * nu * nu + 4 * d1 * d1) * m)
+    return size * 2 * n * n * m, 2 * n ** 3 * m  # Gauss-Jordan: A -> A^-1
+
+
+def bound(dtype, nbytes, flops):
+    """(bound ms, "bytes" or "operations") on an H100 SXM."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def compare_kernels(nx, degree):
     """Phases 3 and 5: every kernel of the nx^2, k = degree path against its
     plain version at that path's shapes.  At k <= 3 the own-cell and Schur
     inverses go to K4 (gauss_jordan); at k = 4 (n = 42) to K5
     (gauss_jordan_select), which is also held against the select
-    formulation's plain version at n = 42 and n = 20.  Returns name ->
-    errors and float32 times."""
+    formulation's plain version at n = 42 and n = 20.  K2 and K3 (TMA tiles)
+    are also held to their plain versions on tables of an odd column count
+    (padded stride), at an odd colour offset (tiles not aligned with the
+    colour) and an odd colour size (no multiple of a tile).  Returns name ->
+    errors, float32 times, bytes and bound; K4/K5 also the time of
+    ``torch.linalg.inv`` on the same blocks (library_ms)."""
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_ms
 
     nc, nf, b = main_shapes(nx)
     d1 = (degree + 2) * (degree + 3) // 2
@@ -138,7 +164,7 @@ def compare_kernels(nx, degree):
     nch = nc // 2
     k = 1  # a colour with a nonzero offset
     b0, m_col = b[k], b[k + 1] - b[k]
-    m_odd = m_col - 37  # not a multiple of the 128-thread block
+    m_odd = m_col - 37  # odd: no multiple of a thread block or a tile
     rng = np.random.default_rng(2024)
     dev = torch.device("cuda:0")
     gj = "gauss_jordan" if nu <= smallinv.WARP_MAX_N else "gauss_jordan_select"
@@ -167,24 +193,37 @@ def compare_kernels(nx, degree):
     def spd(n, m, dtype):
         return 0.1 * rnd(n, n, m, dtype=dtype) + 3.0 * torch.eye(n, dtype=dtype, device=dev)[:, :, None]
 
+    def timed(name, dtype, kern, plain, nbytes, flops, suffix=""):
+        # device time (torch.profiler), in turns: plain, kernel, kernel, plain
+        sym = f"{name}_kernel"
+        t_p1, t_k1, t_k2, t_p2 = (device_ms(plain), device_ms(kern, match=sym),
+                                  device_ms(kern, match=sym), device_ms(plain))
+        t_b, by = bound(dtype, nbytes, flops)
+        results[name].update({f"ms{suffix}": min(t_k1, t_k2), f"plain_ms{suffix}": min(t_p1, t_p2),
+                              f"bytes{suffix}": nbytes, f"bound_ms{suffix}": t_b,
+                              f"bound_by{suffix}": by})
+
     for dtype in (torch.float64, torch.float32):
         A = rnd(d1, d1, nc, dtype=dtype)
         Pc = rnd(2, nu, nu, dtype=dtype)
         xc = rnd(nu, nc, dtype=dtype)
-        K01 = rnd(d1, d1, nf, dtype=dtype)
-        K10 = rnd(d1, d1, nf, dtype=dtype)
+        K01 = P.pad_table(rnd(d1, d1, nf, dtype=dtype))
+        K10 = P.pad_table(rnd(d1, d1, nf, dtype=dtype))
         Bp = rnd(3, nu, nu, dtype=dtype)
         Cp = rnd(3, nu, nu, dtype=dtype)
         x0 = rnd(nu, nf, dtype=dtype)
         x1 = rnd(nu, nf, dtype=dtype)
-        Di = rnd(nu, nu, nf, dtype=dtype)
-        Si = rnd(nu, nu, nf, dtype=dtype)
+        Di = P.pad_table(rnd(nu, nu, nf, dtype=dtype))
+        Si = P.pad_table(rnd(nu, nu, nf, dtype=dtype))
         Bk = rnd(nu, nu, dtype=dtype)
         Ck = rnd(nu, nu, dtype=dtype)
         r0 = rnd(nu, m_col, dtype=dtype)
         r1 = rnd(nu, m_col, dtype=dtype)
         G = spd(nu, nc, dtype)
         halves = (0, nch, nc)
+        # an odd column count: padded copies of the tables' first nf - 1 columns
+        odd = [P.pad_table(t[:, :, :nf - 1]) for t in (K01, K10, Di, Si)]
+        ro, bo = (r0[:, :m_odd], r1[:, :m_odd]), b0 + 3
 
         cases = {
             "fact_apply": [
@@ -196,17 +235,29 @@ def compare_kernels(nx, degree):
             "cross_pair": [
                 (lambda: P.cross_pair(K01, K10, Bp, Cp, b, x0, x1),
                  lambda: P.cross_pair_plain(K01, K10, Bp, Cp, b, x0, x1)),
+                (lambda: P.cross_pair(K01, K10, Bp[k:k + 1], Cp[k:k + 1], (0, m_col),
+                                      x0[:, :m_col], x1[:, :m_col], aoff=b0),
+                 lambda: P.cross_pair_plain(K01, K10, Bp[k:k + 1], Cp[k:k + 1], (0, m_col),
+                                            x0[:, :m_col], x1[:, :m_col], aoff=b0)),
                 (lambda: P.cross_pair(K01, K10, Bp[k:k + 1], Cp[k:k + 1], (0, m_odd),
                                       x0[:, :m_odd], x1[:, :m_odd], aoff=b0),
                  lambda: P.cross_pair_plain(K01, K10, Bp[k:k + 1], Cp[k:k + 1], (0, m_odd),
                                             x0[:, :m_odd], x1[:, :m_odd], aoff=b0)),
+                (lambda: P.cross_pair(odd[0], odd[1], Bp, Cp, b, x0[:, :nf - 1], x1[:, :nf - 1]),
+                 lambda: P.cross_pair_plain(odd[0], odd[1], Bp, Cp, b, x0[:, :nf - 1],
+                                            x1[:, :nf - 1])),
+                (lambda: P.cross_pair(odd[0], odd[1], Bp[k:k + 1], Cp[k:k + 1], (0, m_odd),
+                                      x0[:, :m_odd], x1[:, :m_odd], aoff=bo),
+                 lambda: P.cross_pair_plain(odd[0], odd[1], Bp[k:k + 1], Cp[k:k + 1], (0, m_odd),
+                                            x0[:, :m_odd], x1[:, :m_odd], aoff=bo)),
             ],
             "patch_solve": [
                 (lambda: P.patch_solve(Di, Si, K01, K10, Bk, Ck, r0, r1, b0),
                  lambda: P.patch_solve_plain(Di, Si, K01, K10, Bk, Ck, r0, r1, b0)),
-                (lambda: P.patch_solve(Di, Si, K01, K10, Bk, Ck, r0[:, :m_odd], r1[:, :m_odd], b0),
-                 lambda: P.patch_solve_plain(Di, Si, K01, K10, Bk, Ck, r0[:, :m_odd],
-                                             r1[:, :m_odd], b0)),
+                (lambda: P.patch_solve(Di, Si, K01, K10, Bk, Ck, *ro, b0),
+                 lambda: P.patch_solve_plain(Di, Si, K01, K10, Bk, Ck, *ro, b0)),
+                (lambda: P.patch_solve(odd[2], odd[3], odd[0], odd[1], Bk, Ck, *ro, bo),
+                 lambda: P.patch_solve_plain(odd[2], odd[3], odd[0], odd[1], Bk, Ck, *ro, bo)),
             ],
             gj: [
                 (lambda: smallinv.gauss_jordan_inv_bl(G),
@@ -223,22 +274,38 @@ def compare_kernels(nx, degree):
                 (lambda: smallinv.gauss_jordan_inv_select(G20),
                  lambda: smallinv.gauss_jordan_inv_select_plain(G20)),
             ]
+        shape = {"fact_apply": (nc, 2), "cross_pair": (nf, 3), "patch_solve": (m_col, 1),
+                 gj: (nc, 1)}
         for name, pairs in cases.items():
             for kern, plain in pairs:
                 check(name, dtype, kern(), plain())
             if dtype == torch.float32:
-                # in turns: plain, kernel, kernel, plain
-                kern, plain = pairs[0]
-                t_p1, t_k1, t_k2, t_p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-                results[name]["ms"], results[name]["plain_ms"] = min(t_k1, t_k2), min(t_p1, t_p2)
-        del A, Pc, xc, K01, K10, Bp, Cp, x0, x1, Di, Si, G, cases
+                m, nseg = shape[name]
+                timed(name, dtype, *pairs[0], *work(name, dtype, d1, m, nseg, n=nu))
+                if name == "cross_pair":  # one colour, as in the sweep
+                    timed(name, dtype, *pairs[1], *work(name, dtype, d1, m_col), suffix="_color")
+        if dtype == torch.float32:
+            # one PyTorch call on the same blocks: batched LU inverse (cuBLAS/cuSOLVER),
+            # on the batch-last table and on an (m, n, n) contiguous copy
+            Gm = G.permute(2, 0, 1).contiguous()
+            lib_perm = device_ms(lambda: torch.linalg.inv(G.permute(2, 0, 1)))
+            lib_contig = device_ms(lambda: torch.linalg.inv(Gm))
+            results[gj].update(library_ms=lib_perm, library_ms_contiguous=lib_contig)
+            del Gm
+        del A, Pc, xc, K01, K10, Bp, Cp, x0, x1, Di, Si, G, cases, odd
         torch.cuda.empty_cache()
 
     for name, e in results.items():
+        lib = (f" | torch.linalg.inv {e['library_ms']:.4f} ms (contiguous copy "
+               f"{e['library_ms_contiguous']:.4f} ms)" if "library_ms" in e else "")
+        color = (f" | one colour {e['ms_color']:.4f} ms plain {e['plain_ms_color']:.4f} ms "
+                 f"bound {e['bound_ms_color']:.4f} ms" if "ms_color" in e else "")
         print(f"# kernel {name} ({nx}^2, k={degree}, d1={d1}): rel err f32 "
               f"{e['rel']['float32']:.3e} f64 {e['rel']['float64']:.3e} | abs err f32 "
               f"{e['abs']['float32']:.3e} | kernel {e['ms']:.4f} ms plain {e['plain_ms']:.4f} ms "
-              f"(float32, path shape)", flush=True)
+              f"| {e['bytes'] / 1e6:.1f} MB, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+              f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound{color}{lib} (float32, path shape)",
+              flush=True)
     return results
 
 
@@ -328,6 +395,7 @@ def main_path(card):
 
     step_s = []
     all_counts = [counts]
+    before = dict(kernels.LAUNCHES)
     for k in range(N_STEPS):
         t0 = time.perf_counter()
         sQ, sp, sl, counts = stepper.step(sQ, sp, sl, (k + 1) * dt, f_rhs)
@@ -335,6 +403,7 @@ def main_path(card):
         step_s.append(time.perf_counter() - t0)
         all_counts.append(counts)
     launches = dict(kernels.LAUNCHES)
+    launches_step = {n: (launches[n] - before[n]) / N_STEPS for n in launches}
 
     Q, p = sQ[0], sp[0]
     finite = bool(torch.isfinite(Q).all()) and bool(torch.isfinite(p).all())
@@ -349,7 +418,8 @@ def main_path(card):
           f"iters tentative={counts['tentative']} pressure={counts['pressure']} "
           f"final={counts['final_pressure']} recon={counts['reconstruction']} "
           f"max relres {counts['max_relres']:.2e} | err velocity {err_vel:.3e} "
-          f"pressure {err_p:.3e} | launches {launches} | card {card}", flush=True)
+          f"pressure {err_p:.3e} | launches {launches} (per timed step {launches_step}) | card {card}",
+          flush=True)
     if not finite:
         fail("non-finite state")
     if not (err_vel < ERROR_VELOCITY_MAX and err_p < ERROR_PRESSURE_MAX):
@@ -359,15 +429,15 @@ def main_path(card):
     missing = [n for n in MAIN_PATH_KERNELS if launches[n] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    return launches
+    return launches, launches_step
 
 
 def driver_runs():
     """Phase 6: the port's CLI driver in-process, runs (a)-(d), each with
     the launch counts zeroed just before it and read just after."""
-    from incompressibleeulerhdg_tpu.utils.logging import PerformanceLog
     from incompressibleeulerhdg_tpu_torch import kernels
     from incompressibleeulerhdg_tpu_torch.cli import driver
+    from incompressibleeulerhdg_tpu_torch.utils.logging import PerformanceLog
 
     dt = 1.0 / NX
     runs = [
@@ -457,7 +527,8 @@ def main():
     build_s = kernels.build_all()
     print(f"# kernel build: {build_s:.2f} s ({', '.join(kernels.KERNELS)})", flush=True)
     main_cmp = compare_kernels(NX, DEGREE)
-    launches = {"main": main_path(card)}
+    main_launches, launches_step = main_path(card)
+    launches = {"main": main_launches}
     wide_cmp = compare_kernels(WIDE_NX, WIDE_DEGREE)
     spill = ptxas_summary()
     print(f"# ptxas: {spill} bytes of spill stores and loads over all instantiations", flush=True)
@@ -473,13 +544,22 @@ def main():
             replaces=kernels.KERNELS[name][2],
             launches=sum(run[name] for run in launches.values()),
             launches_by_path={path: run[name] for path, run in launches.items()},
+            launches_per_main_step=launches_step[name],
             max_abs_err=e["abs"]["float32"], max_rel_err_f64=e["rel"]["float64"],
-            ms=e["ms"], plain_ms=e["plain_ms"],
+            ms=e["ms"], plain_ms=e["plain_ms"], bytes=e["bytes"], bound_ms=e["bound_ms"],
+            bound_by=e["bound_by"], pct_bound=100 * e["bound_ms"] / e["ms"],
+            library_ms=e.get("library_ms"),
         )
+        for key in ("library_ms_contiguous", "ms_color", "plain_ms_color", "bytes_color",
+                    "bound_ms_color", "bound_by_color"):
+            if key in e:
+                row[key] = e[key]
+        if "ms_color" in e:
+            row["pct_bound_color"] = 100 * e["bound_ms_color"] / e["ms_color"]
         if name in main_cmp and name in wide_cmp:
             w = wide_cmp[name]
             row.update(max_abs_err_d1_21=w["abs"]["float32"], max_rel_err_f64_d1_21=w["rel"]["float64"],
-                       ms_d1_21=w["ms"], plain_ms_d1_21=w["plain_ms"])
+                       ms_d1_21=w["ms"], plain_ms_d1_21=w["plain_ms"], bound_ms_d1_21=w["bound_ms"])
         if name == "gauss_jordan_select":
             row.update(ab_k4_n20_ms=ab["k4_n20_ms"], ab_k5_n20_ms=ab["k5_n20_ms"],
                        ab_k5_n42_ms=ab["k5_n42_ms"])

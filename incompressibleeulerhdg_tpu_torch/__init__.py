@@ -4,23 +4,29 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of the JAX package ``incompressibleeulerhdg_tpu``, which stays the
 reference it is tested against.  The layout mirrors the JAX package:
 
-- ``fem``           ``Geom`` tensors and ``HDGDiscretisation``
-- ``ops``           structured facet<->cell moves, fields, forms, projection
+- ``mesh``          triangle meshes, the unit-square generator and the C++
+                    connectivity kernel (built with g++ on first use)
+- ``fem``           quadrature, Lagrange bases, space tabulations, ``Geom``
+                    tensors and ``HDGDiscretisation``
+- ``ops``         structured facet<->cell moves, fields, forms, projection
 - ``linalg``        condensation, GMRES and FGMRES, GTMG, the tentative
                     operator and its Schwarz sweep, the monolithic stage
                     solve, small inverses
 - ``models``        the Taylor-Green vortex
-- ``timesteppers``  HDG IMEX (projection or monolithic) and HDG implicit
+- ``timesteppers``  IMEX tableaus, HDG IMEX (projection or monolithic) and
+                    HDG implicit
+- ``utils``         timers, checkpoints (the JAX package's file format), VTK
 - ``cli``           the command-line driver (``python -m
                     incompressibleeulerhdg_tpu_torch.cli.driver``)
 - ``tools``         the Gauss-Jordan kernel A/B on the card
 - ``kernels``       build and launch of the CUDA kernels in ``csrc/``
 - ``convert``       JAX package objects -> port objects (for the tests)
 
-The numpy-only modules of the JAX package (``mesh``, ``fem.quadrature``,
-``fem.lagrange``, ``fem.spaces``, ``timesteppers.tableaus``,
-``utils.logging``, ``utils.checkpoint``, ``utils.vtk``) are imported, not
-copied; none of them imports JAX.
+The port imports nothing of the JAX package: the numpy modules it shares
+with it (``mesh``, ``fem.quadrature``, ``fem.lagrange``, ``fem.spaces``,
+``timesteppers.tableaus``, ``utils.logging``, ``utils.checkpoint``,
+``utils.vtk``) are its own copies, held equal to the originals by
+tests/test_torch_shared.py.
 """
 
 __version__ = "0.1.0"

@@ -17,9 +17,6 @@ import argparse
 
 import torch
 
-from incompressibleeulerhdg_tpu.utils.logging import PerformanceLog, log_summary
-from incompressibleeulerhdg_tpu.utils.vtk import sample_dg_at_corners, write_vtu
-
 from ..fem.discretisation import HDGDiscretisation
 from ..mesh import unit_square_mesh
 from ..models.problems import TaylorGreen
@@ -33,6 +30,8 @@ from ..timesteppers.hdg_imex import (
     IncompressibleEulerHDGIMEXSSP2_332,
     IncompressibleEulerHDGIMEXSSP3_433,
 )
+from ..utils.logging import PerformanceLog, log_summary
+from ..utils.vtk import sample_dg_at_corners, write_vtu
 
 IMEX_CLASSES = {
     "imex_implicit": IncompressibleEulerHDGIMEXImplicit,

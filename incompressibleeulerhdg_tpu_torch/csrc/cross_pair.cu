@@ -12,147 +12,176 @@
 //
 // What bounds it on the card: table bytes.  At 256^2, k=2, float32 a
 // full-field pass streams the two (d1, d1, nf) scalar tables,
-// 2 * 10*10*197120*4 B = 158 MB, plus 4 * 20*197120*4 B = 63 MB of fields.
+// 2 * 10*10*197120*4 B = 158 MB, plus 4 * 20*197120*4 B = 63 MB of fields:
+// 221 MB, 0.066 ms at 3.35 TB/s.
 //
-// What the design does about it: one thread per facet, coalesced batch-last
-// reads, both tables and both side fields in one pass (the point of the
-// fused TPU kernel), every table entry read once for both velocity
-// components, and the per-colour (nu, nu) constants read through the L1
-// broadcast (one address per warp).
-//
-// Registers: the fused pass keeps four nu-long vectors a thread (both
-// sides' inputs and sums), 168 values at d1 = 21 -- above the 255 registers
-// of a thread in float64.  Above d1 = 15 the two sides therefore go to two
-// threads (blockIdx.y picks the side), each with two nu-vectors, the
-// register budget of K1; they share no table, so nothing is read twice.
-// (Running both sides one after the other in one thread made ptxas spill:
-// 15 KB of spill stores a thread in float32, sm_90a.)
+// What the design does about it:
+// - a block owns a tile of TC consecutive table columns (128-byte table
+//   rows, 64 above d1 = 15; aligned, as TMA reads from a 16-byte aligned
+//   column, so a range's first and last tiles mask the columns outside it);
+//   one thread starts the TMA loads of the tile's K01 and
+//   K10 while the block stages x0 and x1;
+// - the penalty, the one part with reuse, is a (nu x nu) (nu x TC) product
+//   per side: a thread computes rows i and d1 + i of VEC facets (16 bytes),
+//   two L1-cached loads of P[s] and one 16-byte shared load of x per 2 VEC
+//   FMAs; the scalar table K[i, j] of the same VEC facets then serves both
+//   rows;
+// - every thread stages rows i and d1 + i of its columns of x, all loads in
+//   flight together (a loop of dependent trips would wait out one global
+//   latency each);
+// - the tile's segments are found once per block; a tile that straddles a
+//   segment edge applies each segment's block to its own columns;
+// - a thread holds 2 VEC sums, so no width spills.
+// No tensor cores: in float32 they would round the inputs to TF32.
 #include "common.cuh"
+#include "tma.cuh"
 
-// y[:, c] = (I2 (x) K[:, :, c] + P) x[:, c] for one column; P null: no penalty
 template <typename T, int D1>
-__device__ __forceinline__ void cross_side(const T* __restrict__ Kc, long long ldk,
-                                           const T* __restrict__ P,
-                                           const T* __restrict__ x,
-                                           T* __restrict__ y, long long m,
-                                           long long c) {
-  constexpr int NU = 2 * D1;
-  T v[NU], a[NU];
+struct CrossTile {
+  static constexpr int NU = 2 * D1;
+  static constexpr int VEC = Vec<T>::n;
+  static constexpr int TC = (D1 > 15 ? 64 : 128) / (int)sizeof(T);
+  static constexpr int Q = TC / VEC;
+  static constexpr int THREADS = 2 * D1 * Q;  // side, row pair i, facet group
+  static constexpr TableBox BK = table_box<T, TC>(D1 * D1);
+  // shared memory in elements of T, regions 128-byte aligned
+  static constexpr int OFF_K01 = 0;
+  static constexpr int OFF_K10 = BK.padded * TC;
+  static constexpr int OFF_X = 2 * BK.padded * TC;  // x1 then x0, [j][TC]
+  static constexpr int END = OFF_X + 2 * NU * TC;
+  static constexpr int SMEM = END * (int)sizeof(T) + 2 * 8;  // + 2 mbarriers
+};
+
+template <typename T, int D1>
+__global__ void __launch_bounds__(CrossTile<T, D1>::THREADS) cross_pair_kernel(
+    const __grid_constant__ CUtensorMap m01, const __grid_constant__ CUtensorMap m10,
+    long long aoff, const T* __restrict__ Bp, const T* __restrict__ Cp, Segs seg,
+    const T* __restrict__ x0, const T* __restrict__ x1, T* __restrict__ y0,
+    T* __restrict__ y1, long long m) {
+  using P = CrossTile<T, D1>;
+  using V = typename Vec<T>::type;
+  constexpr int NU = P::NU, TC = P::TC, VEC = P::VEC, Q = P::Q;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + P::SMEM - 2 * 8);
+  const int tid = threadIdx.x;
+  // tiles aligned in table columns (TMA reads from a 16-byte aligned column)
+  const int col = (int)(aoff - aoff % TC) + blockIdx.x * TC;
+  const long long c0 = col - aoff;
+
+  if (tid == 0) {
+    mbar_init(bar + 0, 1);
+    mbar_init(bar + 1, 1);
+    mbar_fence_init();
+    tma_load_table<T, TC>(sm + P::OFF_K01, &m01, D1 * D1, col, bar + 0);
+    tma_load_table<T, TC>(sm + P::OFF_K10, &m10, D1 * D1, col, bar + 1);
+  }
+  const int side = tid / (D1 * Q);
+  const int i = (tid / Q) % D1;
+  const int q = tid % Q;
+  T* xs = sm + P::OFF_X + side * NU * TC;
+  // inputs: side 0 (y0) reads x1, side 1 (y1) x0; each thread stages rows i
+  // and D1 + i of its columns, all loads in flight together
+  {
+    const T* x = side == 0 ? x1 : x0;
 #pragma unroll
-  for (int j = 0; j < NU; ++j) v[j] = x[j * m + c];
-#pragma unroll
-  for (int r = 0; r < NU; ++r) a[r] = T(0);
-  if (P != nullptr) {
-#pragma unroll
-    for (int r = 0; r < NU; ++r) {
-      T b = T(0);
-#pragma unroll
-      for (int j = 0; j < NU; ++j) b += __ldg(P + r * NU + j) * v[j];
-      a[r] = b;
+    for (int v = 0; v < VEC; ++v) {
+      const long long c = c0 + q * VEC + v;
+      const bool in = c >= 0 && c < m;
+      xs[i * TC + q * VEC + v] = in ? x[i * m + c] : T(0);
+      xs[(D1 + i) * TC + q * VEC + v] = in ? x[(D1 + i) * m + c] : T(0);
     }
   }
+  __syncthreads();  // x staged, barriers initialised
+  const T* Pside = side == 0 ? Bp : Cp;
+  T acc[2][VEC];
 #pragma unroll
-  for (int i = 0; i < D1; ++i) {
-#pragma unroll
-    for (int j = 0; j < D1; ++j) {
-      const T k = __ldg(Kc + (long long)(i * D1 + j) * ldk);
-      a[i] += k * v[j];
-      a[D1 + i] += k * v[D1 + j];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < NU; ++r) y[r * m + c] = a[r];
-}
+  for (int v = 0; v < VEC; ++v) acc[0][v] = acc[1][v] = T(0);
 
-// both sides of one column in one pass (d1 <= 15)
-template <typename T, int D1>
-__device__ __forceinline__ void cross_fused(
-    const T* __restrict__ K01, const T* __restrict__ K10, long long ldk,
-    long long aoff, const T* __restrict__ Bp, const T* __restrict__ Cp,
-    const Segs& seg, const T* __restrict__ x0, const T* __restrict__ x1,
-    T* __restrict__ y0, T* __restrict__ y1, long long m, long long c) {
-  constexpr int NU = 2 * D1;
-  T v0[NU], v1[NU];
+  // penalty: rows i and D1 + i of P[s] x for every segment s in the tile
+  const long long tile_end = c0 + TC;
+  for (int s = 0; s < seg.n; ++s) {
+    const long long b0 = seg.b[s], b1 = seg.b[s + 1];
+    if (b1 <= c0 || b0 >= tile_end || b1 <= b0) continue;
+    const T* Pi = Pside + (long long)s * NU * NU + i * NU;  // rows i and D1 + i
+    T pen[2][VEC];
 #pragma unroll
-  for (int j = 0; j < NU; ++j) {
-    v0[j] = x0[j * m + c];
-    v1[j] = x1[j * m + c];
-  }
-  T a0[NU], a1[NU];
+    for (int v = 0; v < VEC; ++v) pen[0][v] = pen[1][v] = T(0);
 #pragma unroll
-  for (int r = 0; r < NU; ++r) {
-    a0[r] = T(0);
-    a1[r] = T(0);
-  }
-  const int s = segment_of(seg, c);
-  if (s >= 0) {
-    const T* B = Bp + (long long)s * NU * NU;
-    const T* C = Cp + (long long)s * NU * NU;
+    for (int jj = 0; jj < NU; ++jj) {
+      int j = jj + i;
+      j = j >= NU ? j - NU : j;
+      const T p0 = __ldg(Pi + j), p1 = __ldg(Pi + D1 * NU + j);
+      const V x = *reinterpret_cast<const V*>(xs + j * TC + q * VEC);
+      const T* xv = reinterpret_cast<const T*>(&x);
 #pragma unroll
-    for (int r = 0; r < NU; ++r) {
-      T b = T(0), d = T(0);
-#pragma unroll
-      for (int j = 0; j < NU; ++j) {
-        b += __ldg(B + r * NU + j) * v1[j];
-        d += __ldg(C + r * NU + j) * v0[j];
+      for (int v = 0; v < VEC; ++v) {
+        pen[0][v] += p0 * xv[v];
+        pen[1][v] += p1 * xv[v];
       }
-      a0[r] = b;
-      a1[r] = d;
+    }
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const long long c = c0 + q * VEC + v;
+      if (c >= b0 && c < b1) {
+        acc[0][v] += pen[0][v];
+        acc[1][v] += pen[1][v];
+      }
     }
   }
-  const T* Ka = K01 + aoff + c;
-  const T* Kb = K10 + aoff + c;
+
+  // scalar table of the side, both components
+  mbar_wait(bar + side, 0);
+  const T* K = sm + (side == 0 ? P::OFF_K01 : P::OFF_K10);
 #pragma unroll
-  for (int i = 0; i < D1; ++i) {
+  for (int jj = 0; jj < D1; ++jj) {
+    int j = jj + i;
+    j = j >= D1 ? j - D1 : j;
+    const V k = *reinterpret_cast<const V*>(K + (i * D1 + j) * TC + q * VEC);
+    const V xa = *reinterpret_cast<const V*>(xs + j * TC + q * VEC);
+    const V xb = *reinterpret_cast<const V*>(xs + (D1 + j) * TC + q * VEC);
+    const T* kv = reinterpret_cast<const T*>(&k);
+    const T* av = reinterpret_cast<const T*>(&xa);
+    const T* bv = reinterpret_cast<const T*>(&xb);
 #pragma unroll
-    for (int j = 0; j < D1; ++j) {
-      const long long o = (long long)(i * D1 + j) * ldk;
-      const T ka = __ldg(Ka + o);
-      const T kb = __ldg(Kb + o);
-      a0[i] += ka * v1[j];
-      a0[D1 + i] += ka * v1[D1 + j];
-      a1[i] += kb * v0[j];
-      a1[D1 + i] += kb * v0[D1 + j];
+    for (int v = 0; v < VEC; ++v) {
+      acc[0][v] += kv[v] * av[v];
+      acc[1][v] += kv[v] * bv[v];
     }
   }
+  T* y = side == 0 ? y0 : y1;
 #pragma unroll
-  for (int r = 0; r < NU; ++r) {
-    y0[r * m + c] = a0[r];
-    y1[r * m + c] = a1[r];
+  for (int v = 0; v < VEC; ++v) {
+    const long long c = c0 + q * VEC + v;
+    if (c >= 0 && c < m) {
+      y[i * m + c] = acc[0][v];
+      y[(D1 + i) * m + c] = acc[1][v];
+    }
   }
 }
 
 template <typename T, int D1>
-__global__ void __launch_bounds__(128) cross_pair_kernel(
-    const T* __restrict__ K01, const T* __restrict__ K10, long long ldk,
-    long long aoff, const T* __restrict__ Bp, const T* __restrict__ Cp,
-    Segs seg, const T* __restrict__ x0, const T* __restrict__ x1,
-    T* __restrict__ y0, T* __restrict__ y1, long long m) {
-  constexpr int NU = 2 * D1;
-  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (c >= m) return;
-  if constexpr (D1 > 15) {
-    const int s = segment_of(seg, c);
-    const bool side1 = blockIdx.y == 1;  // y1 from x0, else y0 from x1
-    const T* P = side1 ? Cp : Bp;
-    cross_side<T, D1>((side1 ? K10 : K01) + aoff + c, ldk,
-                      s >= 0 ? P + (long long)s * NU * NU : nullptr,
-                      side1 ? x0 : x1, side1 ? y1 : y0, m, c);
-  } else {
-    cross_fused<T, D1>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, c);
+static int launch(const void* K01, const void* K10, long long ldk, long long aoff,
+                  const void* Bp, const void* Cp, Segs seg, const void* x0, const void* x1,
+                  void* y0, void* y1, long long m, cudaStream_t stream) {
+  using P = CrossTile<T, D1>;
+  static_assert(P::THREADS <= 1024 && P::SMEM <= 232448, "cross tile too large");
+  CUtensorMap m01, m10;
+  int e = encode_table<T, P::TC>(&m01, K01, D1 * D1, ldk, aoff + m);
+  if (!e) e = encode_table<T, P::TC>(&m10, K10, D1 * D1, ldk, aoff + m);
+  if (e) return e;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t a = cudaFuncSetAttribute(
+        cross_pair_kernel<T, D1>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+    if (a != cudaSuccess) return (int)a;
+    attr = true;
   }
-}
-
-template <typename T, int D1>
-static void launch(const void* K01, const void* K10, long long ldk,
-                   long long aoff, const void* Bp, const void* Cp, Segs seg,
-                   const void* x0, const void* x1, void* y0, void* y1,
-                   long long m, cudaStream_t stream) {
-  const int threads = 128;
-  const dim3 grid(blocks_for(m, threads), D1 > 15 ? 2 : 1);
-  cross_pair_kernel<T, D1><<<grid, threads, 0, stream>>>(
-      (const T*)K01, (const T*)K10, ldk, aoff, (const T*)Bp, (const T*)Cp, seg,
-      (const T*)x0, (const T*)x1, (T*)y0, (T*)y1, m);
+  const long long ntiles = aoff % P::TC + m;  // columns from the aligned first tile
+  cross_pair_kernel<T, D1><<<blocks_for(ntiles, P::TC), P::THREADS, P::SMEM, stream>>>(
+      m01, m10, aoff, (const T*)Bp, (const T*)Cp, seg, (const T*)x0, (const T*)x1, (T*)y0,
+      (T*)y1, m);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -161,18 +190,18 @@ static int dispatch_d1(int d1, const void* K01, const void* K10, long long ldk,
                        const void* x0, const void* x1, void* y0, void* y1,
                        long long m, cudaStream_t st) {
   switch (d1) {
-    case 3: launch<T, 3>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st); break;
-    case 6: launch<T, 6>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st); break;
-    case 10: launch<T, 10>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st); break;
-    case 15: launch<T, 15>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st); break;
-    case 21: launch<T, 21>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st); break;
+    case 3: return launch<T, 3>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
+    case 6: return launch<T, 6>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
+    case 10: return launch<T, 10>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
+    case 15: return launch<T, 15>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
+    case 21: return launch<T, 21>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 float64.  K01/K10 (d1, d1, ldk), Bp/Cp (nseg, nu, nu),
-// x0/x1/y0/y1 (nu, m), all contiguous; seg_bounds: nseg + 1 host int64 values.
+// dtype: 0 float32, 1 float64.  K01/K10 (d1, d1, ldk) with ldk * sizeof(T)
+// a multiple of 16 bytes and 16-byte aligned bases; Bp/Cp (nseg, nu, nu),
+// x0/x1/y0/y1 (nu, m), contiguous; seg_bounds: nseg + 1 host int64 values.
 IEHDG_EXPORT int iehdg_cross_pair(int device, int dtype, int d1, const void* K01,
                                   const void* K10, long long ldk, long long aoff,
                                   const void* Bp, const void* Cp,
@@ -180,6 +209,7 @@ IEHDG_EXPORT int iehdg_cross_pair(int device, int dtype, int d1, const void* K01
                                   const void* x0, const void* x1, void* y0,
                                   void* y1, long long m, void* stream) {
   if (nseg < 0 || nseg > IEHDG_MAX_SEG) return (int)cudaErrorInvalidValue;
+  if (aoff + m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // TMA coordinates are int32
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Segs seg = make_segs(seg_bounds, nseg);

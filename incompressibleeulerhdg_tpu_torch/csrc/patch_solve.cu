@@ -13,133 +13,249 @@
 // `_patch_color_structured`, 2 * ncol - 1 = 5 times per symmetric sweep.
 //
 // What bounds it on the card: table bytes.  At 256^2, k=2, float32 one
-// colour (about 65k facets) holds Dinv0 + Sinv = 2 * 20*20*65.5k*4 B = 0.21 GB
-// and K01 + K10 = 52 MB; a symmetric sweep streams about 1 GB of tables.
-// The 4 nu^2 + 4 nu d1 FMAs per facet are well below the arithmetic rate.
+// colour (65,280 facets) holds Dinv0 + Sinv = 2 * 20*20*65280*4 B = 209 MB
+// and K01 + K10 = 52 MB, plus 21 MB of fields: 282 MB, 0.084 ms at 3.35 TB/s.
+// The 4 nu^2 + 4 nu d1 FMAs per facet are far below the arithmetic rate.
 //
-// What the design does about it: one thread per facet, coalesced batch-last
-// reads of every table, and the four nu-vectors of the solve (r0 and its
-// update, w, t, y1) kept on chip, so the fields are read and written once.
-// They live in shared memory, one column per thread (conflict-free), and
-// not in registers: with the vectors in registers every row loop has to be
-// unrolled, and at d1 = 10 ptxas then placed them in local memory (8 KB of
-// stack and 14.6 KB of spill stores a thread for float32, sm_90a), which
-// held the kernel to about a third of K1's bandwidth on an H100.  Here only
-// the inner loops unroll, so each thread keeps one table row's loads in
-// flight.  Dinv0 is applied twice and streamed twice.
+// What the design does about it:
+// - a block owns a tile of TC consecutive table columns (aligned: TMA reads
+//   from a 16-byte aligned column; a colour's first and last tiles mask the
+//   columns outside it); one thread starts TMA
+//   loads of the tile's Dinv0, K10, Sinv and K01 (in the order the phases
+//   need them, each on its own mbarrier), so every table is read from HBM
+//   once: Dinv0 stays in shared memory from the first phase to the last;
+// - the tiles are sized for three blocks an SM (about 70 KB each, 64-byte
+//   table rows, dynamic shared memory), so while one block computes, the
+//   others' loads are in flight, with no thread spending registers on them;
+// - a thread owns one row of VEC facets (16 bytes) in every phase and reads
+//   the table and the facet vectors (r0 and its update, w and then y1, t)
+//   with 16-byte shared loads; its sum over j starts at j = row, so the
+//   rows a warp reads together fall in distinct banks;
+// - every thread loads its own row of r0 and r1 at the start, all loads in
+//   flight together (a block otherwise waits out one global latency per
+//   loop trip); Cp and Bp are read through L1.
+// No tensor cores: every facet has its own matrices (no reuse).
 #include "common.cuh"
+#include "tma.cuh"
 
-// threads per block: the three nu-vectors of a block (3 nu BT values) stay
-// below the 48 KB of static shared memory: 128 (float32) or 64 (float64)
-// threads up to d1 = 15, half as many at d1 = 21 (32,256 bytes a block
-// either way).  The shared memory a thread needs, not the block size, bounds
-// the threads an SM holds, so the smaller blocks cost no occupancy.
+template <typename T>
+__device__ __forceinline__ void vfma(T* acc, T a, const typename Vec<T>::type& v);
+template <>
+__device__ __forceinline__ void vfma<float>(float* acc, float a, const float4& v) {
+  acc[0] += a * v.x; acc[1] += a * v.y; acc[2] += a * v.z; acc[3] += a * v.w;
+}
+template <>
+__device__ __forceinline__ void vfma<double>(double* acc, double a, const double2& v) {
+  acc[0] += a * v.x; acc[1] += a * v.y;
+}
+template <typename T>
+__device__ __forceinline__ void vfma2(T* acc, const typename Vec<T>::type& a,
+                                      const typename Vec<T>::type& v);
+template <>
+__device__ __forceinline__ void vfma2<float>(float* acc, const float4& a, const float4& v) {
+  acc[0] += a.x * v.x; acc[1] += a.y * v.y; acc[2] += a.z * v.z; acc[3] += a.w * v.w;
+}
+template <>
+__device__ __forceinline__ void vfma2<double>(double* acc, const double2& a, const double2& v) {
+  acc[0] += a.x * v.x; acc[1] += a.y * v.y;
+}
+
 template <typename T, int D1>
-struct PatchThreads {
-  static constexpr int value = (sizeof(T) == 4 ? 128 : 64) / (D1 > 15 ? 2 : 1);
+struct PatchTile {
+  static constexpr int NU = 2 * D1;
+  static constexpr int VEC = Vec<T>::n;
+  // facets a tile: 64-byte table rows up to d1 = 10, fewer above, so a
+  // block's tables stay near 70 KB (three blocks an SM)
+  static constexpr int TC = (64 / (int)sizeof(T)) / (D1 > 15 ? 4 : D1 > 10 ? 2 : 1);
+  static constexpr int Q = TC / VEC;          // facet groups a tile
+  static constexpr int THREADS = NU * Q;      // one row of one group each
+  static constexpr TableBox BD = table_box<T, TC>(NU * NU);
+  static constexpr TableBox BK = table_box<T, TC>(D1 * D1);
+  // shared memory, in elements of T (every region a multiple of 128 bytes)
+  static constexpr int OFF_D = 0;
+  static constexpr int OFF_K10 = OFF_D + BD.padded * TC;
+  static constexpr int OFF_S = OFF_K10 + BK.padded * TC;
+  static constexpr int OFF_K01 = OFF_S + BD.padded * TC;
+  static constexpr int OFF_U = OFF_K01 + BK.padded * TC;
+  static constexpr int VBYTES = iehdg_round_up(NU * TC * (int)sizeof(T), 128) / (int)sizeof(T);
+  static constexpr int OFF_W = OFF_U + VBYTES;
+  static constexpr int OFF_T = OFF_W + VBYTES;
+  static constexpr int END = OFF_T + VBYTES;
+  static constexpr int SMEM = END * (int)sizeof(T) + 4 * 8;  // + 4 mbarriers
 };
 
-template <typename T, int D1>
-__global__ void patch_solve_kernel(
-    const T* __restrict__ Di, const T* __restrict__ Si,
-    const T* __restrict__ K01, const T* __restrict__ K10, long long ldt,
-    long long off, const T* __restrict__ Bp, const T* __restrict__ Cp,
-    const T* __restrict__ r0, const T* __restrict__ r1, T* __restrict__ y0,
-    T* __restrict__ y1, long long m) {
+// unroll factor of a sum over n terms: whole up to n = 20, 7 above (d1 =
+// 15, 21), where the whole sums' hoisted loads need more than 255
+// registers (ptxas spilled 52 bytes a thread at d1 = 21, float32)
+template <int n>
+constexpr int UNROLL = n > 20 ? 7 : n;
+
+// acc[v] = sum_j A[row, j] x[j] over the NU x NU tile table A ([row][TC]) and
+// the tile vector x ([j][TC]) for the thread's facets q * VEC ..
+template <typename T, int NU, int TC>
+__device__ __forceinline__ void row_dot(T* acc, const T* A, const T* x, int row, int q) {
+  using V = typename Vec<T>::type;
+  constexpr int VEC = Vec<T>::n;
+#pragma unroll(UNROLL<NU>)
+  for (int jj = 0; jj < NU; ++jj) {
+    int j = jj + row;
+    j = j >= NU ? j - NU : j;
+    const V a = *reinterpret_cast<const V*>(A + (row * NU + j) * TC + q * VEC);
+    const V v = *reinterpret_cast<const V*>(x + j * TC + q * VEC);
+    vfma2<T>(acc, a, v);
+  }
+}
+
+// acc[v] += (I2 (x) K + P)[row, :] x for the thread's facets (K the D1 x D1
+// tile table, P the colour's constant block, read through L1)
+template <typename T, int D1, int TC>
+__device__ __forceinline__ void cross_row(T* acc, const T* K, const T* P, const T* x, int row,
+                                          int q) {
+  using V = typename Vec<T>::type;
   constexpr int NU = 2 * D1;
-  constexpr int BT = PatchThreads<T, D1>::value;
-  __shared__ T smem[3 * NU * BT];
-  const int tid = threadIdx.x;
-  T* u = smem + tid;            // r0, later r0 - (I2 (x) K01 + Bp) y1
-  T* w = smem + NU * BT + tid;  // w, later y1
-  T* t = smem + 2 * NU * BT + tid;
-  const long long c = blockIdx.x * (long long)BT + tid;
-  if (c >= m) return;
-  const T* Dc = Di + off + c;
-  const T* Sc = Si + off + c;
-  const T* K01c = K01 + off + c;
-  const T* K10c = K10 + off + c;
-
-#pragma unroll
-  for (int j = 0; j < NU; ++j) u[j * BT] = r0[j * m + c];
-
-  // w = Dinv0 r0
-#pragma unroll 1
-  for (int i = 0; i < NU; ++i) {
-    T a = T(0);
-#pragma unroll
-    for (int j = 0; j < NU; ++j) a += __ldg(Dc + (long long)(i * NU + j) * ldt) * u[j * BT];
-    w[i * BT] = a;
+  constexpr int VEC = Vec<T>::n;
+  const int a = row >= D1 ? 1 : 0;
+  const int i = row - a * D1;
+#pragma unroll(UNROLL<NU>)
+  for (int jj = 0; jj < NU; ++jj) {
+    int j = jj + row;
+    j = j >= NU ? j - NU : j;
+    vfma<T>(acc, __ldg(P + row * NU + j), *reinterpret_cast<const V*>(x + j * TC + q * VEC));
   }
-
-  // t = r1 - (I2 (x) K10 + Cp) w, rows i and D1 + i together
-#pragma unroll 1
-  for (int i = 0; i < D1; ++i) {
-    T a0 = T(0), a1 = T(0);
-#pragma unroll
-    for (int j = 0; j < NU; ++j) {
-      a0 += __ldg(Cp + i * NU + j) * w[j * BT];
-      a1 += __ldg(Cp + (D1 + i) * NU + j) * w[j * BT];
-    }
-#pragma unroll
-    for (int j = 0; j < D1; ++j) {
-      const T k = __ldg(K10c + (long long)(i * D1 + j) * ldt);
-      a0 += k * w[j * BT];
-      a1 += k * w[(D1 + j) * BT];
-    }
-    t[i * BT] = r1[i * m + c] - a0;
-    t[(D1 + i) * BT] = r1[(D1 + i) * m + c] - a1;
-  }
-
-  // y1 = Sinv t (kept in w)
-#pragma unroll 1
-  for (int i = 0; i < NU; ++i) {
-    T a = T(0);
-#pragma unroll
-    for (int j = 0; j < NU; ++j) a += __ldg(Sc + (long long)(i * NU + j) * ldt) * t[j * BT];
-    w[i * BT] = a;
-    y1[i * m + c] = a;
-  }
-
-  // u = r0 - (I2 (x) K01 + Bp) y1
-#pragma unroll 1
-  for (int i = 0; i < D1; ++i) {
-    T a0 = T(0), a1 = T(0);
-#pragma unroll
-    for (int j = 0; j < NU; ++j) {
-      a0 += __ldg(Bp + i * NU + j) * w[j * BT];
-      a1 += __ldg(Bp + (D1 + i) * NU + j) * w[j * BT];
-    }
-#pragma unroll
-    for (int j = 0; j < D1; ++j) {
-      const T k = __ldg(K01c + (long long)(i * D1 + j) * ldt);
-      a0 += k * w[j * BT];
-      a1 += k * w[(D1 + j) * BT];
-    }
-    u[i * BT] -= a0;
-    u[(D1 + i) * BT] -= a1;
-  }
-
-  // y0 = Dinv0 u
-#pragma unroll 1
-  for (int i = 0; i < NU; ++i) {
-    T a = T(0);
-#pragma unroll
-    for (int j = 0; j < NU; ++j) a += __ldg(Dc + (long long)(i * NU + j) * ldt) * u[j * BT];
-    y0[i * m + c] = a;
+#pragma unroll(UNROLL<D1>)
+  for (int jj = 0; jj < D1; ++jj) {
+    int j = jj + i;
+    j = j >= D1 ? j - D1 : j;
+    const V k = *reinterpret_cast<const V*>(K + (i * D1 + j) * TC + q * VEC);
+    const V v = *reinterpret_cast<const V*>(x + (a * D1 + j) * TC + q * VEC);
+    vfma2<T>(acc, k, v);
   }
 }
 
 template <typename T, int D1>
-static void launch(const void* Di, const void* Si, const void* K01,
-                   const void* K10, long long ldt, long long off,
-                   const void* Bp, const void* Cp, const void* r0,
-                   const void* r1, void* y0, void* y1, long long m,
-                   cudaStream_t stream) {
-  constexpr int threads = PatchThreads<T, D1>::value;
-  patch_solve_kernel<T, D1><<<blocks_for(m, threads), threads, 0, stream>>>(
-      (const T*)Di, (const T*)Si, (const T*)K01, (const T*)K10, ldt, off,
-      (const T*)Bp, (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0, (T*)y1, m);
+__global__ void __launch_bounds__(PatchTile<T, D1>::THREADS) patch_solve_kernel(
+    const __grid_constant__ CUtensorMap mD, const __grid_constant__ CUtensorMap mS,
+    const __grid_constant__ CUtensorMap m01, const __grid_constant__ CUtensorMap m10,
+    long long off, const T* __restrict__ Bp, const T* __restrict__ Cp,
+    const T* __restrict__ r0, const T* __restrict__ r1, T* __restrict__ y0,
+    T* __restrict__ y1, long long m) {
+  using P = PatchTile<T, D1>;
+  constexpr int NU = P::NU, TC = P::TC, VEC = P::VEC, Q = P::Q;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* sD = sm + P::OFF_D;
+  T* sK10 = sm + P::OFF_K10;
+  T* sS = sm + P::OFF_S;
+  T* sK01 = sm + P::OFF_K01;
+  T* su = sm + P::OFF_U;  // r0, later r0 - (I2 (x) K01 + Bp) y1
+  T* sw = sm + P::OFF_W;  // w, later y1
+  T* st = sm + P::OFF_T;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + P::SMEM - 4 * 8);
+  const int tid = threadIdx.x;
+  // tiles are aligned in table columns (TMA needs a 16-byte aligned first
+  // column): tile b holds table columns col .. col + TC - 1, facets c0 ..
+  const int col = (int)(off - off % TC) + blockIdx.x * TC;
+  const long long c0 = col - off;
+
+  if (tid == 0) {
+    for (int k = 0; k < 4; ++k) mbar_init(bar + k, 1);
+    mbar_fence_init();
+    tma_load_table<T, TC>(sD, &mD, NU * NU, col, bar + 0);
+    tma_load_table<T, TC>(sK10, &m10, D1 * D1, col, bar + 1);
+    tma_load_table<T, TC>(sS, &mS, NU * NU, col, bar + 2);
+    tma_load_table<T, TC>(sK01, &m01, D1 * D1, col, bar + 3);
+  }
+  // the thread's row of r0 (to shared memory) and of r1 (kept for phase 2),
+  // all loads in flight together
+  const int row = tid / Q, q = tid % Q;
+  T r1v[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const long long c = c0 + q * VEC + v;
+    const bool in = c >= 0 && c < m;
+    su[row * TC + q * VEC + v] = in ? r0[row * m + c] : T(0);
+    r1v[v] = in ? r1[row * m + c] : T(0);
+  }
+  __syncthreads();  // barriers initialised, u staged
+  T acc[VEC];
+
+  // w = Dinv0 r0
+  mbar_wait(bar + 0, 0);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = T(0);
+  row_dot<T, NU, TC>(acc, sD, su, row, q);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) sw[row * TC + q * VEC + v] = acc[v];
+  __syncthreads();
+
+  // t = r1 - (I2 (x) K10 + Cp) w
+  mbar_wait(bar + 1, 0);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = T(0);
+  cross_row<T, D1, TC>(acc, sK10, Cp, sw, row, q);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) st[row * TC + q * VEC + v] = r1v[v] - acc[v];
+  __syncthreads();
+
+  // y1 = Sinv t (kept in w)
+  mbar_wait(bar + 2, 0);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = T(0);
+  row_dot<T, NU, TC>(acc, sS, st, row, q);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const long long c = c0 + q * VEC + v;
+    sw[row * TC + q * VEC + v] = acc[v];
+    if (c >= 0 && c < m) y1[row * m + c] = acc[v];
+  }
+  __syncthreads();
+
+  // u = r0 - (I2 (x) K01 + Bp) y1
+  mbar_wait(bar + 3, 0);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = T(0);
+  cross_row<T, D1, TC>(acc, sK01, Bp, sw, row, q);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) su[row * TC + q * VEC + v] -= acc[v];
+  __syncthreads();
+
+  // y0 = Dinv0 u
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = T(0);
+  row_dot<T, NU, TC>(acc, sD, su, row, q);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const long long c = c0 + q * VEC + v;
+    if (c >= 0 && c < m) y0[row * m + c] = acc[v];
+  }
+}
+
+template <typename T, int D1>
+static int launch(const void* Di, const void* Si, const void* K01, const void* K10,
+                  long long ldt, long long off, const void* Bp, const void* Cp, const void* r0,
+                  const void* r1, void* y0, void* y1, long long m, cudaStream_t stream) {
+  using P = PatchTile<T, D1>;
+  static_assert(P::THREADS <= 1024 && P::SMEM <= 232448, "patch tile too large");
+  static_assert(P::TC % P::VEC == 0, "tile not a whole number of vectors");
+  const long long ncols = off + m;
+  CUtensorMap mD, mS, m01, m10;
+  int e = encode_table<T, P::TC>(&mD, Di, P::NU * P::NU, ldt, ncols);
+  if (!e) e = encode_table<T, P::TC>(&mS, Si, P::NU * P::NU, ldt, ncols);
+  if (!e) e = encode_table<T, P::TC>(&m01, K01, D1 * D1, ldt, ncols);
+  if (!e) e = encode_table<T, P::TC>(&m10, K10, D1 * D1, ldt, ncols);
+  if (e) return e;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t a = cudaFuncSetAttribute(
+        patch_solve_kernel<T, D1>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+    if (a != cudaSuccess) return (int)a;
+    attr = true;
+  }
+  const long long ntiles = off % P::TC + m;  // columns from the aligned first tile
+  patch_solve_kernel<T, D1><<<blocks_for(ntiles, P::TC), P::THREADS, P::SMEM, stream>>>(
+      mD, mS, m01, m10, off, (const T*)Bp, (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0,
+      (T*)y1, m);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -149,18 +265,18 @@ static int dispatch_d1(int d1, const void* Di, const void* Si, const void* K01,
                        const void* r1, void* y0, void* y1, long long m,
                        cudaStream_t st) {
   switch (d1) {
-    case 3: launch<T, 3>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st); break;
-    case 6: launch<T, 6>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st); break;
-    case 10: launch<T, 10>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st); break;
-    case 15: launch<T, 15>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st); break;
-    case 21: launch<T, 21>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st); break;
+    case 3: return launch<T, 3>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    case 6: return launch<T, 6>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    case 10: return launch<T, 10>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    case 15: return launch<T, 15>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    case 21: return launch<T, 21>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 float64.  Di/Si (nu, nu, ldt), K01/K10 (d1, d1, ldt),
-// Bp/Cp (nu, nu), r0/r1/y0/y1 (nu, m), all contiguous; the colour's table
+// dtype: 0 float32, 1 float64.  Di/Si (nu, nu, ldt), K01/K10 (d1, d1, ldt)
+// with ldt * sizeof(T) a multiple of 16 bytes and 16-byte aligned bases;
+// Bp/Cp (nu, nu), r0/r1/y0/y1 (nu, m), contiguous; the colour's table
 // columns are off .. off + m - 1.
 IEHDG_EXPORT int iehdg_patch_solve(int device, int dtype, int d1, const void* Di,
                                    const void* Si, const void* K01,
@@ -170,6 +286,7 @@ IEHDG_EXPORT int iehdg_patch_solve(int device, int dtype, int d1, const void* Di
                                    long long m, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  if (off + m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // TMA coordinates are int32
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_d1<float>(d1, Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);

@@ -2,9 +2,9 @@
 
 Counterpart of incompressibleeulerhdg_tpu/fem/discretisation.py.  The host
 tables are built by the same numpy code (:func:`geom_host_arrays`, a copy of
-the JAX package's lines 224-306 without the JAX types) from the shared numpy
-modules (mesh/, fem/spaces.py); :class:`Geom` holds them as tensors on the
-discretisation's device.
+the JAX package's lines 224-306 without the JAX types) from the port's own
+copies of the numpy modules (``mesh/``, ``fem/spaces.py``); :class:`Geom`
+holds them as tensors on the discretisation's device.
 
 Layouts are BATCH-LAST, as in the JAX package:
 
@@ -21,10 +21,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from incompressibleeulerhdg_tpu.fem.spaces import (
-    tabulate_cell_space,
-    tabulate_trace_space,
-)
+from .spaces import tabulate_cell_space, tabulate_trace_space
 
 __all__ = ["Geom", "HDGDiscretisation", "geom_host_arrays"]
 
@@ -190,13 +187,14 @@ def geom_host_arrays(mesh, V1, V0, Vt, degree):
 class HDGDiscretisation:
     """Host-side bundle: mesh + tabulations + the device :class:`Geom`.
 
-    :arg mesh: a ``TriangleMesh`` (shared numpy module)
+    :arg mesh: a ``TriangleMesh`` (``incompressibleeulerhdg_tpu_torch.mesh``)
     :arg degree: polynomial degree k of the pressure space (velocity k+1)
     :arg dtype: floating dtype of every table and field
-    :arg device: device every tensor is created on
+    :arg device: device every tensor is created on: the card unless the
+        caller asks for the CPU (``device="cpu"``)
     """
 
-    def __init__(self, mesh, degree, dtype=torch.float64, device="cpu"):
+    def __init__(self, mesh, degree, dtype=torch.float64, device="cuda"):
         self.mesh = mesh
         self.degree = int(degree)
         self.dtype = dtype

@@ -42,6 +42,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+NVCC_LIBS = ["-lcuda"]  # cuTensorMapEncodeTiled (csrc/tma.cuh)
+TMA_ERROR = 100000  # IEHDG_TMA_ERROR of csrc/tma.cuh
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -106,9 +108,9 @@ def _nvcc():
 
 def _lib_path(name):
     h = hashlib.sha256()
-    for f in (_CSRC / f"{name}.cu", _CSRC / "common.cuh"):
+    for f in (_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + NVCC_LIBS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -116,7 +118,7 @@ def _start_build(name, so):
     """Start nvcc on one kernel source; returns (process, temporary output)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu"), *NVCC_LIBS]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp
 
 
@@ -189,6 +191,9 @@ def launch(name, *args):
     lib = _get(name)
     entry = KERNELS[name][0]
     code = getattr(lib, entry)(*args)
+    if code >= TMA_ERROR:
+        raise RuntimeError(f"CUDA kernel {name}: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {code - TMA_ERROR})")
     if code != 0:
         msg = lib.iehdg_error_string(code).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({code})")
@@ -204,19 +209,47 @@ def dtype_code(dtype):
     raise TypeError(f"CUDA kernels take float32 or float64, not {dtype}")
 
 
-def check_cuda(name, *tensors):
+def check_cuda(name, *tensors, tables=()):
     """Validate tensors handed to a kernel: one CUDA device, one dtype,
-    contiguous.  Returns (device index, dtype code)."""
+    ``tensors`` contiguous (``tables`` are checked by :func:`table_ld`).
+    Returns (device index, dtype code)."""
     dev = tensors[0].device
     dtype = tensors[0].dtype
-    for t in tensors:
+    for t in (*tensors, *tables):
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must lie on one CUDA device")
         if t.dtype != dtype:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     return dev.index, dtype_code(dtype)
+
+
+TMA_ALIGN = 16  # bytes: TMA's base-address and row-stride alignment
+
+
+def padded_ld(n, dtype):
+    """Column stride of a batch-last table of ``n`` columns whose rows start
+    on TMA's 16-byte alignment."""
+    per = TMA_ALIGN // torch.empty((), dtype=dtype).element_size()
+    return -(-int(n) // per) * per
+
+
+def table_ld(name, *tables):
+    """Common column stride ``ld`` of batch-last tables (a, b, n) laid out as
+    ``pad_table`` makes them (stride (b * ld, ld, 1), 16-byte aligned rows
+    and base), as the TMA kernels read them; raises on any other layout."""
+    ld = tables[0].stride(1)
+    for t in tables:
+        a, b, n = t.shape
+        ok = t.stride() == (b * ld, ld, 1) and ld >= n and \
+            (ld * t.element_size()) % TMA_ALIGN == 0 and t.data_ptr() % TMA_ALIGN == 0
+        if not ok:
+            raise ValueError(
+                f"{name}: table {tuple(t.shape)} with strides {t.stride()} is not a "
+                f"16-byte-aligned batch-last table (build it with preconditioners.pad_table)")
+    return ld
 
 
 def seg_array(bounds):

@@ -14,8 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from incompressibleeulerhdg_tpu.mesh.triangle_mesh import LOCAL_FACET_VERTS
-
+from ..mesh.triangle_mesh import LOCAL_FACET_VERTS
 from ..ops.structured import shift2, rect_flat
 from .condense import trace_matvec
 

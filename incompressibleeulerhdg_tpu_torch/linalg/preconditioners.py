@@ -24,7 +24,10 @@ CUDA here, each beside its plain PyTorch version (the JAX fallback):
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel.
 The kernels are instantiated for the widths d1 = (k + 2)(k + 3)/2 of the
-degrees k = 0 .. 4; a wider table on the card raises.
+degrees k = 0 .. 4; a wider table on the card raises.  K2 and K3 stage
+their per-facet tables in shared memory with TMA, which needs 16-byte rows:
+the operator's facet tables are allocated with a padded column stride
+(:func:`pad_table`; the plain versions read the same views).
 """
 
 from dataclasses import dataclass
@@ -47,6 +50,8 @@ __all__ = [
     "cross_pair_plain",
     "patch_solve",
     "patch_solve_plain",
+    "pad_table",
+    "tile_facets",
 ]
 
 
@@ -73,6 +78,46 @@ def _check_width(name, d1):
         raise NotImplementedError(
             f"{name}: the CUDA kernel is instantiated for d1 in {CUDA_D1} (k <= 4), "
             f"got d1 = {d1} (ROADMAP Queue 1, 'k >= 5 on the card')")
+
+
+def pad_table(A):
+    """A batch-last table (a, b, n) as a view of an (a, b, ld) buffer whose
+    rows are 16 bytes aligned (``ld`` = n rounded up to 16 bytes): the layout
+    the TMA kernels K2 and K3 read.  Returns ``A`` itself when it already has
+    that layout."""
+    a, b, n = A.shape
+    ld = kernels.padded_ld(n, A.dtype)
+    if A.stride() == (b * ld, ld, 1) and A.data_ptr() % kernels.TMA_ALIGN == 0:
+        return A
+    buf = A.new_empty((a, b, ld))
+    buf[:, :, :n] = A
+    buf[:, :, n:] = 0
+    return buf[:, :, :n]
+
+
+def _cat_table(parts):
+    """torch.cat of batch-last tables along the columns, into a padded table."""
+    a, b = parts[0].shape[:2]
+    n = sum(p.shape[2] for p in parts)
+    buf = parts[0].new_zeros((a, b, kernels.padded_ld(n, parts[0].dtype)))
+    c = 0
+    for p in parts:
+        buf[:, :, c : c + p.shape[2]] = p
+        c += p.shape[2]
+    return buf[:, :, :n]
+
+
+def tile_facets(kernel, d1, dtype):
+    """Facets per block tile of K2 ("cross_pair") or K3 ("patch_solve"): the
+    TC of CrossTile / PatchTile in csrc/cross_pair.cu, csrc/patch_solve.cu
+    (128-byte table rows for K2, 64 above d1 = 15; 64-byte rows for K3 up to
+    d1 = 10, 32 at d1 = 15, 16 at d1 = 21)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if kernel == "cross_pair":
+        return (64 if d1 > 15 else 128) // size
+    if kernel == "patch_solve":
+        return (64 // size) // (4 if d1 > 15 else 2 if d1 > 10 else 1)
+    raise ValueError(kernel)
 
 
 def _bm(A, x):
@@ -152,7 +197,7 @@ def cross_pair(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
     one pass over columns c of x0/x1 (nu, m) (tables at column aoff + c)."""
     if x0.device.type == "cpu":
         return cross_pair_plain(K01, K10, Bp, Cp, bounds, x0, x1, aoff)
-    K01, K10, Bp, Cp = K01.contiguous(), K10.contiguous(), Bp.contiguous(), Cp.contiguous()
+    Bp, Cp = Bp.contiguous(), Cp.contiguous()
     x0, x1 = x0.contiguous(), x1.contiguous()
     d1 = K01.shape[0]
     _check_width("cross_pair", d1)
@@ -161,14 +206,15 @@ def cross_pair(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
             Bp.shape != Cp.shape or Bp.shape[1:] != (nu, nu) or \
             Bp.shape[0] != len(bounds) - 1 or aoff + m > K01.shape[2]:
         raise ValueError(f"cross_pair: shapes K {tuple(K01.shape)} P {tuple(Bp.shape)} x {tuple(x0.shape)}")
-    dev, code = kernels.check_cuda("cross_pair", K01, K10, Bp, Cp, x0, x1)
+    dev, code = kernels.check_cuda("cross_pair", Bp, Cp, x0, x1, tables=(K01, K10))
+    ld = kernels.table_ld("cross_pair", K01, K10)
     y0 = torch.empty_like(x0)
     y1 = torch.empty_like(x0)
     if m == 0:
         return y0, y1
     seg, nseg = kernels.seg_array(bounds)
     kernels.launch("cross_pair", dev, code, d1, K01.data_ptr(), K10.data_ptr(),
-                   K01.shape[2], aoff, Bp.data_ptr(), Cp.data_ptr(), seg, nseg,
+                   ld, aoff, Bp.data_ptr(), Cp.data_ptr(), seg, nseg,
                    x0.data_ptr(), x1.data_ptr(), y0.data_ptr(), y1.data_ptr(), m,
                    kernels.stream_ptr(x0))
     return y0, y1
@@ -198,21 +244,24 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
 
         w = Dinv0 r0;  t = r1 - (I2 (x) K10 + Cp) w;  y1 = Sinv t;
         y0 = Dinv0 (r0 - (I2 (x) K01 + Bp) y1)
+
+    On the card the four tables must have :func:`pad_table`'s layout.
     """
     if r0.device.type == "cpu":
         return patch_solve_plain(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off)
-    ts = [t.contiguous() for t in (Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1)]
-    Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1 = ts
+    ts = [t.contiguous() for t in (Bp_k, Cp_k, r0, r1)]
+    Bp_k, Cp_k, r0, r1 = ts
     d1 = K01.shape[0]
     _check_width("patch_solve", d1)
     nu, m = r0.shape
-    ld = Dinv0.shape[2]
-    if nu != 2 * d1 or Dinv0.shape != (nu, nu, ld) or Sinv.shape != Dinv0.shape or \
-            K01.shape != (d1, d1, ld) or K10.shape != K01.shape or \
+    nf = Dinv0.shape[2]
+    if nu != 2 * d1 or Dinv0.shape != (nu, nu, nf) or Sinv.shape != Dinv0.shape or \
+            K01.shape != (d1, d1, nf) or K10.shape != K01.shape or \
             Bp_k.shape != (nu, nu) or Cp_k.shape != (nu, nu) or \
-            r1.shape != r0.shape or off + m > ld:
+            r1.shape != r0.shape or off + m > nf:
         raise ValueError(f"patch_solve: shapes Dinv0 {tuple(Dinv0.shape)} K {tuple(K01.shape)} r {tuple(r0.shape)}")
-    dev, code = kernels.check_cuda("patch_solve", *ts)
+    dev, code = kernels.check_cuda("patch_solve", *ts, tables=(Dinv0, Sinv, K01, K10))
+    ld = kernels.table_ld("patch_solve", Dinv0, Sinv, K01, K10)
     y0 = torch.empty_like(r0)
     y1 = torch.empty_like(r0)
     if m == 0:
@@ -293,8 +342,8 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
     wf = geom.wqf[:, None] * geom.flen[None, :]
     s01 = (-c) * (-0.5 * snq + upw * torch.abs(snq)) * wf * msk[None, :]
     s10 = (-c) * (0.5 * snq + upw * torch.abs(snq)) * wf * msk[None, :]
-    K01s = torch.einsum("fqi,fqj,qf->ijf", U0, U1, s01).contiguous()
-    K10s = torch.einsum("fqi,fqj,qf->ijf", U1, U0, s10).contiguous()
+    K01s = pad_table(torch.einsum("fqi,fqj,qf->ijf", U0, U1, s01).contiguous())
+    K10s = pad_table(torch.einsum("fqi,fqj,qf->ijf", U1, U0, s10).contiguous())
     Bp, Cp = [], []
     for (t0, t1, _ln, nx_, ny_) in geom.uniform[0]:
         PM = torch.einsum("q,qi,qj->ij", geom.wqf, geom.tphi1[t0], geom.tphi1[t1])
@@ -328,8 +377,8 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
         Dinv0_parts.append(Dinv_bl[:, :, geom.fcells[0, geom.n_int :]])
     return TentativeOperator(
         Dinv=Dinv_bl,
-        Sinv=torch.cat(Sinv_parts, dim=2),
-        Dinv0=torch.cat(Dinv0_parts, dim=2),
+        Sinv=_cat_table(Sinv_parts),
+        Dinv0=_cat_table(Dinv0_parts),
         Sown=S_own,
         Pcell=Pcell,
         Ks01=K01s,

@@ -12,8 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from incompressibleeulerhdg_tpu.fem.lagrange import shifted_legendre
-
+from ..fem.lagrange import shifted_legendre
 from .fields import cell_values, facet_traces, interior_mask
 from .structured import slot_gather
 

@@ -1,18 +1,17 @@
 """Timestepper base: shared FEM operations of the schemes (single device).
 
 Counterpart of incompressibleeulerhdg_tpu/timesteppers/common.py, with the
-checkpoint of the plain (Q, p) state through the JAX package's numpy-only
-``utils/checkpoint.py`` (the files are interchangeable between the two
-packages).
+checkpoint of the plain (Q, p) state through the port's copy of the numpy
+checkpoint format (``utils/checkpoint.py``; the files are interchangeable
+between the two packages).
 """
 
 import numpy as np
 import torch
 
-from incompressibleeulerhdg_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
-
 from ..ops import fields as F
 from ..ops.projection import build_bdm_projection, project_bdm
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
 
 __all__ = ["IncompressibleEuler"]
 

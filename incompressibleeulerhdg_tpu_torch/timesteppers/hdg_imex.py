@@ -26,13 +26,9 @@ import time
 import numpy as np
 import torch
 
-from incompressibleeulerhdg_tpu.timesteppers.tableaus import (
-    TABLEAUS,
-    unroll_residual_coefficients,
-)
-from incompressibleeulerhdg_tpu.utils.logging import PerformanceLog, Averager
-
 from .common import IncompressibleEuler, synchronize
+from .tableaus import TABLEAUS, unroll_residual_coefficients
+from ..utils.logging import PerformanceLog, Averager
 from ..ops import fields as F
 from ..ops.forms import (
     star_fields,

@@ -14,9 +14,8 @@ Counterpart of incompressibleeulerhdg_tpu/timesteppers/hdg_implicit.py
   3. p <- phi, shifted to zero mean
 """
 
-from incompressibleeulerhdg_tpu.utils.logging import PerformanceLog
-
 from .common import IncompressibleEuler, synchronize
+from ..utils.logging import PerformanceLog
 from ..ops import fields as F
 from ..ops.forms import star_fields
 from ..ops.projection import project_bdm

@@ -150,7 +150,7 @@ def test_cuda_device_without_card_exits():
 
 @pytest.mark.parametrize("forcing", ["exponential", "constant"])
 def test_taylor_green_forcing_matches_jax(forcing):
-    jd, td = JDisc(unit_square_mesh(4), 1), TDisc(unit_square_mesh(4), 1)
+    jd, td = JDisc(unit_square_mesh(4), 1), TDisc(unit_square_mesh(4), 1, device="cpu")
     jp, tp = JTG(jd, forcing, 0.7), TTG(td, forcing, 0.7)
     for t in (0.0, 0.3):
         np.testing.assert_allclose(td.interpolate_velocity(tp.f_rhs()(t)).numpy(),

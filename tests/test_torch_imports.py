@@ -1,6 +1,6 @@
-"""The PyTorch port stands on its own: importing it pulls in no JAX, builds
-nothing, and ``chip_smoke.py`` refuses to report a result without a card or
-outside a checkout of the repository."""
+"""The PyTorch port stands on its own: importing it pulls in no JAX and
+nothing of the JAX package, builds nothing, and ``chip_smoke.py`` refuses to
+report a result without a card or outside a checkout of the repository."""
 
 import pathlib
 import shutil
@@ -16,6 +16,12 @@ PORT_MODULES = [
     "incompressibleeulerhdg_tpu_torch.kernels",
     "incompressibleeulerhdg_tpu_torch.convert",
     "incompressibleeulerhdg_tpu_torch.mesh",
+    "incompressibleeulerhdg_tpu_torch.mesh.generators",
+    "incompressibleeulerhdg_tpu_torch.mesh.triangle_mesh",
+    "incompressibleeulerhdg_tpu_torch.mesh.native",
+    "incompressibleeulerhdg_tpu_torch.fem.quadrature",
+    "incompressibleeulerhdg_tpu_torch.fem.lagrange",
+    "incompressibleeulerhdg_tpu_torch.fem.spaces",
     "incompressibleeulerhdg_tpu_torch.fem.discretisation",
     "incompressibleeulerhdg_tpu_torch.ops.structured",
     "incompressibleeulerhdg_tpu_torch.ops.fields",
@@ -30,12 +36,17 @@ PORT_MODULES = [
     "incompressibleeulerhdg_tpu_torch.linalg.smallinv",
     "incompressibleeulerhdg_tpu_torch.linalg.preconditioners",
     "incompressibleeulerhdg_tpu_torch.linalg.tentative",
+    "incompressibleeulerhdg_tpu_torch.timesteppers.tableaus",
     "incompressibleeulerhdg_tpu_torch.timesteppers.common",
     "incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex",
     "incompressibleeulerhdg_tpu_torch.timesteppers.hdg_implicit",
     "incompressibleeulerhdg_tpu_torch.linalg.monolithic",
     "incompressibleeulerhdg_tpu_torch.cli.driver",
     "incompressibleeulerhdg_tpu_torch.tools.microbench_gj",
+    "incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch",
+    "incompressibleeulerhdg_tpu_torch.utils.logging",
+    "incompressibleeulerhdg_tpu_torch.utils.checkpoint",
+    "incompressibleeulerhdg_tpu_torch.utils.vtk",
     "chip_smoke",
 ]
 
@@ -50,10 +61,13 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'incompressibleeulerhdg_tpu'))\n"
         "assert not bad, bad\n"
         "from incompressibleeulerhdg_tpu_torch import kernels\n"
+        "from incompressibleeulerhdg_tpu_torch.mesh import native\n"
         "assert not kernels._LIBS, 'a kernel was built at import'\n"
+        "assert native._LIB is None, 'the mesh kernel was loaded at import'\n"
         "print('ok')\n"
     )
     res = _run(code)
@@ -61,13 +75,21 @@ def test_port_imports_no_jax():
 
 
 def test_port_source_names_no_jax():
-    """No module of the port imports jax, even lazily."""
-    for path in (ROOT / "incompressibleeulerhdg_tpu_torch").rglob("*.py"):
+    """No module of the port and not chip_smoke.py imports jax or anything of
+    the JAX package, even lazily."""
+    refused = ("jax", "incompressibleeulerhdg_tpu")
+    paths = [*(ROOT / "incompressibleeulerhdg_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    for path in paths:
         for line in path.read_text().splitlines():
-            words = line.split()
-            assert not (words[:1] == ["import"] and words[1:2] == ["jax"]), path
-            assert not (words[:1] == ["from"] and words[1:2] and
-                        words[1].split(".")[0] == "jax"), path
+            words = line.replace(",", " ").split()
+            if words[:1] == ["import"]:
+                names = words[1:]
+            elif words[:1] == ["from"]:
+                names = words[1:2]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in refused, f"{path}: {line.strip()}"
 
 
 def _assert_refused(res):

@@ -388,6 +388,9 @@ def test_cuda_cross_pair(cuda, dtype):
     P = torch.randn(2, 3, 2 * d1, 2 * d1, generator=g, dtype=dtype).to(cuda)
     x = torch.randn(2, 2 * d1, m, generator=g, dtype=dtype).to(cuda)
     b = (0, 100, 500, 990)
+    with pytest.raises(ValueError, match="pad_table"):  # 1005 columns: rows not 16-byte aligned
+        TP.cross_pair(K[0], K[1], P[0], P[1], b, x[0], x[1], aoff=5)
+    K = [TP.pad_table(k) for k in K]
     got = TP.cross_pair(K[0], K[1], P[0], P[1], b, x[0], x[1], aoff=5)
     ref = TP.cross_pair_plain(K[0], K[1], P[0], P[1], b, x[0], x[1], aoff=5)
     tol = 1e-4 if dtype == torch.float32 else 1e-11
@@ -429,7 +432,7 @@ def test_cuda_kernels_d1_21(cuda, dtype):
     d1, ld, m, off = 21, 1300, 1001, 150
     nu = 2 * d1
     rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype).to(cuda)
-    A, K01, K10 = rnd(d1, d1, ld), rnd(d1, d1, ld), rnd(d1, d1, ld)
+    A, K01, K10 = rnd(d1, d1, ld), rnd(d1, d1, ld), rnd(d1, d1, ld)  # 1300: aligned rows
     P3, Q3 = rnd(3, nu, nu), rnd(3, nu, nu)
     x0, x1 = rnd(nu, m), rnd(nu, m)
     Di, Si = rnd(nu, nu, ld), rnd(nu, nu, ld)
@@ -461,3 +464,122 @@ def test_cuda_gauss_jordan_select(cuda, dtype):
     assert float((TI.gauss_jordan_inv_bl(A[:42, :42].contiguous())
                   - TI.gauss_jordan_inv_plain(A[:42, :42])).abs().max()) <= tol
     assert kernels.LAUNCHES["gauss_jordan_select"] == 1 and kernels.LAUNCHES["gauss_jordan"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d1", [10, 21])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_tma_kernels_ragged(cuda, dtype, d1):
+    """K2 and K3 (TMA tiles) against their plain versions on a padded table
+    of an odd column count, a colour at an odd offset whose size is not a
+    multiple of the tile, and (K2) segments that start and end inside
+    tiles, one shorter than a tile, and a penalty-free tail."""
+    g = torch.Generator().manual_seed(7 + d1)
+    nu, nf = 2 * d1, 2 * 1001 + 1  # odd: the padded stride differs from nf
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype).to(cuda)
+    K01, K10 = TP.pad_table(rnd(d1, d1, nf)), TP.pad_table(rnd(d1, d1, nf))
+    Di, Si = TP.pad_table(rnd(nu, nu, nf)), TP.pad_table(rnd(nu, nu, nf))
+    assert K01.stride(1) == kernels.padded_ld(nf, dtype) > nf
+    tc2, tc3 = TP.tile_facets("cross_pair", d1, dtype), TP.tile_facets("patch_solve", d1, dtype)
+    off, m = 333, 1001 - 4  # odd: no multiple of any tile, unaligned tiles
+    assert m % tc2 and m % tc3 and off % tc3
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    P4, Q4 = rnd(4, nu, nu), rnd(4, nu, nu)
+    b = (0, tc2 + 3, tc2 + 5, 4 * tc2 + 1, m - 7)
+    x0, x1 = rnd(nu, nf - off), rnd(nu, nf - off)
+    kernels.reset_launches()
+    for aoff in (0, off):
+        got = TP.cross_pair(K01, K10, P4, Q4, b, x0[:, :m], x1[:, :m], aoff=aoff)
+        ref = TP.cross_pair_plain(K01, K10, P4, Q4, b, x0[:, :m], x1[:, :m], aoff=aoff)
+        assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
+    for mm in (m, nf - off, 1):  # ragged, up to the last column, one facet
+        got = TP.patch_solve(Di, Si, K01, K10, P4[0], Q4[0], x0[:, :mm], x1[:, :mm], off)
+        ref = TP.patch_solve_plain(Di, Si, K01, K10, P4[0], Q4[0], x0[:, :mm], x1[:, :mm], off)
+        assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
+    assert kernels.LAUNCHES["cross_pair"] == 2 and kernels.LAUNCHES["patch_solve"] == 3
+
+
+@pytest.mark.cuda
+def test_cuda_operator_tables_padded(cuda):
+    """build_tentative_operator on the card allocates the tables the TMA
+    kernels read (odd nx, so nf is odd), and one fused sweep through K2 and
+    K3 matches the same sweep on the CPU."""
+    from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
+    from incompressibleeulerhdg_tpu_torch.mesh import unit_square_mesh as t_mesh
+    from incompressibleeulerhdg_tpu_torch.ops.forms import star_fields
+
+    mesh = t_mesh(9, 7)
+    out = []
+    for dev in ("cpu", cuda):
+        disc = HDGDiscretisation(mesh, 2, dtype=torch.float64, device=dev)
+        geom = disc.geom
+        rng = np.random.default_rng(12)
+        u = torch.as_tensor(rng.standard_normal((2, geom.d1, geom.n_cells)), device=dev)
+        op = TP.build_tentative_operator(geom, star_fields(geom, u), 0.01)
+        assert geom.n_facets % 2 == 1
+        kernels.table_ld("check", op.Dinv0, op.Sinv, op.Ks01, op.Ks10)
+        v = torch.as_tensor(rng.standard_normal((2 * geom.d1, geom.n_cells)), device=dev)
+        out.append([a.cpu() for a in TP._colored_apply_fused_bl(geom, op, v)])
+    for a, b in zip(*out):
+        assert _rel(b, a) <= 1e-11
+
+
+def test_pad_table_layout():
+    """pad_table: 16-byte rows, same values, the plain versions read the view;
+    an aligned contiguous table comes back as it is."""
+    rng = np.random.default_rng(4)
+    for dtype, per in ((torch.float32, 4), (torch.float64, 2)):
+        for n in (1, 5, 8, 1003):
+            A = torch.as_tensor(rng.standard_normal((3, 4, n)), dtype=dtype)
+            Ap = TP.pad_table(A)
+            ld = kernels.padded_ld(n, dtype)
+            assert ld % per == 0 and n <= ld < n + per
+            assert Ap.shape == A.shape and Ap.stride() == (4 * ld, ld, 1) and torch.equal(Ap, A)
+            assert kernels.table_ld("t", Ap) == ld
+            assert (TP.pad_table(Ap) is Ap) and ((n % per == 0) == (TP.pad_table(A) is A))
+            if n % per:
+                with pytest.raises(ValueError, match="pad_table"):
+                    kernels.table_ld("t", A)
+    x = torch.as_tensor(rng.standard_normal((8, 1003)))
+    K = torch.as_tensor(rng.standard_normal((4, 4, 1003)))
+    P = torch.as_tensor(rng.standard_normal((1, 8, 8)))
+    assert torch.equal(TP.fact_apply_plain(TP.pad_table(K), P, (0, 1000), x[:, :1000], aoff=3),
+                       TP.fact_apply_plain(K, P, (0, 1000), x[:, :1000], aoff=3))
+
+
+@pytest.mark.parametrize("kernel", ["cross_pair", "patch_solve"])
+def test_tile_facets(kernel):
+    """The TMA tiles: 16-byte facet groups, table rows of 16 to 128 bytes,
+    and (K3) a block's four tables under a third of the SM's shared memory
+    at d1 <= 10 (three blocks an SM), under the 227 KB a block may use."""
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        for d1 in TP.CUDA_D1:
+            tc = TP.tile_facets(kernel, d1, dtype)
+            assert (tc * size) % 16 == 0 and 16 <= tc * size <= 128
+            nu = 2 * d1
+            rows = 2 * d1 * d1 + (2 * nu * nu if kernel == "patch_solve" else 0)
+            assert rows * tc * size <= (76_000 if d1 <= 10 else 232_448)
+    with pytest.raises(ValueError):
+        TP.tile_facets("fact_apply", 10, torch.float32)
+
+
+def test_operator_tables_padded_on_cpu():
+    """build_tentative_operator allocates Dinv0, Sinv, Ks01 and Ks10 with
+    16-byte rows also on the CPU (odd nf), and the fused sweep over the
+    padded tables equals the sweep over contiguous copies."""
+    from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
+    from incompressibleeulerhdg_tpu_torch.mesh import unit_square_mesh as t_mesh
+    from incompressibleeulerhdg_tpu_torch.ops.forms import star_fields
+
+    disc = HDGDiscretisation(t_mesh(5, 3), 1, dtype=torch.float32, device="cpu")
+    geom = disc.geom
+    rng = np.random.default_rng(8)
+    u = torch.as_tensor(rng.standard_normal((2, geom.d1, geom.n_cells)), dtype=torch.float32)
+    op = TP.build_tentative_operator(geom, star_fields(geom, u), 0.01)
+    assert geom.n_facets % 4
+    ld = kernels.table_ld("t", op.Dinv0, op.Sinv, op.Ks01, op.Ks10)
+    assert ld == kernels.padded_ld(geom.n_facets, torch.float32) > geom.n_facets
+    dense = TP.TentativeOperator(**{f: getattr(op, f).contiguous() for f in op.__dataclass_fields__})
+    v = torch.as_tensor(rng.standard_normal((2 * geom.d1, geom.n_cells)), dtype=torch.float32)
+    for a, b in zip(TP._colored_apply_fused_bl(geom, op, v), TP._colored_apply_fused_bl(geom, dense, v)):
+        assert torch.equal(a, b)

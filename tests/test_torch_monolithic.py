@@ -61,7 +61,7 @@ def close(got, ref, rtol):
 
 @pytest.fixture(scope="module")
 def discs4():
-    return JDisc(unit_square_mesh(4), 1), TDisc(unit_square_mesh(4), 1)
+    return JDisc(unit_square_mesh(4), 1), TDisc(unit_square_mesh(4), 1, device="cpu")
 
 
 def _random_fields(disc, seed):
@@ -124,7 +124,7 @@ def test_fgmres_matches_jax(restart):
 def mono8():
     """Both packages' monolithic SSP2 steppers at 8^2, k=1 and their t = 0
     stage states."""
-    jd, td = JDisc(unit_square_mesh(8), 1), TDisc(unit_square_mesh(8), 1)
+    jd, td = JDisc(unit_square_mesh(8), 1), TDisc(unit_square_mesh(8), 1, device="cpu")
     js = JSSP2(jd, DT, use_projection_method=False)
     ts = TSSP2(td, DT, use_projection_method=False)
     jp, tp = JTG(jd), TTG(td)
@@ -203,7 +203,7 @@ def test_hdg_implicit_step_matches_jax(discs4, projection):
 
 def test_centered_flux_step_matches_jax():
     """One projection SSP2 step with the centered flux at 4^2, k=1."""
-    jd, td = JDisc(unit_square_mesh(4), 1), TDisc(unit_square_mesh(4), 1)
+    jd, td = JDisc(unit_square_mesh(4), 1), TDisc(unit_square_mesh(4), 1, device="cpu")
     js, ts = JSSP2(jd, DT, flux="centered"), TSSP2(td, DT, flux="centered")
     jp, tp = JTG(jd), TTG(td)
     Q0, p0 = jp.initial_condition()

@@ -68,7 +68,7 @@ class Pair:
     def __init__(self, nx, ny, k):
         mesh = unit_square_mesh(nx, ny)
         self.jd = JDisc(mesh, k)
-        self.td = TDisc(unit_square_mesh(nx, ny), k)
+        self.td = TDisc(unit_square_mesh(nx, ny), k, device="cpu")
         self.jg, self.tg = self.jd.geom, self.td.geom
         g = self.jg
         rng = np.random.default_rng(100 * nx + 10 * ny + k)

@@ -102,7 +102,7 @@ def test_deflate_constant():
 @pytest.fixture(scope="module")
 def pressure():
     jd = JDisc(unit_square_mesh(6, 5), 1)
-    td = TDisc(unit_square_mesh(6, 5), 1)
+    td = TDisc(unit_square_mesh(6, 5), 1, device="cpu")
     jcs = JC.build_condensed_system(jd)
     tcs = TC.build_condensed_system(td)
     return jd, td, jcs, tcs, JG.build_gtmg(jd, jcs), TG.build_gtmg(td, tcs)
@@ -157,7 +157,7 @@ def test_pressure_solve(pressure):
 class Tent:
     def __init__(self, nx, ny, k, c):
         self.jd = JDisc(unit_square_mesh(nx, ny), k)
-        self.td = TDisc(unit_square_mesh(nx, ny), k)
+        self.td = TDisc(unit_square_mesh(nx, ny), k, device="cpu")
         g = self.jd.geom
         rng = np.random.default_rng(7 * nx + k)
         self.S = rng.standard_normal((2, g.d1, g.n_cells))

@@ -62,7 +62,7 @@ def steps():
         sQ, sp, sl, _, counts = step(*ops, *jout[-1][:3], jnp.asarray(k * DT), jnp.zeros_like(p), None)
         jout.append((sQ, sp, sl, counts))
 
-    td = TDisc(unit_square_mesh(NX), 1)
+    td = TDisc(unit_square_mesh(NX), 1, device="cpu")
     ts = TSSP2(td, DT)
     tp = TTG(td)
     tstate = ts.initial_state(*tp.initial_condition())
@@ -98,7 +98,7 @@ def test_step_from_converted_state(steps):
     """The JAX state carried over with convert.state_from_jax steps to the
     same result as the port's own."""
     jout, tout = steps
-    td = TDisc(unit_square_mesh(NX), 1)
+    td = TDisc(unit_square_mesh(NX), 1, device="cpu")
     ts = TSSP2(td, DT)
     state = [convert.state_from_jax(a) for a in jout[1][:3]]
     out = ts.step(*state, DT, TTG(td).f_rhs())
@@ -108,7 +108,7 @@ def test_step_from_converted_state(steps):
 
 
 def _solve_errors(cls, nx, dt, tfinal):
-    disc = TDisc(unit_square_mesh(nx), 1)
+    disc = TDisc(unit_square_mesh(nx), 1, device="cpu")
     stepper = cls(disc, dt)
     problem = TTG(disc)
     Q0, p0 = problem.initial_condition()
@@ -138,7 +138,7 @@ def test_float32_step_runs():
     close to the float64 step at the float32 Krylov tolerances."""
     outs = []
     for dtype in (torch.float32, torch.float64):
-        td = TDisc(unit_square_mesh(NX), 2, dtype=dtype)
+        td = TDisc(unit_square_mesh(NX), 2, dtype=dtype, device="cpu")
         ts = TSSP2(td, DT)
         tp = TTG(td)
         sQ, sp, sl, counts = ts.step(*ts.initial_state(*tp.initial_condition()), 0.0,
