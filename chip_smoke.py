@@ -17,7 +17,9 @@ Phases, each printing its own lines:
    own duration, and the summed durations of the plain version's kernels),
    the bytes and the least time
    the card could take for the work (bound), and for K4 the time of
-   ``torch.linalg.inv`` on the same blocks;
+   ``torch.linalg.inv`` on the same blocks; a profiler session that records
+   no device time is repeated, and after three such sessions the time is
+   taken with CUDA events instead (the line names the timer);
 4. the main path: HDG IMEX SSP2(3,3,2), Richardson + projection, Taylor-Green
    vortex, 256^2 unit-square mesh, k=2, float32, dt = 1/256 -- set-up,
    initial trace, one warm-up step and three timed steps; validates
@@ -40,7 +42,7 @@ Phases, each printing its own lines:
 The JSON line before the card's name and power limit has one entry per
 kernel (route, source, the TPU kernel it replaces, launches by path and per
 timed main-path step, errors, ms, plain_ms, bytes, bound_ms, bound_by,
-pct_bound, library_ms); the last line is ``{"ok": true, "device": {...}}``.
+pct_bound, library_ms, timers); the last line is ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it.
 """
 
@@ -143,6 +145,14 @@ def bound(dtype, nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def pct_bound(bound_ms, ms, name):
+    """The bound as a percentage of a measured time; a time that is not
+    positive is a failed measurement."""
+    if not ms > 0:
+        fail(f"{name}: measured time {ms} ms is not positive")
+    return 100 * bound_ms / ms
+
+
 def compare_kernels(nx, degree):
     """Phases 3 and 5: every kernel of the nx^2, k = degree path against its
     plain version at that path's shapes.  At k <= 3 the own-cell and Schur
@@ -156,7 +166,7 @@ def compare_kernels(nx, degree):
     ``torch.linalg.inv`` on the same blocks (library_ms)."""
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
-    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_ms
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
 
     nc, nf, b = main_shapes(nx)
     d1 = (degree + 2) * (degree + 3) // 2
@@ -194,14 +204,20 @@ def compare_kernels(nx, degree):
         return 0.1 * rnd(n, n, m, dtype=dtype) + 3.0 * torch.eye(n, dtype=dtype, device=dev)[:, :, None]
 
     def timed(name, dtype, kern, plain, nbytes, flops, suffix=""):
-        # device time (torch.profiler), in turns: plain, kernel, kernel, plain
+        # device time (torch.profiler, else CUDA events), in turns: plain,
+        # kernel, kernel, plain
         sym = f"{name}_kernel"
-        t_p1, t_k1, t_k2, t_p2 = (device_ms(plain), device_ms(kern, match=sym),
-                                  device_ms(kern, match=sym), device_ms(plain))
+        (t_p1, u_p1), (t_k1, u_k1), (t_k2, u_k2), (t_p2, u_p2) = (
+            device_time(plain), device_time(kern, match=sym), device_time(kern, match=sym),
+            device_time(plain))
         t_b, by = bound(dtype, nbytes, flops)
         results[name].update({f"ms{suffix}": min(t_k1, t_k2), f"plain_ms{suffix}": min(t_p1, t_p2),
                               f"bytes{suffix}": nbytes, f"bound_ms{suffix}": t_b,
                               f"bound_by{suffix}": by})
+        timers = results[name].setdefault("timers", [])
+        for u in (u_p1, u_k1, u_k2, u_p2):
+            if u not in timers:
+                timers.append(u)
 
     for dtype in (torch.float64, torch.float32):
         A = rnd(d1, d1, nc, dtype=dtype)
@@ -288,8 +304,8 @@ def compare_kernels(nx, degree):
             # one PyTorch call on the same blocks: batched LU inverse (cuBLAS/cuSOLVER),
             # on the batch-last table and on an (m, n, n) contiguous copy
             Gm = G.permute(2, 0, 1).contiguous()
-            lib_perm = device_ms(lambda: torch.linalg.inv(G.permute(2, 0, 1)))
-            lib_contig = device_ms(lambda: torch.linalg.inv(Gm))
+            lib_perm = device_time(lambda: torch.linalg.inv(G.permute(2, 0, 1)))[0]
+            lib_contig = device_time(lambda: torch.linalg.inv(Gm))[0]
             results[gj].update(library_ms=lib_perm, library_ms_contiguous=lib_contig)
             del Gm
         del A, Pc, xc, K01, K10, Bp, Cp, x0, x1, Di, Si, G, cases, odd
@@ -304,8 +320,8 @@ def compare_kernels(nx, degree):
               f"{e['rel']['float32']:.3e} f64 {e['rel']['float64']:.3e} | abs err f32 "
               f"{e['abs']['float32']:.3e} | kernel {e['ms']:.4f} ms plain {e['plain_ms']:.4f} ms "
               f"| {e['bytes'] / 1e6:.1f} MB, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-              f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound{color}{lib} (float32, path shape)",
-              flush=True)
+              f"{pct_bound(e['bound_ms'], e['ms'], name):.1f}% of bound{color}{lib} "
+              f"(float32, path shape; timer {'/'.join(e['timers'])})", flush=True)
     return results
 
 
@@ -547,15 +563,15 @@ def main():
             launches_per_main_step=launches_step[name],
             max_abs_err=e["abs"]["float32"], max_rel_err_f64=e["rel"]["float64"],
             ms=e["ms"], plain_ms=e["plain_ms"], bytes=e["bytes"], bound_ms=e["bound_ms"],
-            bound_by=e["bound_by"], pct_bound=100 * e["bound_ms"] / e["ms"],
-            library_ms=e.get("library_ms"),
+            bound_by=e["bound_by"], pct_bound=pct_bound(e["bound_ms"], e["ms"], name),
+            library_ms=e.get("library_ms"), timers=e["timers"],
         )
         for key in ("library_ms_contiguous", "ms_color", "plain_ms_color", "bytes_color",
                     "bound_ms_color", "bound_by_color"):
             if key in e:
                 row[key] = e[key]
         if "ms_color" in e:
-            row["pct_bound_color"] = 100 * e["bound_ms_color"] / e["ms_color"]
+            row["pct_bound_color"] = pct_bound(e["bound_ms_color"], e["ms_color"], name)
         if name in main_cmp and name in wide_cmp:
             w = wide_cmp[name]
             row.update(max_abs_err_d1_21=w["abs"]["float32"], max_rel_err_f64_d1_21=w["rel"]["float64"],

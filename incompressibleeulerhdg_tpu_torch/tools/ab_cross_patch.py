@@ -29,27 +29,57 @@ import numpy as np
 import torch
 
 NX, DEGREE, REPS, STEPS = 256, 2, 20, 3
+PROFILER_ATTEMPTS = 3
 
 
 def device_ms(fn, reps=REPS, match=None):
-    """Device milliseconds per call of ``fn()``: the summed durations of the
-    kernels it runs (those whose name contains ``match``, or all), from
-    torch.profiler over ``reps`` calls after a warm-up call.  A CUDA-event
-    interval around one call would also count the host's launch time when
-    that exceeds the kernel's, as it does for a kernel of a few tens of
-    microseconds behind a Python wrapper."""
+    """Device milliseconds per call of ``fn()``; see ``device_time``."""
+    return device_time(fn, reps, match)[0]
+
+
+def device_time(fn, reps=REPS, match=None, attempts=PROFILER_ATTEMPTS):
+    """(milliseconds per call of ``fn()``, timer).  The timer is
+    "profiler": the summed device durations of the kernels ``fn`` runs
+    (those whose name contains ``match``, or all), from torch.profiler over
+    ``reps`` calls after a warm-up call.  A CUDA-event interval around one
+    call would also count the host's launch time when that exceeds the
+    kernel's, as it does for a kernel of a few tens of microseconds behind a
+    Python wrapper.  A profiler session now and then records no device time
+    for the kernels asked for; such a session is repeated, and after
+    ``attempts`` empty sessions the timer is "cuda events": one event pair
+    around ``reps`` back-to-back calls, which counts every kernel of ``fn``
+    and any gap between them."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        us = _profiled_us(fn, reps, match)
+        if us > 0:
+            return us / 1e3 / reps, "profiler"
+        print(f"# device_time: profiler session {attempt + 1} of {attempts} recorded no "
+              f"device time{' for ' + match if match else ''}", file=sys.stderr, flush=True)
+    return _events_ms(fn, reps), "cuda events"
+
+
+def _profiled_us(fn, reps, match):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_self_device_us(ev) for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and (match is None or match in ev.key))
-    return us / 1e3 / reps
+    return sum(_self_device_us(ev) for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and (match is None or match in ev.key))
+
+
+def _events_ms(fn, reps):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _self_device_us(ev):

@@ -583,3 +583,31 @@ def test_operator_tables_padded_on_cpu():
     v = torch.as_tensor(rng.standard_normal((2 * geom.d1, geom.n_cells)), dtype=torch.float32)
     for a, b in zip(TP._colored_apply_fused_bl(geom, op, v), TP._colored_apply_fused_bl(geom, dense, v)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("empty_sessions", [0, 1, 3])
+def test_device_time_retries_then_falls_back(monkeypatch, empty_sessions):
+    """The kernel timer of chip_smoke.py and tools/ab_cross_patch.py repeats a
+    profiler session that recorded no device time and, after three empty
+    sessions, times with CUDA events; it never returns a time of zero.  The
+    profiler and the events are stubbed here, where there is no card."""
+    from incompressibleeulerhdg_tpu_torch.tools import ab_cross_patch as AB
+
+    sessions = []
+
+    def profiled_us(fn, reps, match):
+        sessions.append(match)
+        return 0.0 if len(sessions) <= empty_sessions else 500.0 * reps
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(AB, "_profiled_us", profiled_us)
+    monkeypatch.setattr(AB, "_events_ms", lambda fn, reps: 0.75)
+    calls = []
+    ms, timer = AB.device_time(lambda: calls.append(1), reps=4, match="k_kernel")
+    if empty_sessions < AB.PROFILER_ATTEMPTS:
+        assert (ms, timer) == (0.5, "profiler")
+        assert sessions == ["k_kernel"] * (empty_sessions + 1)
+    else:
+        assert (ms, timer) == (0.75, "cuda events")
+        assert sessions == ["k_kernel"] * AB.PROFILER_ATTEMPTS
+    assert calls == [1]  # the warm-up call; the stubs make no calls of their own
