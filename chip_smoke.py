@@ -17,7 +17,8 @@ Phases, each printing its own lines:
    own duration, and the summed durations of the plain version's kernels),
    the bytes and the least time
    the card could take for the work (bound), and for K4 the time of
-   ``torch.linalg.inv`` on the same blocks; a profiler session that records
+   ``torch.linalg.inv`` on the same blocks, its time on one colour's Schur
+   blocks and its launch plan; a profiler session that records
    no device time is repeated, and after three such sessions the time is
    taken with CUDA events instead (the line names the timer);
 4. the main path: HDG IMEX SSP2(3,3,2), Richardson + projection, Taylor-Green
@@ -25,11 +26,12 @@ Phases, each printing its own lines:
    initial trace, one warm-up step and three timed steps; validates
    finiteness, the L2 errors against the analytic vortex, the Krylov
    iteration counts, and that every kernel of the path launched during it;
-5. the k = 4 kernels: K1-K3 at d1 = 21 and K5 (the shared-memory
-   Gauss-Jordan) at n = 42 and n = 20 against their plain versions at the
+5. the k = 4 kernels: K1-K3 at d1 = 21 and K5 (the Gauss-Jordan entry
+   point for 32 < n <= 48) at n = 42 and n = 20 against their plain versions at the
    128^2, k=4 shapes, float32 and float64, with the same offset and odd-size
-   cases; ptxas's registers and spills of every instantiation; the K4-vs-K5
-   A/B at n = 20 and K5 at n = 42 by CUDA events, in turns;
+   cases, K5 also on one colour's blocks; ptxas's registers and spills of
+   every instantiation; the K4-vs-K5 A/B at n = 20 and K5 at n = 42 by
+   device time (torch.profiler), in turns;
 6. the port's CLI driver, in-process (``driver.main``), in a temporary
    directory: (a) the default monolithic SSP2 at 256^2, k=2, float32,
    dt = 1/256, two steps; (b) HDG implicit + projection at the same size,
@@ -161,9 +163,11 @@ def compare_kernels(nx, degree):
     formulation's plain version at n = 42 and n = 20.  K2 and K3 (TMA tiles)
     are also held to their plain versions on tables of an odd column count
     (padded stride), at an odd colour offset (tiles not aligned with the
-    colour) and an odd colour size (no multiple of a tile).  Returns name ->
-    errors, float32 times, bytes and bound; K4/K5 also the time of
-    ``torch.linalg.inv`` on the same blocks (library_ms)."""
+    colour) and an odd colour size (no multiple of a tile); the Gauss-Jordan
+    kernel on an odd, non-contiguous batch.  Returns name -> errors, float32
+    times, bytes and bound; K2 and the Gauss-Jordan kernel also on one
+    colour (``_color``); K4/K5 also the time of ``torch.linalg.inv`` on the
+    same blocks (library_ms) and the launch plan."""
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
     from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
@@ -177,7 +181,7 @@ def compare_kernels(nx, degree):
     m_odd = m_col - 37  # odd: no multiple of a thread block or a tile
     rng = np.random.default_rng(2024)
     dev = torch.device("cuda:0")
-    gj = "gauss_jordan" if nu <= smallinv.WARP_MAX_N else "gauss_jordan_select"
+    gj = "gauss_jordan" if nu <= smallinv.K4_MAX_N else "gauss_jordan_select"
     results = {}
 
     def rnd(*shape, dtype):
@@ -236,6 +240,7 @@ def compare_kernels(nx, degree):
         r0 = rnd(nu, m_col, dtype=dtype)
         r1 = rnd(nu, m_col, dtype=dtype)
         G = spd(nu, nc, dtype)
+        Gc = spd(nu, m_col, dtype)  # one colour's Schur blocks
         halves = (0, nch, nc)
         # an odd column count: padded copies of the tables' first nf - 1 columns
         odd = [P.pad_table(t[:, :, :nf - 1]) for t in (K01, K10, Di, Si)]
@@ -300,15 +305,20 @@ def compare_kernels(nx, degree):
                 timed(name, dtype, *pairs[0], *work(name, dtype, d1, m, nseg, n=nu))
                 if name == "cross_pair":  # one colour, as in the sweep
                     timed(name, dtype, *pairs[1], *work(name, dtype, d1, m_col), suffix="_color")
+                if name == gj:  # one colour's Schur inverses, as in the build
+                    timed(name, dtype, lambda: smallinv.gauss_jordan_inv_bl(Gc),
+                          lambda: smallinv.gauss_jordan_inv_plain(Gc),
+                          *work(name, dtype, d1, m_col, n=nu), suffix="_color")
         if dtype == torch.float32:
             # one PyTorch call on the same blocks: batched LU inverse (cuBLAS/cuSOLVER),
             # on the batch-last table and on an (m, n, n) contiguous copy
             Gm = G.permute(2, 0, 1).contiguous()
             lib_perm = device_time(lambda: torch.linalg.inv(G.permute(2, 0, 1)))[0]
             lib_contig = device_time(lambda: torch.linalg.inv(Gm))[0]
-            results[gj].update(library_ms=lib_perm, library_ms_contiguous=lib_contig)
+            results[gj].update(library_ms=lib_perm, library_ms_contiguous=lib_contig,
+                               plan=smallinv.launch_plan(gj, dtype, nu))
             del Gm
-        del A, Pc, xc, K01, K10, Bp, Cp, x0, x1, Di, Si, G, cases, odd
+        del A, Pc, xc, K01, K10, Bp, Cp, x0, x1, Di, Si, G, Gc, cases, odd
         torch.cuda.empty_cache()
 
     for name, e in results.items():
@@ -316,11 +326,12 @@ def compare_kernels(nx, degree):
                f"{e['library_ms_contiguous']:.4f} ms)" if "library_ms" in e else "")
         color = (f" | one colour {e['ms_color']:.4f} ms plain {e['plain_ms_color']:.4f} ms "
                  f"bound {e['bound_ms_color']:.4f} ms" if "ms_color" in e else "")
+        plan = f" | plan {e['plan']}" if "plan" in e else ""
         print(f"# kernel {name} ({nx}^2, k={degree}, d1={d1}): rel err f32 "
               f"{e['rel']['float32']:.3e} f64 {e['rel']['float64']:.3e} | abs err f32 "
               f"{e['abs']['float32']:.3e} | kernel {e['ms']:.4f} ms plain {e['plain_ms']:.4f} ms "
               f"| {e['bytes'] / 1e6:.1f} MB, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-              f"{pct_bound(e['bound_ms'], e['ms'], name):.1f}% of bound{color}{lib} "
+              f"{pct_bound(e['bound_ms'], e['ms'], name):.1f}% of bound{color}{lib}{plan} "
               f"(float32, path shape; timer {'/'.join(e['timers'])})", flush=True)
     return results
 
@@ -339,9 +350,12 @@ def ptxas_summary():
                 mangled = m.group(1)
                 n = re.match(r"_Z(\d+)", mangled)
                 base = mangled[n.end():n.end() + int(n.group(1))]
-                targs = re.match(r"I([fd])(?:Li(\d+)E)?E", mangled[n.end() + int(n.group(1)):])
-                fn = base + (f"<{'float' if targs.group(1) == 'f' else 'double'}"
-                             f"{', ' + targs.group(2) if targs.group(2) else ''}>" if targs else "")
+                # template arguments: the scalar type, then int constants (Li<v>E each)
+                targs = re.match(r"I([fd])((?:Li\d+E)*)E", mangled[n.end() + int(n.group(1)):])
+                fn = base
+                if targs:
+                    scalar = "float" if targs.group(1) == "f" else "double"
+                    fn += f"<{', '.join([scalar, *re.findall(r'Li(\d+)E', targs.group(2))])}>"
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and fn:
@@ -359,13 +373,14 @@ def ptxas_summary():
 
 
 def gauss_jordan_ab():
-    """Phase 5: K4 against K5 at n = 20 and K5 at n = 42, CUDA events, in
+    """Phase 5: K4 against K5 at n = 20 and K5 at n = 42, device time, in
     turns, at the 256^2 batch (20, 20, 2 * 256^2)."""
     from incompressibleeulerhdg_tpu_torch.tools.microbench_gj import ab_gauss_jordan
 
     ab = ab_gauss_jordan(NX, REPS)
     print(f"# gauss-jordan A/B float32, batch {ab['batch']}: K4 n=20 {ab['k4_n20_ms']:.4f} ms | "
-          f"K5 n=20 {ab['k5_n20_ms']:.4f} ms | K5 n=42 {ab['k5_n42_ms']:.4f} ms", flush=True)
+          f"K5 n=20 {ab['k5_n20_ms']:.4f} ms | K5 n=42 {ab['k5_n42_ms']:.4f} ms "
+          f"(timer {ab['timer']})", flush=True)
     torch.cuda.empty_cache()
     return ab
 
@@ -567,7 +582,7 @@ def main():
             library_ms=e.get("library_ms"), timers=e["timers"],
         )
         for key in ("library_ms_contiguous", "ms_color", "plain_ms_color", "bytes_color",
-                    "bound_ms_color", "bound_by_color"):
+                    "bound_ms_color", "bound_by_color", "plan"):
             if key in e:
                 row[key] = e[key]
         if "ms_color" in e:
@@ -578,7 +593,7 @@ def main():
                        ms_d1_21=w["ms"], plain_ms_d1_21=w["plain_ms"], bound_ms_d1_21=w["bound_ms"])
         if name == "gauss_jordan_select":
             row.update(ab_k4_n20_ms=ab["k4_n20_ms"], ab_k5_n20_ms=ab["k5_n20_ms"],
-                       ab_k5_n42_ms=ab["k5_n42_ms"])
+                       ab_k5_n42_ms=ab["k5_n42_ms"], ab_timer=ab["timer"])
         rows.append(row)
     missing = [row["name"] for row in rows if row["launches"] == 0]
     if missing:

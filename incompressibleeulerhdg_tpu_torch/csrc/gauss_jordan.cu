@@ -8,78 +8,58 @@
 // size), twice per SSP2 step.
 //
 // What bounds it on the card: n^3 = 8000 FMAs per 20x20 block against
-// 2 n^2 * 4 B = 3.2 KB of traffic (float32), about 2.5 FLOP per byte, so
-// bandwidth and latency of the loads, not arithmetic, set the time.  At
-// 256^2, k=2 one build inverts 131072 + 3 * 65.5k blocks: about 0.5 GB in
-// and 0.5 GB out.
+// 2 n^2 * 4 B = 3.2 KB of traffic (float32), 5 FLOP per byte, below the
+// H100's 20 FLOP per byte (67 TFLOP/s over 3.35 TB/s): device memory sets
+// the least time, 0.125 ms for the 131072 own-cell blocks at 256^2, k=2.
+// The arithmetic must therefore cost well under the time of the bytes, and
+// the loads must coalesce.
 //
-// What the design does about it: a 20x20 block is 400 values, more than a
-// thread's 255 registers, so one warp owns one block with one row per lane
-// (n <= 32 registers a lane) and the pivot row is broadcast by __shfl_sync;
-// the block is read from and written to device memory exactly once.  The
-// pivot and column loops are unrolled to 32 with uniform `< n` guards, so
-// one instantiation per scalar type serves every n <= 32.  Rows of one
-// block lie n*B elements apart in the batch-last layout, so a warp's loads
-// touch n sectors; the neighbouring warps of a block read the rest of those
-// sectors, which L1/L2 then serve.
-#include "common.cuh"
+// What the design does about it (csrc/gauss_jordan.cuh): a thread holds a
+// register tile of one block (10x5 at n = 20), consecutive lanes hold
+// consecutive blocks, so each load and store instruction of a warp moves
+// one table entry of 32 neighbouring blocks (128 contiguous bytes) and each
+// entry moves once.  A pivot costs one barrier and C + R + 1 shared-memory
+// reads for R * C FMAs (16 reads for 50 FMAs at n = 20), and no warp
+// shuffle.  Several thread blocks of 256 threads share an SM, so some invert
+// while others load.  Instantiated for N = 12, 20, 30 (k = 1, 2, 3) and 32; a block of
+// n <= N runs in the smallest such N, its entries past n held as the
+// identity.
+#include "gauss_jordan.cuh"
+
+template <typename T, int N>
+__global__ void __launch_bounds__(GjPlan<T, N>::THREADS) gauss_jordan_kernel(
+    const T* __restrict__ A, T* __restrict__ out, int n, long long B) {
+  using P = GjPlan<T, N>;
+  gj_tile<T, N, P::R, P::C, P::BB>(A, out, n, B);
+}
+
+template <typename T, int N>
+static int run(const void* A, void* out, int n, long long B, cudaStream_t st, int* plan) {
+  return gj_launch<T, N>(gauss_jordan_kernel<T, N>, A, out, n, B, st, plan);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(128) gauss_jordan_kernel(
-    const T* __restrict__ A, T* __restrict__ out, int n, long long B) {
-  const unsigned FULL = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const long long b = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  if (b >= B) return;  // uniform across the warp
-  const bool row_ok = lane < n;
-  T a[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j)
-    a[j] = (row_ok && j < n) ? A[((long long)lane * n + j) * B + b] : T(0);
-
-#pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    if (k < n) {
-      const T inv_p = T(1) / __shfl_sync(FULL, a[k], k);
-      const T f = a[k];  // this row's entry in the pivot column
-      const bool pivot_row = lane == k;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        if (j < n) {
-          // normalised pivot row entry (row k of the result)
-          const T rk = (j == k) ? inv_p : __shfl_sync(FULL, a[j], k) * inv_p;
-          if (pivot_row) {
-            a[j] = rk;
-          } else if (j == k) {
-            a[j] = -f * inv_p;
-          } else {
-            a[j] = a[j] - f * rk;
-          }
-        }
-      }
-    }
-  }
-  if (row_ok) {
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-      if (j < n) out[((long long)lane * n + j) * B + b] = a[j];
-  }
+static int dispatch(int n, const void* A, void* out, long long B, cudaStream_t st, int* plan) {
+  if (n <= 12) return run<T, 12>(A, out, n, B, st, plan);
+  if (n <= 20) return run<T, 20>(A, out, n, B, st, plan);
+  if (n <= 30) return run<T, 30>(A, out, n, B, st, plan);
+  return run<T, 32>(A, out, n, B, st, plan);
 }
 
 // dtype: 0 float32, 1 float64.  A and out (n, n, B) contiguous, n <= 32.
 IEHDG_EXPORT int iehdg_gauss_jordan(int device, int dtype, int n, const void* A,
                                     void* out, long long B, void* stream) {
-  if (n < 1 || n > 32) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > 32 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int threads = 128;  // four blocks (warps) per thread block
-  const unsigned int grid = blocks_for(B * 32, threads);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    gauss_jordan_kernel<float><<<grid, threads, 0, st>>>((const float*)A, (float*)out, n, B);
-  else if (dtype == 1)
-    gauss_jordan_kernel<double><<<grid, threads, 0, st>>>((const double*)A, (double*)out, n, B);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return dtype == 0 ? dispatch<float>(n, A, out, B, st, nullptr)
+                    : dispatch<double>(n, A, out, B, st, nullptr);
+}
+
+// The launch plan of block size n: {N, R, C, BB, threads, shared bytes}.
+IEHDG_EXPORT int iehdg_gauss_jordan_plan(int dtype, int n, int* plan) {
+  if (n < 1 || n > 32 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  return dtype == 0 ? dispatch<float>(n, nullptr, nullptr, 0, nullptr, plan)
+                    : dispatch<double>(n, nullptr, nullptr, 0, nullptr, plan);
 }

@@ -1,118 +1,75 @@
 // K5: unpivoted in-place Gauss-Jordan inverse of a batch of (n, n) blocks
-// stored batch-last as (n, n, B), n <= 48, in the masked-select formulation.
+// stored batch-last as (n, n, B), n <= 48.
 //
 // Replaces the Pallas kernel tools/microbench_gj.py `_gj_old` (kernel body
-// `_gj_old_kernel_factory`): at each pivot k the whole block is updated,
+// `_gj_old_kernel_factory`), the masked-select formulation: at each pivot k
+// the whole block is updated,
 //
 //     row_k = where(j == k, 1/p, A[k, j]/p)       p = A[k, k]
 //     f     = where(i == k, 0, A[i, k])
 //     A    -= f (x) row_k
 //     A[:, k] = -f/p;  A[k, :] = row_k            (by selects)
 //
-// Callers: `gauss_jordan_inv_bl` for 32 < n <= 48, where the one-row-per-lane
-// warp of K4 (csrc/gauss_jordan.cu) has too few lanes -- the own-cell and
-// patch Schur inverses of the tentative-operator build at k = 4 (n = 42) --
-// and the K4-vs-K5 A/B of tools/microbench_gj.py.
+// which gives, entry by entry, the same values as K4's indexed fix-ups.
+// Callers: `gauss_jordan_inv_bl` for 32 < n <= 48 -- the own-cell and patch
+// Schur inverses of the tentative-operator build at k = 4 (n = 42) -- and
+// `gauss_jordan_inv_select` for any n <= 48.
 //
 // What bounds it on the card: a 42x42 block is 74 KFMA against
-// 2 * 42*42*4 B = 14 KB of traffic in float32 (about 10 FLOP a byte), and
-// every pivot needs the block's updated pivot row and column, so the blocks
-// must stay on chip across all n pivots.  Shared-memory traffic and the two
-// barriers a pivot, not device memory, set the time.
+// 2 * 42*42*4 B = 14 KB of traffic in float32 (10.5 FLOP a byte), so at
+// (42, 42, 32768) the bytes (0.138 ms at 3.35 TB/s) and the arithmetic
+// (0.073 ms at 67 TFLOP/s) are within a factor of two: the FMAs must issue
+// at a good share of the peak while the loads stream, and the blocks must
+// stay on chip across all n pivots.
 //
-// What the design does about it: one thread block holds BB consecutive batch
-// entries (8 in float32, 4 in float64: 32 bytes, one full sector per table
-// entry) of the whole (n, n) table in shared memory, laid out as in device
-// memory with the batch index fastest, so the loads and stores coalesce.  At
-// n = 48 that is 74 KB (dynamic shared memory, opted in above 48 KB).  Each
-// pivot copies row k, column k and 1/p to small buffers, then every thread
-// updates its entries with the selects; two barriers a pivot.  The tail of
-// the batch is padded with identities in shared memory and never stored.
-#include "common.cuh"
+// What the design does about it: K4's register-tiled template
+// (csrc/gauss_jordan.cuh) -- a thread keeps a 7x7 tile of one block in
+// registers (n = 42), so a pivot is 49 FMAs against 15 shared-memory reads
+// and one barrier, with the select formulation's row/column fix-ups done
+// as register moves on the owners of row k and column k only.  Each entry
+// moves once, coalesced over consecutive blocks.  A 42x42 float32 block is
+// 7 KB, so the register file holds 16 blocks an SM: 8 a thread block (288
+// threads, 96 registers), two thread blocks an SM.  A warp's access to one
+// table entry is then a run of 8 blocks (32 bytes), which sets the time of
+// the loads and stores (a copy with this access pattern alone takes about
+// twice the bytes bound, tools/tune_gj.py).  Instantiated for N = 20, 42
+// (k = 4) and 48; a block of n <= N runs in the smallest such N, its
+// entries past n held as the identity.
+#include "gauss_jordan.cuh"
 
-#define IEHDG_GJS_MAX_N 48
-#define IEHDG_GJS_THREADS 256
-
-template <typename T>
-struct SelectBatch {
-  static constexpr int value = sizeof(T) == 4 ? 8 : 4;
-};
-
-template <typename T>
-static size_t select_smem_bytes(int n) {
-  constexpr int BB = SelectBatch<T>::value;
-  return (size_t)(n * n + 2 * n + 1) * BB * sizeof(T);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(IEHDG_GJS_THREADS) gauss_jordan_select_kernel(
+template <typename T, int N>
+__global__ void __launch_bounds__(GjPlan<T, N>::THREADS) gauss_jordan_select_kernel(
     const T* __restrict__ A, T* __restrict__ out, int n, long long B) {
-  constexpr int BB = SelectBatch<T>::value;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);  // (n, n, BB) block entries
-  T* prow = s + n * n * BB;               // (n, BB) pivot row A[k, :]
-  T* pcol = prow + n * BB;                // (n, BB) pivot column A[:, k]
-  T* pinv = pcol + n * BB;                // (BB,) 1 / A[k, k]
-  const long long b0 = (long long)blockIdx.x * BB;
-  const int total = n * n * BB;
+  using P = GjPlan<T, N>;
+  gj_tile<T, N, P::R, P::C, P::BB>(A, out, n, B);
+}
 
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int ij = e / BB, b = e % BB;
-    const long long col = b0 + b;
-    s[e] = col < B ? A[(long long)ij * B + col] : (ij % (n + 1) == 0 ? T(1) : T(0));
-  }
-  __syncthreads();
-
-  for (int k = 0; k < n; ++k) {
-    for (int e = threadIdx.x; e < n * BB; e += blockDim.x) {
-      const int i = e / BB, b = e % BB;
-      prow[e] = s[(k * n + i) * BB + b];
-      pcol[e] = s[(i * n + k) * BB + b];
-    }
-    if (threadIdx.x < BB) pinv[threadIdx.x] = T(1) / s[(k * n + k) * BB + threadIdx.x];
-    __syncthreads();
-    for (int e = threadIdx.x; e < total; e += blockDim.x) {
-      const int ij = e / BB, b = e % BB;
-      const int i = ij / n, j = ij - i * n;
-      const T inv_p = pinv[b];
-      const T row_kj = (j == k) ? inv_p : prow[j * BB + b] * inv_p;
-      const T f = (i == k) ? T(0) : pcol[i * BB + b];
-      T v = s[e] - f * row_kj;
-      if (j == k) v = -f * inv_p;
-      if (i == k) v = row_kj;
-      s[e] = v;
-    }
-    __syncthreads();
-  }
-
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int ij = e / BB, b = e % BB;
-    const long long col = b0 + b;
-    if (col < B) out[(long long)ij * B + col] = s[e];
-  }
+template <typename T, int N>
+static int run(const void* A, void* out, int n, long long B, cudaStream_t st, int* plan) {
+  return gj_launch<T, N>(gauss_jordan_select_kernel<T, N>, A, out, n, B, st, plan);
 }
 
 template <typename T>
-static int launch(const void* A, void* out, int n, long long B, cudaStream_t st) {
-  constexpr int BB = SelectBatch<T>::value;
-  const size_t smem = select_smem_bytes<T>(n);
-  cudaError_t e = cudaFuncSetAttribute(gauss_jordan_select_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  gauss_jordan_select_kernel<T><<<blocks_for(B, BB), IEHDG_GJS_THREADS, smem, st>>>(
-      (const T*)A, (T*)out, n, B);
-  return (int)cudaGetLastError();
+static int dispatch(int n, const void* A, void* out, long long B, cudaStream_t st, int* plan) {
+  if (n <= 20) return run<T, 20>(A, out, n, B, st, plan);
+  if (n <= 42) return run<T, 42>(A, out, n, B, st, plan);
+  return run<T, 48>(A, out, n, B, st, plan);
 }
 
 // dtype: 0 float32, 1 float64.  A and out (n, n, B) contiguous, n <= 48.
 IEHDG_EXPORT int iehdg_gauss_jordan_select(int device, int dtype, int n, const void* A,
                                            void* out, long long B, void* stream) {
-  if (n < 1 || n > IEHDG_GJS_MAX_N) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > 48 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(A, out, n, B, st);
-  if (dtype == 1) return launch<double>(A, out, n, B, st);
-  return (int)cudaErrorInvalidValue;
+  return dtype == 0 ? dispatch<float>(n, A, out, B, st, nullptr)
+                    : dispatch<double>(n, A, out, B, st, nullptr);
+}
+
+// The launch plan of block size n: {N, R, C, BB, threads, shared bytes}.
+IEHDG_EXPORT int iehdg_gauss_jordan_select_plan(int dtype, int n, int* plan) {
+  if (n < 1 || n > 48 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  return dtype == 0 ? dispatch<float>(n, nullptr, nullptr, 0, nullptr, plan)
+                    : dispatch<double>(n, nullptr, nullptr, 0, nullptr, plan);
 }

@@ -2,9 +2,10 @@
 
 Counterpart of incompressibleeulerhdg_tpu/linalg/smallinv.py
 ``gauss_jordan_inv_bl``.  On a CUDA tensor it launches a kernel chosen by the
-block size: K4 (``csrc/gauss_jordan.cu``, one warp per block, one row per
-lane) for n <= 32, and K5 (``csrc/gauss_jordan_select.cu``, blocks staged in
-shared memory) for 32 < n <= 48, the JAX Pallas gate; larger blocks raise.
+block size: K4 (``csrc/gauss_jordan.cu``) for n <= 32 and K5
+(``csrc/gauss_jordan_select.cu``) for 32 < n <= 48, the JAX Pallas gate;
+larger blocks raise.  Both are instantiations of one register-tiled design
+(``csrc/gauss_jordan.cuh``; :func:`launch_plan` describes an instantiation).
 On a CPU tensor it runs :func:`gauss_jordan_inv_plain`, the pivot loop of
 the JAX fallback (smallinv.py:119-136).  No pivoting: the callers invert
 diagonally dominant preconditioner blocks (mass + penalty).
@@ -13,6 +14,8 @@ diagonally dominant preconditioner blocks (mass + penalty).
 :func:`gauss_jordan_inv_select_plain`: the masked-select formulation of
 ``tools/microbench_gj.py:_gj_old``.
 """
+
+import ctypes
 
 import torch
 
@@ -23,10 +26,12 @@ __all__ = [
     "gauss_jordan_inv_plain",
     "gauss_jordan_inv_select",
     "gauss_jordan_inv_select_plain",
+    "launch_plan",
 ]
 
-WARP_MAX_N = 32  # K4: one row per lane of a warp
+K4_MAX_N = 32  # K4's largest instantiation (csrc/gauss_jordan.cu)
 SELECT_MAX_N = 48  # K5, and the JAX Pallas gate (smallinv.py:111-117)
+PLAN_KEYS = ("N", "R", "C", "BB", "threads", "smem_bytes")
 
 
 def gauss_jordan_inv_plain(A):
@@ -79,6 +84,20 @@ def _launch_gj(name, A, max_n):
     return out
 
 
+def launch_plan(name, dtype, n):
+    """Launch plan of kernel ``name`` ("gauss_jordan" or
+    "gauss_jordan_select") for (n, n) blocks of ``dtype``, from its library
+    (built first if needed): the instantiation N >= n, the R x C register
+    tile of a thread, the BB blocks of a thread block, its threads and its
+    shared-memory bytes."""
+    fn = getattr(kernels._get(name), f"iehdg_{name}_plan")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    if fn(kernels.dtype_code(dtype), int(n), plan) != 0:
+        raise ValueError(f"{name}: no launch plan for n = {n}")
+    return dict(zip(PLAN_KEYS, plan))
+
+
 def gauss_jordan_inv_select(A):
     """K5: inverse of every (n, n) block of a batch-last (n, n, B) tensor,
     n <= 48, by the masked-select Gauss-Jordan."""
@@ -91,6 +110,6 @@ def gauss_jordan_inv_bl(A):
     """Inverse of every (n, n) block of a batch-last (n, n, B) tensor."""
     if A.device.type == "cpu":
         return gauss_jordan_inv_plain(A)
-    if A.shape[0] <= WARP_MAX_N:
-        return _launch_gj("gauss_jordan", A, WARP_MAX_N)
+    if A.shape[0] <= K4_MAX_N:
+        return _launch_gj("gauss_jordan", A, K4_MAX_N)
     return _launch_gj("gauss_jordan_select", A, SELECT_MAX_N)

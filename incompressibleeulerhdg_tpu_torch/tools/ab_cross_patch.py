@@ -1,5 +1,5 @@
-"""Time K2 (cross pair) and K3 (patch solve) and the main path of one tree
-of the port on a CUDA card, for an A/B of two trees in turns.
+"""Time the kernels K2-K5 and the main path of one tree of the port on a
+CUDA card, for an A/B of two trees in turns.
 
 Imports ``incompressibleeulerhdg_tpu_torch`` from ``--root`` (a checkout or
 an unpacked ``git archive`` of any commit of the port), so the same script
@@ -7,15 +7,19 @@ measures the parent and the change; run it once per tree, in turns (parent,
 change, change, parent), in one call on one card.  It prints one JSON line:
 
 - K2 on the full field (both (10, 10, nf) tables, 3 colours + tail) and on
-  one colour, K3 on one colour, at the 256^2, k=2, float32 main-path shapes:
-  ms per launch over 20 launches after a warm-up (the tables exceed the
-  50 MB L2, so every launch reads them from HBM), as device time from
-  torch.profiler;
+  one colour, K3 on one colour, at the 256^2, k=2, float32 main-path shapes;
+  K4 (Gauss-Jordan, n = 20) on the 131072 own-cell blocks of 256^2, k=2 and
+  on one colour's 65280 Schur blocks; K5 (n = 42) on the 32768 own-cell
+  blocks of 128^2, k=4 and on one colour's 16256: ms per launch over 20
+  launches after a warm-up (the tables exceed the 50 MB L2, or nearly, so
+  every launch reads them from HBM), as device time from torch.profiler;
 - the main path (HDG IMEX SSP2, Taylor-Green, 256^2, k=2, float32, dt =
   1/256): s/step over 3 steps after a warm-up step, each ended by
-  ``torch.cuda.synchronize()``, the iteration counts, and the device time
-  per step of K2 and K3 (and of all kernels) from ``torch.profiler`` over
-  one more step.
+  ``torch.cuda.synchronize()``, the iteration counts, launches a step, and
+  the device time per step of each kernel (and of all kernels) from
+  ``torch.profiler`` over one more step;
+- the same at 128^2, k=4 (chip_smoke.py's run (d), which runs K5), over
+  one step after a warm-up step (``wide_``).
 
 Usage:  python incompressibleeulerhdg_tpu_torch/tools/ab_cross_patch.py --root DIR [--label L]
 """
@@ -29,7 +33,11 @@ import numpy as np
 import torch
 
 NX, DEGREE, REPS, STEPS = 256, 2, 20, 3
+WIDE_NX, WIDE_DEGREE = 128, 4
 PROFILER_ATTEMPTS = 3
+# each kernel's symbol, as torch.profiler names its launches
+SYMBOLS = {name: f"{name}_kernel" for name in
+           ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan", "gauss_jordan_select")}
 
 
 def device_ms(fn, reps=REPS, match=None):
@@ -39,28 +47,35 @@ def device_ms(fn, reps=REPS, match=None):
 
 def device_time(fn, reps=REPS, match=None, attempts=PROFILER_ATTEMPTS):
     """(milliseconds per call of ``fn()``, timer).  The timer is
-    "profiler": the summed device durations of the kernels ``fn`` runs
-    (those whose name contains ``match``, or all), from torch.profiler over
-    ``reps`` calls after a warm-up call.  A CUDA-event interval around one
-    call would also count the host's launch time when that exceeds the
-    kernel's, as it does for a kernel of a few tens of microseconds behind a
-    Python wrapper.  A profiler session now and then records no device time
-    for the kernels asked for; such a session is repeated, and after
-    ``attempts`` empty sessions the timer is "cuda events": one event pair
-    around ``reps`` back-to-back calls, which counts every kernel of ``fn``
-    and any gap between them."""
+    "profiler": the summed device durations of the kernels ``fn`` runs over
+    ``reps`` calls after a warm-up call, from torch.profiler, divided by
+    ``reps``; with ``match``, of the kernels whose name contains ``match``,
+    divided by the number of their launches the session recorded (one a
+    call: a session that loses some launches still reads the time of one).
+    A CUDA-event interval around one call would also count the host's launch
+    time when that exceeds the kernel's, as it does for a kernel of a few
+    tens of microseconds behind a Python wrapper.  A profiler session now
+    and then records no device time for the kernels asked for; such a
+    session is repeated, and after ``attempts`` empty sessions the timer is
+    "cuda events": one event pair around ``reps`` back-to-back calls, which
+    counts every kernel of ``fn`` and any gap between them."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
-        us = _profiled_us(fn, reps, match)
+        us, launches = _profiled_us(fn, reps, match)
         if us > 0:
-            return us / 1e3 / reps, "profiler"
+            if match and launches != reps:
+                print(f"# device_time: the profiler recorded {launches} launches of {match} "
+                      f"in {reps} calls", file=sys.stderr, flush=True)
+            return us / 1e3 / (launches if match else reps), "profiler"
         print(f"# device_time: profiler session {attempt + 1} of {attempts} recorded no "
               f"device time{' for ' + match if match else ''}", file=sys.stderr, flush=True)
     return _events_ms(fn, reps), "cuda events"
 
 
 def _profiled_us(fn, reps, match):
+    """(summed device microseconds, number of kernel launches) of the kernels
+    of ``reps`` calls of ``fn`` whose name contains ``match`` (or all)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -68,8 +83,9 @@ def _profiled_us(fn, reps, match):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(_self_device_us(ev) for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA and (match is None or match in ev.key))
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA and (match is None or match in ev.key)]
+    return sum(_self_device_us(ev) for ev in events), sum(ev.count for ev in events)
 
 
 def _events_ms(fn, reps):
@@ -116,31 +132,49 @@ def kernel_times(P):
     return out
 
 
+def gauss_jordan_times(smallinv):
+    """K4 at n = 20 on 256^2, k=2's own cells and one colour; K5 at n = 42
+    on 128^2, k=4's own cells and one colour; diagonally dominant blocks."""
+    from incompressibleeulerhdg_tpu_torch.tools.microbench_gj import diag_dominant
+
+    out = {}
+    for key, n, nx, fn, name in (("k4", 20, NX, smallinv.gauss_jordan_inv_bl, "gauss_jordan"),
+                                 ("k5", 42, WIDE_NX, smallinv.gauss_jordan_inv_select,
+                                  "gauss_jordan_select")):
+        for suffix, m in (("", 2 * nx * nx), ("_color", nx * (nx - 1))):
+            A = diag_dominant(n, m, torch.float32, seed=n)
+            out[f"{key}{suffix}_ms"] = device_ms(lambda: fn(A), match=SYMBOLS[name])
+            del A
+    torch.cuda.empty_cache()
+    return out
+
+
 def device_ms_by_kernel(fn):
-    """Device ms of K2, K3 and all kernels during ``fn()`` (torch.profiler)."""
+    """Device ms of each kernel K1-K5 and of all kernels during ``fn()``
+    (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    k2 = k3 = total = 0.0
-    n = 0
+    per = dict.fromkeys(SYMBOLS, 0.0)
+    total, n = 0.0, 0
     for ev in prof.key_averages():
         us = _self_device_us(ev)
         if ev.device_type != DeviceType.CUDA or us <= 0:
             continue
         total += us
         n += ev.count
-        if "cross_pair_kernel" in ev.key:
-            k2 += us
-        elif "patch_solve_kernel" in ev.key:
-            k3 += us
-    return {"k2_device_ms": k2 / 1e3, "k3_device_ms": k3 / 1e3, "device_ms": total / 1e3,
-            "device_events": n}
+        for name, sym in SYMBOLS.items():
+            if sym in ev.key:
+                per[name] += us / 1e3
+    return {"kernel_device_ms": per, "device_ms": total / 1e3, "device_events": n}
 
 
-def main_path():
+def main_path(nx=NX, degree=DEGREE, steps=STEPS):
+    """HDG IMEX SSP2 + projection, Taylor-Green, nx^2, k = degree, float32,
+    dt = 1/256: one warm-up step, ``steps`` timed steps, one profiled step."""
     from incompressibleeulerhdg_tpu_torch import kernels
     from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
     from incompressibleeulerhdg_tpu_torch.mesh import unit_square_mesh
@@ -150,7 +184,7 @@ def main_path():
     )
 
     dt = 1.0 / NX
-    disc = HDGDiscretisation(unit_square_mesh(NX), DEGREE, dtype=torch.float32, device="cuda")
+    disc = HDGDiscretisation(unit_square_mesh(nx), degree, dtype=torch.float32, device="cuda")
     stepper = IncompressibleEulerHDGIMEXSSP2_332(disc, dt)
     problem = TaylorGreen(disc)
     f_rhs = problem.f_rhs()
@@ -159,14 +193,14 @@ def main_path():
     torch.cuda.synchronize()
     kernels.reset_launches()
     times, counts = [], None
-    for k in range(STEPS):
+    for k in range(steps):
         t0 = time.perf_counter()
         *state, counts = stepper.step(*state, (k + 1) * dt, f_rhs)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = {n: v / STEPS for n, v in kernels.LAUNCHES.items()}
-    prof = device_ms_by_kernel(lambda: stepper.step(*state, (STEPS + 1) * dt, f_rhs))
-    return {"s_per_step": sum(times) / STEPS, "steps_s": times,
+    launches = {n: v / steps for n, v in kernels.LAUNCHES.items()}
+    prof = device_ms_by_kernel(lambda: stepper.step(*state, (steps + 1) * dt, f_rhs))
+    return {"s_per_step": sum(times) / steps, "steps_s": times,
             "tentative": counts["tentative"], "pressure": counts["pressure"],
             "final": counts["final_pressure"], "recon": counts["reconstruction"],
             "launches_per_step": launches, **prof}
@@ -185,13 +219,13 @@ def main(argv=None):
     import incompressibleeulerhdg_tpu_torch as port
     from incompressibleeulerhdg_tpu_torch import kernels
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
 
-    t0 = time.perf_counter()
-    for name in ("cross_pair", "patch_solve"):
-        kernels._get(name)
-    build_s = time.perf_counter() - t0
+    build_s = kernels.build_all()
+    wide = main_path(WIDE_NX, WIDE_DEGREE, steps=1)
     res = {"label": args.label, "package": port.__file__, "build_s": build_s,
-           **kernel_times(P), **main_path(), "card": torch.cuda.get_device_name(0)}
+           **kernel_times(P), **gauss_jordan_times(smallinv), **main_path(),
+           **{f"wide_{k}": v for k, v in wide.items()}, "card": torch.cuda.get_device_name(0)}
     print(json.dumps(res), flush=True)
 
 

@@ -1,14 +1,16 @@
-"""A/B of the two Gauss-Jordan kernel formulations on a CUDA card.
+"""A/B of the two Gauss-Jordan kernel entry points on a CUDA card.
 
-Counterpart of tools/microbench_gj.py.  Times, with CUDA events, in turns:
+Counterpart of tools/microbench_gj.py.  Times by device time
+(``ab_cross_patch.device_time``: torch.profiler, the kernel's own duration;
+the timer is named in the result), in turns:
 
-- K4 (``csrc/gauss_jordan.cu``, one warp per block, indexed pivot fix-ups)
-  against K5 (``csrc/gauss_jordan_select.cu``, blocks in shared memory,
-  masked-select fix-ups) at the tool's shape (20, 20, 2 nx^2);
-- K5 at n = 42 (the k = 4 blocks, beyond K4's 32 lanes);
+- K4 (``csrc/gauss_jordan.cu``) against K5 (``csrc/gauss_jordan_select.cu``)
+  at the tool's shape (20, 20, 2 nx^2); both are instantiations of one
+  register-tiled template (``csrc/gauss_jordan.cuh``);
+- K5 at n = 42 (the k = 4 blocks, beyond K4's n <= 32);
 - the per-facet Schur product formulations of one colour (dense block
   products against the I2 (x) K split with one constant matrix product),
-  plain PyTorch as in the JAX tool, where they are XLA.
+  plain PyTorch as in the JAX tool, where they are XLA (all their kernels).
 
 Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.microbench_gj [--nx 512]
 """
@@ -19,22 +21,7 @@ import sys
 import numpy as np
 import torch
 
-
-def cuda_ms(fn, reps=20):
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed runs
-    after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+from .ab_cross_patch import device_time
 
 
 def diag_dominant(n, m, dtype, seed, device="cuda"):
@@ -45,20 +32,23 @@ def diag_dominant(n, m, dtype, seed, device="cuda"):
 
 
 def ab_gauss_jordan(nx, reps=20, dtype=torch.float32):
-    """Median ms of K4 and K5 at (20, 20, 2 nx^2), timed in turns K4, K5,
-    K5, K4 (the better of each pair), and of K5 at (42, 42, 2 nx^2)."""
+    """Device ms per launch of K4 and K5 at (20, 20, 2 nx^2), timed in turns
+    K4, K5, K5, K4 (the better of each pair), and of K5 at (42, 42, 2 nx^2);
+    ``timer`` names the timers used."""
     from ..linalg import smallinv
 
     m = 2 * nx * nx
     A20 = diag_dominant(20, m, dtype, 7)
-    k4 = lambda: smallinv.gauss_jordan_inv_bl(A20)
-    k5 = lambda: smallinv.gauss_jordan_inv_select(A20)
-    t = [cuda_ms(f, reps) for f in (k4, k5, k5, k4)]
+    k4 = (lambda: smallinv.gauss_jordan_inv_bl(A20), "gauss_jordan_kernel")
+    k5 = (lambda: smallinv.gauss_jordan_inv_select(A20), "gauss_jordan_select_kernel")
+    t = [device_time(f, reps, match=sym) for f, sym in (k4, k5, k5, k4)]
     del A20
     A42 = diag_dominant(42, m, dtype, 8)
-    t42 = cuda_ms(lambda: smallinv.gauss_jordan_inv_select(A42), reps)
-    return {"k4_n20_ms": min(t[0], t[3]), "k5_n20_ms": min(t[1], t[2]), "k5_n42_ms": t42,
-            "batch": m}
+    t.append(device_time(lambda: smallinv.gauss_jordan_inv_select(A42), reps,
+                         match="gauss_jordan_select_kernel"))
+    ms = [v for v, _ in t]
+    return {"k4_n20_ms": min(ms[0], ms[3]), "k5_n20_ms": min(ms[1], ms[2]), "k5_n42_ms": ms[4],
+            "batch": m, "timer": "/".join(sorted({u for _, u in t}))}
 
 
 def ab_schur_product(nx, reps=20, dtype=torch.float32):
@@ -91,7 +81,8 @@ def ab_schur_product(nx, reps=20, dtype=torch.float32):
         T = kron_apply(X) + const_apply(X)
         return kron_apply(T) + const_apply(T)
 
-    return {"dense_pair_ms": cuda_ms(dense_pair, reps), "kron_split_ms": cuda_ms(kron_split, reps)}
+    return {"dense_pair_ms": device_time(dense_pair, reps)[0],
+            "kron_split_ms": device_time(kron_split, reps)[0]}
 
 
 def main(argv=None):
@@ -104,12 +95,11 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     gj = ab_gauss_jordan(args.nx, args.reps)
     m = gj["batch"]
-    print(f"{torch.cuda.get_device_name(0)}: nx={args.nx} batch={m} float32")
+    print(f"{torch.cuda.get_device_name(0)}: nx={args.nx} batch={m} float32, timer {gj['timer']}")
     nb = 2 * 20 * 20 * m * 4
-    for key, label in (("k4_n20_ms", "GJ K4 (warp, indexed), n=20"),
-                       ("k5_n20_ms", "GJ K5 (shared, selects), n=20")):
+    for key, label in (("k4_n20_ms", "GJ K4, n=20"), ("k5_n20_ms", "GJ K5, n=20")):
         print(f"{label:>40s} : {gj[key]:9.3f} ms  ({nb / gj[key] / 1e6:6.0f} GB/s eff)")
-    print(f"{'GJ K5 (shared, selects), n=42':>40s} : {gj['k5_n42_ms']:9.3f} ms")
+    print(f"{'GJ K5, n=42':>40s} : {gj['k5_n42_ms']:9.3f} ms")
     sp = ab_schur_product(args.nx, args.reps)
     print(f"{'Schur product: dense block pair':>40s} : {sp['dense_pair_ms']:9.3f} ms")
     print(f"{'Schur product: kron split + matmul':>40s} : {sp['kron_split_ms']:9.3f} ms")

@@ -1,0 +1,183 @@
+"""Time launch plans of the register-tiled Gauss-Jordan template on a CUDA card.
+
+K4 and K5 (``csrc/gauss_jordan.cu``, ``csrc/gauss_jordan_select.cu``) are
+instantiations of ``gj_tile<T, N, R, C, BB>`` (``csrc/gauss_jordan.cuh``)
+with the plan ``GjPlan<T, N>``.  This tool compiles other plans of the same
+template into one library under ``build/tune_gj/`` (nvcc, the kernels'
+flags), prints ptxas's registers and spills of each, holds each against
+``gauss_jordan_inv_plain`` and times each by device time
+(``ab_cross_patch.device_time``), in turns: every plan forward, then every
+plan in reverse; the better of the two reads is kept.  Beside each plan it
+times a copy kernel with the plan's map of threads to table entries and no
+pivots (``copy_ms``): the least time of the plan's access pattern.  One
+JSON line a plan.
+
+Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.tune_gj [--dtype float32]
+        [--plan N,R,C,BB,MINB ...]
+"""
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+
+import torch
+
+# (N, R, C, BB, min thread blocks an SM for __launch_bounds__); the first
+# plan of each N is GjPlan<float, N>
+DEFAULT_PLANS = [
+    (12, 6, 6, 32, 1), (12, 4, 4, 32, 1), (12, 6, 6, 16, 1), (12, 12, 6, 32, 1),
+    (20, 10, 5, 32, 1), (20, 5, 5, 16, 1),
+    (30, 8, 8, 16, 1), (30, 6, 6, 16, 1), (30, 6, 6, 8, 1), (30, 10, 6, 32, 1),
+    (30, 10, 10, 16, 1), (30, 10, 5, 16, 1),
+    (42, 7, 7, 8, 1), (42, 7, 7, 16, 1),
+]
+# own-cell batches: 256^2 at k = 1, 2, 3 (n = 12, 20, 30) and 128^2 at k=4
+# (n = 42); any other N: 131072 blocks
+BATCH = {12: 131072, 20: 131072, 30: 131072, 42: 32768}
+TOL = {torch.float32: 5.0e-5, torch.float64: 1.0e-11}
+
+
+def source(plans, T, header):
+    cases = []
+    for v, (N, R, C, BB, minb) in enumerate(plans):
+        for w, kern in ((v, "tune_gj_kernel"), (len(plans) + v, "tune_copy_kernel")):
+            cases.append(f"    case {w}: return gj_run<{T}, {N}, {R}, {C}, {BB}>("
+                         f"{kern}<{T}, {N}, {R}, {C}, {BB}, {minb}>, A, out, n, B, st);")
+    return f"""#include "{header}"
+
+template <typename T, int N, int R, int C, int BB, int MINB>
+__global__ void __launch_bounds__(GjShape<N, R, C, BB>::THREADS, MINB) tune_gj_kernel(
+    const T* __restrict__ A, T* __restrict__ out, int n, long long B) {{
+  gj_tile<T, N, R, C, BB>(A, out, n, B);
+}}
+
+// gj_tile's loads and stores alone
+template <typename T, int N, int R, int C, int BB, int MINB>
+__global__ void __launch_bounds__(GjShape<N, R, C, BB>::THREADS, MINB) tune_copy_kernel(
+    const T* __restrict__ A, T* __restrict__ out, int n, long long B) {{
+  using S = GjShape<N, R, C, BB>;
+  const int pos = threadIdx.x / BB;
+  const int i0 = pos / S::TC * R, j0 = pos % S::TC * C;
+  const long long col = (long long)blockIdx.x * BB + threadIdx.x % BB;
+  if (col >= B) return;
+  T a[R][C];
+#pragma unroll
+  for (int li = 0; li < R; ++li)
+#pragma unroll
+    for (int lj = 0; lj < C; ++lj) {{
+      const int i = i0 + li, j = j0 + lj;
+      a[li][lj] = (i < n && j < n) ? A[((long long)i * n + j) * B + col] : T(0);
+    }}
+#pragma unroll
+  for (int li = 0; li < R; ++li)
+#pragma unroll
+    for (int lj = 0; lj < C; ++lj) {{
+      const int i = i0 + li, j = j0 + lj;
+      if (i < n && j < n) out[((long long)i * n + j) * B + col] = a[li][lj];
+    }}
+}}
+
+IEHDG_EXPORT int tune_gj(int variant, const void* A, void* out, int n, long long B, void* stream) {{
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (variant) {{
+{chr(10).join(cases)}
+    default: return (int)cudaErrorInvalidValue;
+  }}
+}}
+"""
+
+
+def build(plans, T):
+    """Compile the plans for scalar type ``T`` ("float" or "double") into one
+    library; returns (ctypes function, ptxas registers and spill bytes keyed
+    by (N, R, C, BB, MINB))."""
+    from ..kernels import _CSRC, BUILD_DIR, NVCC_FLAGS, NVCC_LIBS, _nvcc
+
+    out = BUILD_DIR.parent / "tune_gj"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / "tune_gj.cu", out / "libtune_gj.so"
+    cu.write_text(source(plans, T, _CSRC / "gauss_jordan.cuh"))
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu), *NVCC_LIBS],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        sys.exit(f"tune_gj: nvcc failed:\n{proc.stderr}")
+    report, key = {}, None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+tune_gj_kernelI[fd]((?:Li\d+E)+)E", line)
+        if m:
+            key = tuple(map(int, re.findall(r"Li(\d+)E", m.group(1))))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and key:
+            report[key] = {"spill": int(m.group(1)) + int(m.group(2))}
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            report[key]["registers"] = int(m.group(1))
+            key = None
+    lib = ctypes.CDLL(str(so))
+    fn = lib.tune_gj
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, report
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--dtype", default="float32", choices=("float32", "float64"))
+    parser.add_argument("--plan", action="append", default=[],
+                        help="N,R,C,BB,MINB (repeatable; default: a built-in list)")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("tune_gj: needs a CUDA card (torch.cuda.is_available() is False)")
+    from ..kernels import stream_ptr
+    from ..linalg.smallinv import gauss_jordan_inv_plain
+    from .ab_cross_patch import device_time
+    from .microbench_gj import diag_dominant
+
+    plans = [tuple(int(v) for v in p.split(",")) for p in args.plan] or DEFAULT_PLANS
+    dtype = getattr(torch, args.dtype)
+    fn, report = build(plans, "float" if dtype == torch.float32 else "double")
+    blocks, results = {}, {}
+    for order in (plans, plans[::-1]):
+        for plan in order:
+            N = plan[0]
+            if N not in blocks:
+                A = diag_dominant(N, BATCH.get(N, 131072), dtype, seed=N)
+                blocks[N] = (A, gauss_jordan_inv_plain(A))
+            A, ref = blocks[N]
+            v = plans.index(plan)
+
+            def launch(w):
+                out = torch.empty_like(A)
+                rc = fn(w, A.data_ptr(), out.data_ptr(), N, A.shape[2], stream_ptr(A))
+                if rc:
+                    raise RuntimeError(f"tune_gj: plan {plan} failed to launch ({rc})")
+                return out
+
+            err = float((launch(v) - ref).abs().max())
+            ms, timer = device_time(lambda: launch(v), match="tune_gj_kernel")
+            copy_ms, _ = device_time(lambda: launch(len(plans) + v), match="tune_copy_kernel")
+            r = results.setdefault(plan, {"ms": [], "copy_ms": [], "err": err, "timer": timer})
+            r["ms"].append(ms)
+            r["copy_ms"].append(copy_ms)
+            r["err"] = max(r["err"], err)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    for plan in plans:
+        N, R, C, BB, minb = plan
+        r = results[plan]
+        info = report.get(plan, {})
+        print(json.dumps({"N": N, "R": R, "C": C, "BB": BB, "minb": minb, "dtype": args.dtype,
+                          "batch": blocks[N][0].shape[2], "ms": min(r["ms"]), "ms_reads": r["ms"],
+                          "copy_ms": min(r["copy_ms"]),
+                          "timer": r["timer"], "max_abs_err": r["err"], "ok": r["err"] <= TOL[dtype],
+                          **info, "card": card}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

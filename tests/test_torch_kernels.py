@@ -11,7 +11,9 @@ hand-written CUDA kernels against their plain versions.
 - the CPU dispatch: a wrapper given CPU tensors runs its plain version;
 - k = 4 (d1 = 21, n = 42): the plain versions of K1-K3 against the JAX
   fallbacks, K5's plain version against the ``_gj_old`` Pallas kernel of
-  tools/microbench_gj.py in interpret mode, and the widths the card refuses.
+  tools/microbench_gj.py in interpret mode, and the widths the card refuses;
+- the kernel timer of chip_smoke.py and tools/ab_cross_patch.py, with the
+  profiler stubbed.
 """
 
 import importlib.util
@@ -111,9 +113,13 @@ def test_patch_solve_plain_matches_pallas():
     assert maxerr(got[1], ref[1]) <= 1e-3 * scale
 
 
-def test_gauss_jordan_plain_matches_pallas():
-    rng = np.random.default_rng(5)
-    n, m = 8, 700  # m not a multiple of the Pallas block
+@pytest.mark.parametrize("n", [8, 12, 20, 30])
+def test_gauss_jordan_plain_matches_pallas(n):
+    """K4's plain version against ``_gj_pallas`` in interpret mode at the
+    block sizes of k = 1, 2, 3 (and n = 8), over a batch that is no multiple
+    of the Pallas block (1024): two grid steps, the second padded."""
+    rng = np.random.default_rng(5 + n)
+    m = 1100
     A = (rng.standard_normal((n, n, m)) * 0.1 + 3.0 * np.eye(n)[:, :, None]).astype(np.float32)
     ref = _gj_pallas(jnp.asarray(A), interpret=True)
     assert maxerr(TI.gauss_jordan_inv_plain(t(A)), ref) <= 5e-5
@@ -188,11 +194,16 @@ def test_patch_solve_plain_matches_fallback(misaligned, k):
             JP._patch_color_structured(geom, jop, k, jnp.asarray(rb)))
 
 
-def test_gauss_jordan_plain_matches_fallback():
-    rng = np.random.default_rng(6)
-    n, m = 20, 300
+@pytest.mark.parametrize("n", [12, 20, 30])
+def test_gauss_jordan_plain_matches_fallback(n):
+    """Both plain versions (K4's indexed and K5's masked-select pivot step)
+    against the JAX fallback ``gauss_jordan_inv_bl`` in float64."""
+    rng = np.random.default_rng(6 + n)
+    m = 300
     A = rng.standard_normal((n, n, m)) * 0.1 + 3.0 * np.eye(n)[:, :, None]
-    close64(TI.gauss_jordan_inv_plain(t(A)), j_gj(jnp.asarray(A)))
+    ref = j_gj(jnp.asarray(A))
+    close64(TI.gauss_jordan_inv_plain(t(A)), ref)
+    close64(TI.gauss_jordan_inv_select_plain(t(A)), ref)
     close64(TI.gauss_jordan_inv_plain(t(A)),
             np.linalg.inv(A.transpose(2, 0, 1)).transpose(1, 2, 0))
 
@@ -412,15 +423,30 @@ def test_cuda_patch_solve(cuda, dtype):
     assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
 
 
+def _check_gj_batches(name, wrapper, plain, n, dtype, seed, device):
+    """``wrapper`` against ``plain`` on (n, n, B) blocks for B = 1, one less
+    and one more than the kernel's batch per thread block, and 777, and on a
+    non-contiguous view; every call launches kernel ``name`` once."""
+    g = torch.Generator().manual_seed(seed)
+    tol = 5e-5 if dtype == torch.float32 else 1e-11
+    bb = TI.launch_plan(name, dtype, n)["BB"]
+    blocks = lambda m: (0.1 * torch.randn(n, n, m, generator=g, dtype=dtype)
+                        + 3.0 * torch.eye(n, dtype=dtype)[:, :, None]).to(device)
+    cases = [blocks(m) for m in (1, bb - 1, bb + 1, 777)]
+    cases.append(blocks(2 * 777)[:, :, 1::2])
+    assert not cases[-1].is_contiguous()
+    kernels.reset_launches()
+    for A in cases:
+        assert float((wrapper(A) - plain(A)).abs().max()) <= tol
+    assert kernels.LAUNCHES[name] == len(cases)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [12, 20, 30, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_gauss_jordan(cuda, dtype):
-    g = torch.Generator().manual_seed(4)
-    for n in (12, 20, 32):
-        A = (0.1 * torch.randn(n, n, 777, generator=g, dtype=dtype)
-             + 3.0 * torch.eye(n, dtype=dtype)[:, :, None]).to(cuda)
-        tol = 5e-5 if dtype == torch.float32 else 1e-11
-        assert float((TI.gauss_jordan_inv_bl(A) - TI.gauss_jordan_inv_plain(A)).abs().max()) <= tol
+def test_cuda_gauss_jordan(cuda, dtype, n):
+    _check_gj_batches("gauss_jordan", TI.gauss_jordan_inv_bl, TI.gauss_jordan_inv_plain,
+                      n, dtype, 4 + n, cuda)
 
 
 @pytest.mark.cuda
@@ -449,21 +475,21 @@ def test_cuda_kernels_d1_21(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 33, 42, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_gauss_jordan_select(cuda, dtype):
-    """K5 against the select formulation's plain version at n = 20, 42, 48,
-    and the main-path dispatch of n = 42 blocks to K5."""
-    g = torch.Generator().manual_seed(6)
-    tol = 5e-5 if dtype == torch.float32 else 1e-11
-    for n in (20, 42, 48):
+def test_cuda_gauss_jordan_select(cuda, dtype, n):
+    """K5 against the select formulation's plain version, and the main-path
+    dispatch of n = 42 blocks to K5."""
+    _check_gj_batches("gauss_jordan_select", TI.gauss_jordan_inv_select,
+                      TI.gauss_jordan_inv_select_plain, n, dtype, 6 + n, cuda)
+    if n > TI.K4_MAX_N:
+        g = torch.Generator().manual_seed(6)
+        tol = 5e-5 if dtype == torch.float32 else 1e-11
         A = (0.1 * torch.randn(n, n, 777, generator=g, dtype=dtype)
              + 3.0 * torch.eye(n, dtype=dtype)[:, :, None]).to(cuda)
-        ref = TI.gauss_jordan_inv_select_plain(A)
-        assert float((TI.gauss_jordan_inv_select(A) - ref).abs().max()) <= tol
-    kernels.reset_launches()
-    assert float((TI.gauss_jordan_inv_bl(A[:42, :42].contiguous())
-                  - TI.gauss_jordan_inv_plain(A[:42, :42])).abs().max()) <= tol
-    assert kernels.LAUNCHES["gauss_jordan_select"] == 1 and kernels.LAUNCHES["gauss_jordan"] == 0
+        kernels.reset_launches()
+        assert float((TI.gauss_jordan_inv_bl(A) - TI.gauss_jordan_inv_plain(A)).abs().max()) <= tol
+        assert kernels.LAUNCHES["gauss_jordan_select"] == 1 and kernels.LAUNCHES["gauss_jordan"] == 0
 
 
 @pytest.mark.cuda
@@ -597,7 +623,7 @@ def test_device_time_retries_then_falls_back(monkeypatch, empty_sessions):
 
     def profiled_us(fn, reps, match):
         sessions.append(match)
-        return 0.0 if len(sessions) <= empty_sessions else 500.0 * reps
+        return (0.0, 0) if len(sessions) <= empty_sessions else (500.0 * reps, reps)
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     monkeypatch.setattr(AB, "_profiled_us", profiled_us)
@@ -611,3 +637,15 @@ def test_device_time_retries_then_falls_back(monkeypatch, empty_sessions):
         assert (ms, timer) == (0.75, "cuda events")
         assert sessions == ["k_kernel"] * AB.PROFILER_ATTEMPTS
     assert calls == [1]  # the warm-up call; the stubs make no calls of their own
+
+
+def test_device_time_divides_by_recorded_launches(monkeypatch):
+    """With ``match``, the kernel's time is divided by the launches the
+    profiler recorded, so a session that lost some launches still reads the
+    time of one; without ``match``, by the number of calls."""
+    from incompressibleeulerhdg_tpu_torch.tools import ab_cross_patch as AB
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(AB, "_profiled_us", lambda fn, reps, match: (300.0 * (reps - 2), reps - 2))
+    assert AB.device_time(lambda: None, reps=10, match="k_kernel") == (0.3, "profiler")
+    assert AB.device_time(lambda: None, reps=10) == (0.24, "profiler")
