@@ -21,6 +21,12 @@ Phases, each printing its own lines:
    blocks and its launch plan; a profiler session that records
    no device time is repeated, and after three such sessions the time is
    taken with CUDA events instead (the line names the timer);
+3b. the shapes of the periodic and disk paths: K1 on the periodic halves,
+   K2 and K3 on the periodic 256^2, k=2 colour layout (three colours of
+   65,536 facets, no boundary tail), and K4 on the real own-cell (20, 20,
+   98304) and Schur (20, 20, 147840, identity on the boundary) blocks of the
+   refinement-7 disk's first stage, float32 and float64, with times, bytes,
+   bounds and ``torch.linalg.inv`` on the disk blocks;
 4. the main path: HDG IMEX SSP2(3,3,2), Richardson + projection, Taylor-Green
    vortex, 256^2 unit-square mesh, k=2, float32, dt = 1/256 -- set-up,
    initial trace, one warm-up step and three timed steps; validates
@@ -37,8 +43,14 @@ Phases, each printing its own lines:
    dt = 1/256, two steps; (b) HDG implicit + projection at the same size,
    three steps; (c) ``--test_pressure_solver`` at 256^2, k=2, float32;
    (d) projection SSP2 at 128^2, k=4, float32, two steps, which must launch
-   K5 and the d1 = 21 kernels; each validated on finite state, the L2 error
-   bounds and nonzero iteration counts, with set-up and s/step printed;
+   K5 and the d1 = 21 kernels; (e) the double shear layer on the periodic
+   256^2 square, k=2, float32, projection SSP2, two steps, which must
+   launch K1-K4; (f) Kelvin-Helmholtz on the refinement-7 unit disk, k=2,
+   float32, projection SSP2, two steps, which must launch K4 and none of
+   K1-K3 (dense tables); each validated on finite state, the L2 error
+   bounds ((e), (f): the kinetic energy ratio and, (f), the divergence
+   bound of the JAX package's tests) and nonzero iteration counts, with
+   set-up and s/step printed;
 7. the launch check: every kernel K1-K5 launched on some path.
 
 The JSON line before the card's name and power limit has one entry per
@@ -84,6 +96,13 @@ ERROR_VELOCITY_MAX_IMPLICIT = 2.5e-4
 # 4.5 times the reference's value, and to the usual pressure bound.
 ERROR_VELOCITY_MAX_MONOLITHIC = 2.0e-3
 WIDE_NX, WIDE_DEGREE = 128, 4
+DISK_REFINEMENT = 7  # the largest disk under the vertex-star gate (49,537 vertices)
+# runs (e) and (f): kinetic energy E(T)/E(0) and the divergence bound of the
+# JAX package's tests/test_integration_extra.py (shear: [0.5, 1.05]; the
+# Kelvin-Helmholtz disk: [0.2, 1.05], divergence L2 norm below 1e-3)
+ENERGY_RANGE = {"e": (0.5, 1.05), "f": (0.2, 1.05)}
+DIVERGENCE_MAX_KH = 1.0e-3
+DENSE_PATH_KERNELS = ("gauss_jordan",)
 MAIN_PATH_KERNELS = ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan")
 # the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
 # 700 W): its bytes (each input read once, each output written once) over
@@ -155,6 +174,57 @@ def pct_bound(bound_ms, ms, name):
     return 100 * bound_ms / ms
 
 
+class Holds:
+    """Each kernel held against its plain version: the largest errors by
+    name and dtype, and float32 device times with bytes and bound.  ``check``
+    fails the run on an error above its tolerance."""
+
+    def __init__(self, label):
+        self.label = label
+        self.results = {}
+
+    def check(self, name, dtype, got, ref, abs_tol=None, per_block=False, rel_tol=None):
+        """Relative error (at most ``rel_tol``, default ``TOL[dtype]``): over
+        the whole output, or (``per_block``) the largest over the batch-last
+        blocks of each block's error relative to that block's largest entry."""
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        if per_block:
+            rel = max(float(((g - r).abs().amax(dim=(0, 1)) / r.abs().amax(dim=(0, 1))).max())
+                      for g, r in zip(got, ref))
+        else:
+            rel = abs_err / max(float(r.abs().max()) for r in ref)
+        ok = rel <= (TOL[dtype] if rel_tol is None else rel_tol) and \
+            (abs_tol is None or abs_err <= abs_tol)
+        entry = self.results.setdefault(name, {"abs": {}, "rel": {}})
+        key = str(dtype).replace("torch.", "")
+        entry["abs"][key] = max(entry["abs"].get(key, 0.0), abs_err)
+        entry["rel"][key] = max(entry["rel"].get(key, 0.0), rel)
+        if not ok:
+            fail(f"{name} ({self.label}) {key}: max abs err {abs_err:.3e}, max rel err {rel:.3e}")
+
+    def timed(self, name, dtype, kern, plain, nbytes, flops, suffix=""):
+        """Device time (torch.profiler, else CUDA events), in turns: plain,
+        kernel, kernel, plain."""
+        from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
+
+        sym = f"{name}_kernel"
+        (t_p1, u_p1), (t_k1, u_k1), (t_k2, u_k2), (t_p2, u_p2) = (
+            device_time(plain), device_time(kern, match=sym), device_time(kern, match=sym),
+            device_time(plain))
+        t_b, by = bound(dtype, nbytes, flops)
+        self.results[name].update({f"ms{suffix}": min(t_k1, t_k2),
+                                   f"plain_ms{suffix}": min(t_p1, t_p2),
+                                   f"bytes{suffix}": nbytes, f"bound_ms{suffix}": t_b,
+                                   f"bound_by{suffix}": by})
+        timers = self.results[name].setdefault("timers", [])
+        for u in (u_p1, u_k1, u_k2, u_p2):
+            if u not in timers:
+                timers.append(u)
+
+
 def compare_kernels(nx, degree):
     """Phases 3 and 5: every kernel of the nx^2, k = degree path against its
     plain version at that path's shapes.  At k <= 3 the own-cell and Schur
@@ -182,46 +252,20 @@ def compare_kernels(nx, degree):
     rng = np.random.default_rng(2024)
     dev = torch.device("cuda:0")
     gj = "gauss_jordan" if nu <= smallinv.K4_MAX_N else "gauss_jordan_select"
-    results = {}
+    holds = Holds(f"d1={d1}")
+    results = holds.results
 
     def rnd(*shape, dtype):
         return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
 
     def check(name, dtype, got, ref):
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        torch.cuda.synchronize()
-        abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        scale = max(float(r.abs().max()) for r in ref)
-        rel = abs_err / scale
-        ok = rel <= TOL[dtype]
-        if name == gj and dtype == torch.float32:
-            ok = ok and abs_err <= TOL_GJ_F32_ABS
-        entry = results.setdefault(name, {"abs": {}, "rel": {}})
-        key = str(dtype).replace("torch.", "")
-        entry["abs"][key] = max(entry["abs"].get(key, 0.0), abs_err)
-        entry["rel"][key] = max(entry["rel"].get(key, 0.0), rel)
-        if not ok:
-            fail(f"{name} d1={d1} {key}: max abs err {abs_err:.3e}, max rel err {rel:.3e}")
+        holds.check(name, dtype, got, ref,
+                    abs_tol=TOL_GJ_F32_ABS if name == gj and dtype == torch.float32 else None)
 
     def spd(n, m, dtype):
         return 0.1 * rnd(n, n, m, dtype=dtype) + 3.0 * torch.eye(n, dtype=dtype, device=dev)[:, :, None]
 
-    def timed(name, dtype, kern, plain, nbytes, flops, suffix=""):
-        # device time (torch.profiler, else CUDA events), in turns: plain,
-        # kernel, kernel, plain
-        sym = f"{name}_kernel"
-        (t_p1, u_p1), (t_k1, u_k1), (t_k2, u_k2), (t_p2, u_p2) = (
-            device_time(plain), device_time(kern, match=sym), device_time(kern, match=sym),
-            device_time(plain))
-        t_b, by = bound(dtype, nbytes, flops)
-        results[name].update({f"ms{suffix}": min(t_k1, t_k2), f"plain_ms{suffix}": min(t_p1, t_p2),
-                              f"bytes{suffix}": nbytes, f"bound_ms{suffix}": t_b,
-                              f"bound_by{suffix}": by})
-        timers = results[name].setdefault("timers", [])
-        for u in (u_p1, u_k1, u_k2, u_p2):
-            if u not in timers:
-                timers.append(u)
+    timed = holds.timed
 
     for dtype in (torch.float64, torch.float32):
         A = rnd(d1, d1, nc, dtype=dtype)
@@ -309,6 +353,8 @@ def compare_kernels(nx, degree):
                     timed(name, dtype, lambda: smallinv.gauss_jordan_inv_bl(Gc),
                           lambda: smallinv.gauss_jordan_inv_plain(Gc),
                           *work(name, dtype, d1, m_col, n=nu), suffix="_color")
+                    results[gj]["library_ms_color"] = device_time(
+                        lambda: torch.linalg.inv(Gc.permute(2, 0, 1)))[0]
         if dtype == torch.float32:
             # one PyTorch call on the same blocks: batched LU inverse (cuBLAS/cuSOLVER),
             # on the batch-last table and on an (m, n, n) contiguous copy
@@ -326,6 +372,8 @@ def compare_kernels(nx, degree):
                f"{e['library_ms_contiguous']:.4f} ms)" if "library_ms" in e else "")
         color = (f" | one colour {e['ms_color']:.4f} ms plain {e['plain_ms_color']:.4f} ms "
                  f"bound {e['bound_ms_color']:.4f} ms" if "ms_color" in e else "")
+        if "library_ms_color" in e:
+            color += f" torch.linalg.inv {e['library_ms_color']:.4f} ms"
         plan = f" | plan {e['plan']}" if "plan" in e else ""
         print(f"# kernel {name} ({nx}^2, k={degree}, d1={d1}): rel err f32 "
               f"{e['rel']['float32']:.3e} f64 {e['rel']['float64']:.3e} | abs err f32 "
@@ -334,6 +382,138 @@ def compare_kernels(nx, degree):
               f"{pct_bound(e['bound_ms'], e['ms'], name):.1f}% of bound{color}{lib}{plan} "
               f"(float32, path shape; timer {'/'.join(e['timers'])})", flush=True)
     return results
+
+
+def disk_blocks():
+    """The own-cell blocks D (20, 20, 98304) and the patch Schur blocks Sc
+    (20, 20, 147840, identity on the 768 boundary facets) of the first SSP2
+    stage of the Kelvin-Helmholtz start on the refinement-7 disk, k = 2,
+    float32, built on the card as ``build_tentative_operator`` builds them."""
+    from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.mesh import unit_disk_mesh
+    from incompressibleeulerhdg_tpu_torch.models.problems import KelvinHelmholtz
+    from incompressibleeulerhdg_tpu_torch.ops.fields import interior_mask
+    from incompressibleeulerhdg_tpu_torch.ops.forms import star_fields
+    from incompressibleeulerhdg_tpu_torch.ops.projection import build_bdm_projection, project_bdm
+    from incompressibleeulerhdg_tpu_torch.timesteppers.tableaus import TABLEAUS
+
+    t0 = time.perf_counter()
+    disc = HDGDiscretisation(unit_disk_mesh(DISK_REFINEMENT), DEGREE, dtype=torch.float32,
+                             device=torch.device("cuda:0"))
+    geom = disc.geom
+    Q0 = disc.interpolate_velocity(KelvinHelmholtz(disc).initial_condition()[0])
+    star = star_fields(geom, project_bdm(geom, build_bdm_projection(disc), Q0))
+    c = float(TABLEAUS["imex_ssp2_332"].a_impl[1][1]) / NX  # a_11 dt, dt = 1/256
+    op = P.build_tentative_operator(geom, star, c)
+    eye = torch.eye(op.D.shape[0], dtype=op.D.dtype, device=op.D.device)[:, :, None]
+    Sc = op.D[:, :, geom.fcells[1]] - P._bmm(op.Cx, P._bmm(op.Dinv0, op.Bx))
+    Sc = torch.where(interior_mask(geom, 1)[None, None, :] > 0, Sc, eye).contiguous()
+    torch.cuda.synchronize()
+    nbnd = geom.n_facets - geom.n_int
+    print(f"# disk refinement {DISK_REFINEMENT}, k={DEGREE}: {geom.n_cells} cells, "
+          f"{geom.n_facets} facets ({nbnd} on the boundary), colours {geom.fcol_bounds}; "
+          f"stage blocks built in {time.perf_counter() - t0:.1f} s", flush=True)
+    return op.D.contiguous(), Sc
+
+
+def compare_new_shapes():
+    """Phase 3b: K1-K3 on the periodic 256^2, k = 2 layout (three colours
+    of 65,536 facets at offsets 0, 65,536 and 131,072, no boundary tail,
+    196,608 table columns), and K4 on the disk's real own-cell and Schur
+    batches, against their plain versions in float32 and float64, with
+    device times, bytes and bounds (float32) and ``torch.linalg.inv`` on the
+    disk blocks.  The disk blocks are held per block (error relative to the
+    block's largest entry: their inverses reach 1e6)."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
+
+    m = NX * NX
+    nc, nf, b = 2 * m, 3 * m, (0, m, 2 * m, 3 * m)
+    d1 = (DEGREE + 2) * (DEGREE + 3) // 2
+    nu = 2 * d1
+    rng = np.random.default_rng(2025)
+    dev = torch.device("cuda:0")
+    holds = Holds("periodic / disk")
+
+    def rnd(*shape, dtype):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+
+    D32, Sc32 = disk_blocks()
+    for dtype in (torch.float64, torch.float32):
+        A = rnd(d1, d1, nc, dtype=dtype)
+        Pc = rnd(2, nu, nu, dtype=dtype)
+        xc = rnd(nu, nc, dtype=dtype)
+        K01 = P.pad_table(rnd(d1, d1, nf, dtype=dtype))
+        K10 = P.pad_table(rnd(d1, d1, nf, dtype=dtype))
+        Di = P.pad_table(rnd(nu, nu, nf, dtype=dtype))
+        Si = P.pad_table(rnd(nu, nu, nf, dtype=dtype))
+        Bp, Cp = rnd(3, nu, nu, dtype=dtype), rnd(3, nu, nu, dtype=dtype)
+        x0, x1 = rnd(nu, nf, dtype=dtype), rnd(nu, nf, dtype=dtype)
+        halves = (0, m, nc)
+        pairs = {"fact_apply": [(lambda: P.fact_apply(A, Pc, halves, xc),
+                                 lambda: P.fact_apply_plain(A, Pc, halves, xc))],
+                 "cross_pair": [(lambda: P.cross_pair(K01, K10, Bp, Cp, b, x0, x1),
+                                 lambda: P.cross_pair_plain(K01, K10, Bp, Cp, b, x0, x1))],
+                 "patch_solve": []}
+        for k in range(3):
+            sl = slice(b[k], b[k + 1])
+            args = (Bp[k:k + 1], Cp[k:k + 1], (0, m), x0[:, sl], x1[:, sl])
+            pairs["cross_pair"].append(
+                (lambda a=args, o=b[k]: P.cross_pair(K01, K10, *a, aoff=o),
+                 lambda a=args, o=b[k]: P.cross_pair_plain(K01, K10, *a, aoff=o)))
+            args = (Di, Si, K01, K10, Bp[k], Cp[k], x0[:, sl], x1[:, sl], b[k])
+            pairs["patch_solve"].append((lambda a=args: P.patch_solve(*a),
+                                         lambda a=args: P.patch_solve_plain(*a)))
+        for name, cases in pairs.items():
+            for kern, plain in cases:
+                holds.check(name, dtype, kern(), plain())
+        D, Sc = D32.to(dtype), Sc32.to(dtype)
+        for G in (D, Sc):
+            # per block, float32 to K4's 5e-5 (blocks scaled to a unit largest entry)
+            holds.check("gauss_jordan", dtype, smallinv.gauss_jordan_inv_bl(G),
+                        smallinv.gauss_jordan_inv_plain(G), per_block=True,
+                        rel_tol=TOL_GJ_F32_ABS if dtype == torch.float32 else None)
+        if dtype == torch.float32:
+            t = holds.timed
+            t("fact_apply", dtype, *pairs["fact_apply"][0], *work("fact_apply", dtype, d1, nc, 2),
+              suffix="_periodic")
+            t("cross_pair", dtype, *pairs["cross_pair"][0], *work("cross_pair", dtype, d1, nf, 3),
+              suffix="_periodic")
+            t("cross_pair", dtype, *pairs["cross_pair"][3], *work("cross_pair", dtype, d1, m),
+              suffix="_periodic_color")
+            t("patch_solve", dtype, *pairs["patch_solve"][2], *work("patch_solve", dtype, d1, m),
+              suffix="_periodic")
+            gjr = holds.results["gauss_jordan"]
+            for key, G in (("_disk_own", D), ("_disk_schur", Sc)):
+                t("gauss_jordan", dtype, lambda G=G: smallinv.gauss_jordan_inv_bl(G),
+                  lambda G=G: smallinv.gauss_jordan_inv_plain(G),
+                  *work("gauss_jordan", dtype, d1, G.shape[2], n=nu), suffix=key)
+                gjr[f"library_ms{key}"] = device_time(
+                    lambda G=G: torch.linalg.inv(G.permute(2, 0, 1)))[0]
+                gjr[f"shape{key}"] = tuple(G.shape)
+        del A, Pc, xc, K01, K10, Di, Si, Bp, Cp, x0, x1, pairs, D, Sc
+        torch.cuda.empty_cache()
+
+    r = holds.results
+    for name, key, shape in (("fact_apply", "_periodic", f"({d1},{d1},{nc}), 2 halves"),
+                             ("cross_pair", "_periodic", f"2 x ({d1},{d1},{nf}), 3 colours, no tail"),
+                             ("cross_pair", "_periodic_color", f"one colour, {m} at offset {m}"),
+                             ("patch_solve", "_periodic", f"one colour, {m} at offset {2 * m}"),
+                             ("gauss_jordan", "_disk_own", str(r["gauss_jordan"]["shape_disk_own"])),
+                             ("gauss_jordan", "_disk_schur",
+                              str(r["gauss_jordan"]["shape_disk_schur"]))):
+        e = r[name]
+        lib = (f" | torch.linalg.inv {e['library_ms' + key]:.4f} ms"
+               if f"library_ms{key}" in e else "")
+        print(f"# kernel {name}{key} ({shape}): rel err f32 {e['rel']['float32']:.3e} f64 "
+              f"{e['rel']['float64']:.3e} | abs err f32 {e['abs']['float32']:.3e} | kernel "
+              f"{e['ms' + key]:.4f} ms plain {e['plain_ms' + key]:.4f} ms | "
+              f"{e['bytes' + key] / 1e6:.1f} MB, bound {e['bound_ms' + key]:.4f} ms "
+              f"({e['bound_by' + key]}), {pct_bound(e['bound_ms' + key], e['ms' + key], name):.1f}% "
+              f"of bound{lib} (float32; timer {'/'.join(e['timers'])})", flush=True)
+    return r
 
 
 def ptxas_summary():
@@ -482,6 +662,12 @@ def driver_runs():
         ("d", f"projection SSP2 {WIDE_NX}^2 k={WIDE_DEGREE}", ERROR_VELOCITY_MAX,
          ["--nx", WIDE_NX, "--degree", WIDE_DEGREE, "--tfinal", 2 * dt,
           "--use_projection_method"]),
+        ("e", f"shear layer, periodic {NX}^2 k=2", None,
+         ["--problem", "shear", "--nx", NX, "--degree", DEGREE, "--tfinal", 2 * dt,
+          "--use_projection_method"]),
+        ("f", f"Kelvin-Helmholtz, disk refinement {DISK_REFINEMENT} k=2", None,
+         ["--problem", "kelvinhelmholtz", "--refinement", DISK_REFINEMENT, "--degree", DEGREE,
+          "--tfinal", 2 * dt, "--use_projection_method"]),
     ]
     launches = {}
     cwd = os.getcwd()
@@ -512,6 +698,12 @@ def driver_runs():
                if wide[n] == 0]
     if missing:
         fail(f"run (d) at k={WIDE_DEGREE} never launched {missing}")
+    missing = [n for n in MAIN_PATH_KERNELS if launches["e"][n] == 0]
+    if missing:
+        fail(f"run (e) on the periodic mesh never launched {missing}")
+    if any(launches["f"][n] == 0 for n in DENSE_PATH_KERNELS) or \
+            any(launches["f"][n] for n in MAIN_PATH_KERNELS if n not in DENSE_PATH_KERNELS):
+        fail(f"run (f) on the disk must launch K4 only: {launches['f']}")
     return launches
 
 
@@ -532,6 +724,9 @@ def check_driver_run(key, label, vel_max, res, wall, timers, launches):
     its = [n for c in counts for n in c["tentative"] + c["pressure"]]
     its += [c[k] for c in counts for k in ("final_pressure", "reconstruction") if k in c]
     finite = all(bool(torch.isfinite(res[f]).all()) for f in ("Q", "p"))
+    if key in ENERGY_RANGE:
+        check_flow_run(key, label, res, setup_s, steps, wall, counts, its, finite, launches)
+        return
     err_v, err_p = res["velocity_error"], res["pressure_error"]
     print(f"# driver run ({key}) {label}: setup {setup_s:.2f} s, "
           f"{sum(steps) / len(steps):.4f} s/step (steps {[round(t, 4) for t in steps]}), "
@@ -542,6 +737,40 @@ def check_driver_run(key, label, vel_max, res, wall, timers, launches):
         fail(f"driver run ({key}): non-finite state")
     if not (err_v < vel_max and err_p < ERROR_PRESSURE_MAX):
         fail(f"driver run ({key}): errors above bound: velocity {err_v:.3e} pressure {err_p:.3e}")
+    if not (its and min(its) > 0):
+        fail(f"driver run ({key}): a Krylov solve took zero iterations")
+
+
+def check_flow_run(key, label, res, setup_s, steps, wall, counts, its, finite, launches):
+    """Runs (e) and (f), which have no exact solution: finite state, the
+    kinetic energy ratio E(T)/E(0) in its range, (f) the divergence bound,
+    every Krylov solve > 0 iterations."""
+    from incompressibleeulerhdg_tpu_torch.models import problems
+    from incompressibleeulerhdg_tpu_torch.ops import fields as F
+
+    stepper = res["timestepper"]
+    disc, geom = stepper.disc, stepper.geom
+    problem = (problems.DoubleLayerShearFlow if key == "e" else problems.KelvinHelmholtz)(disc)
+    Q0 = disc.interpolate_velocity(problem.initial_condition()[0])
+    Q = res["Q"]
+    ratio = float(F.l2_norm_sq(geom, geom.phi1, Q) / F.l2_norm_sq(geom, geom.phi1, Q0))
+    divQ = F.mass_solve(geom, geom.m0inv, F.cell_integrate(geom, geom.phi0, F.cell_div(geom, Q)))
+    div = float(torch.sqrt(F.l2_norm_sq(geom, geom.phi0, divQ)))
+    lo, hi = ENERGY_RANGE[key]
+    per_step = {n: v / len(steps) for n, v in launches.items()}
+    print(f"# driver run ({key}) {label}: setup {setup_s:.2f} s, "
+          f"{sum(steps) / len(steps):.4f} s/step (steps {[round(t, 4) for t in steps]}), "
+          f"wall {wall:.1f} s | iters {[{k: v for k, v in c.items() if k != 'max_relres'} for c in counts]} "
+          f"| max relres {max(c['max_relres'] for c in counts):.2e} | energy ratio {ratio:.6f} "
+          f"(range [{lo}, {hi}]) | divergence {div:.3e}"
+          f"{f' (bound {DIVERGENCE_MAX_KH:.0e})' if key == 'f' else ''} | launches {launches} "
+          f"(per step {per_step})", flush=True)
+    if not finite:
+        fail(f"driver run ({key}): non-finite state")
+    if not lo <= ratio <= hi:
+        fail(f"driver run ({key}): energy ratio {ratio:.6f} outside [{lo}, {hi}]")
+    if key == "f" and not div < DIVERGENCE_MAX_KH:
+        fail(f"driver run ({key}): divergence {div:.3e} above {DIVERGENCE_MAX_KH:.0e}")
     if not (its and min(its) > 0):
         fail(f"driver run ({key}): a Krylov solve took zero iterations")
 
@@ -558,6 +787,7 @@ def main():
     build_s = kernels.build_all()
     print(f"# kernel build: {build_s:.2f} s ({', '.join(kernels.KERNELS)})", flush=True)
     main_cmp = compare_kernels(NX, DEGREE)
+    new_cmp = compare_new_shapes()
     main_launches, launches_step = main_path(card)
     launches = {"main": main_launches}
     wide_cmp = compare_kernels(WIDE_NX, WIDE_DEGREE)
@@ -582,7 +812,7 @@ def main():
             library_ms=e.get("library_ms"), timers=e["timers"],
         )
         for key in ("library_ms_contiguous", "ms_color", "plain_ms_color", "bytes_color",
-                    "bound_ms_color", "bound_by_color", "plan"):
+                    "bound_ms_color", "bound_by_color", "library_ms_color", "plan"):
             if key in e:
                 row[key] = e[key]
         if "ms_color" in e:
@@ -594,6 +824,15 @@ def main():
         if name == "gauss_jordan_select":
             row.update(ab_k4_n20_ms=ab["k4_n20_ms"], ab_k5_n20_ms=ab["k5_n20_ms"],
                        ab_k5_n42_ms=ab["k5_n42_ms"], ab_timer=ab["timer"])
+        n = new_cmp.get(name, {})
+        for key, v in n.items():
+            if key in ("abs", "rel"):
+                row[f"max_{key}_err_new_shapes"] = v
+            elif key != "timers":
+                row[key] = v
+        for sfx in ("_periodic", "_periodic_color", "_disk_own", "_disk_schur"):
+            if f"ms{sfx}" in n:
+                row[f"pct_bound{sfx}"] = pct_bound(n[f"bound_ms{sfx}"], n[f"ms{sfx}"], name)
         rows.append(row)
     missing = [row["name"] for row in rows if row["launches"] == 0]
     if missing:

@@ -4,21 +4,25 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of the JAX package ``incompressibleeulerhdg_tpu``, which stays the
 reference it is tested against.  The layout mirrors the JAX package:
 
-- ``mesh``          triangle meshes, the unit-square generator and the C++
-                    connectivity kernel (built with g++ on first use)
+- ``mesh``          triangle meshes, the unit-square, periodic-square and
+                    unit-disk generators and the C++ connectivity kernel
+                    (built with g++ on first use)
 - ``fem``           quadrature, Lagrange bases, space tabulations, ``Geom``
                     tensors and ``HDGDiscretisation``
-- ``ops``         structured facet<->cell moves, fields, forms, projection
+- ``ops``           facet<->cell moves (slices and rolls on structured
+                    meshes, index gathers on the disk), fields, forms,
+                    projection
 - ``linalg``        condensation, GMRES and FGMRES, GTMG, the tentative
                     operator and its Schwarz sweep, the monolithic stage
                     solve, small inverses
-- ``models``        the Taylor-Green vortex
+- ``models``        Taylor-Green, the double shear layer, Kelvin-Helmholtz
 - ``timesteppers``  IMEX tableaus, HDG IMEX (projection or monolithic) and
                     HDG implicit
 - ``utils``         timers, checkpoints (the JAX package's file format), VTK
 - ``cli``           the command-line driver (``python -m
                     incompressibleeulerhdg_tpu_torch.cli.driver``)
-- ``tools``         the Gauss-Jordan kernel A/B on the card
+- ``tools``         kernel A/B, plan sweeps and step profiles on the card;
+                    the JAX driver as a same-machine reference
 - ``kernels``       build and launch of the CUDA kernels in ``csrc/``
 - ``convert``       JAX package objects -> port objects (for the tests)
 

@@ -3,23 +3,25 @@
 Counterpart of incompressibleeulerhdg_tpu/cli/driver.py with the same flags
 and printed lines: run banner, the stand-alone pressure-solver benchmark,
 the solve with its averaged iteration counts and timer table, the error
-norms against the analytic Taylor-Green vortex, and ``solution.vtu``.  The
-port runs the HDG discretisation on the structured unit square (Taylor-Green)
-with the HDG IMEX and HDG implicit schemes, projection or monolithic, on one
-device; ``--device`` picks it (default ``cuda``; no card is an error, never a
-silent CPU run).  Flags of the JAX driver that the port does not run yet
+norms against the analytic solution where the problem has one, and
+``solution.vtu``.  The port runs the HDG discretisation of the three model
+problems (Taylor-Green on the unit square, the double shear layer on the
+periodic square, Kelvin-Helmholtz on the unit disk) with the HDG IMEX and
+HDG implicit schemes, projection or monolithic, on one device; ``--device``
+picks it (default ``cuda``; no card is an error, never a silent CPU run).  Flags of the JAX driver that the port does not run yet
 raise NotImplementedError, naming their ROADMAP item, before any work.
 
 Run:  python -m incompressibleeulerhdg_tpu_torch.cli.driver --help
 """
 
 import argparse
+import math
 
 import torch
 
 from ..fem.discretisation import HDGDiscretisation
-from ..mesh import unit_square_mesh
-from ..models.problems import TaylorGreen
+from ..mesh import periodic_square_mesh, unit_disk_mesh, unit_square_mesh
+from ..models.problems import DoubleLayerShearFlow, KelvinHelmholtz, TaylorGreen
 from ..ops import fields as F
 from ..timesteppers.common import to_host
 from ..timesteppers.hdg_implicit import IncompressibleEulerHDGImplicit
@@ -102,8 +104,6 @@ def check_args(args):
             raise RuntimeError(
                 f"Invalid timestepping method for DG discretisation: '{args.timestepper}'")
     todo = []
-    if args.problem != "taylorgreen":
-        todo.append(f"--problem {args.problem} (ROADMAP Queue 1, M9)")
     if args.discretisation == "dg":
         todo.append("--discretisation dg (ROADMAP Queue 1, M10)")
     if args.discretisation == "conforming":
@@ -131,6 +131,23 @@ def select_device(name):
     return torch.device("cpu")
 
 
+def make_mesh(args):
+    """The problem's mesh (the JAX driver's choice, driver.py:155-160)."""
+    if args.problem == "shear":
+        return periodic_square_mesh(args.nx, L=2 * math.pi)
+    if args.problem == "kelvinhelmholtz":
+        return unit_disk_mesh(refinement_level=args.refinement)
+    return unit_square_mesh(args.nx)
+
+
+def make_problem(args, disc):
+    if args.problem == "shear":
+        return DoubleLayerShearFlow(disc)
+    if args.problem == "kelvinhelmholtz":
+        return KelvinHelmholtz(disc)
+    return TaylorGreen(disc, args.forcing, args.kappa)
+
+
 def make_timestepper(args, disc):
     if args.timestepper == "implicit":
         return IncompressibleEulerHDGImplicit(disc, args.dt, flux=args.flux,
@@ -149,7 +166,7 @@ def main(argv=None):
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
 
     with PerformanceLog("setup"):
-        mesh = unit_square_mesh(args.nx)
+        mesh = make_mesh(args)
         disc = HDGDiscretisation(mesh, args.degree, dtype=dtype, device=device)
         timestepper = make_timestepper(args, disc)
 
@@ -159,9 +176,13 @@ def main(argv=None):
     print("+-------------------------------------------------+")
     print()
     print(f"model problem = {args.problem}")
-    print(f"mesh size = {args.nx} x {args.nx}")
-    print(f"forcing = {args.forcing}")
-    print(f"kappa = {args.kappa}")
+    if args.problem == "kelvinhelmholtz":
+        print(f"mesh refinement = {args.refinement}")
+    else:
+        print(f"mesh size = {args.nx} x {args.nx}")
+    if args.problem == "taylorgreen":
+        print(f"forcing = {args.forcing}")
+        print(f"kappa = {args.kappa}")
     print(f"polynomial degree = {args.degree}")
     print(f"final time = {args.tfinal}")
     print(f"timestep size = {args.dt}")
@@ -191,7 +212,7 @@ def main(argv=None):
         print("WARNING: performing a single timestep only!")
         print()
 
-    model_problem = TaylorGreen(disc, args.forcing, args.kappa)
+    model_problem = make_problem(args, disc)
     Q_0, p_0 = model_problem.initial_condition()
     solve_kwargs = {}
     if args.checkpoint_every or args.resume:
@@ -212,20 +233,22 @@ def main(argv=None):
             "pressure": sample_dg_at_corners(disc, to_host(p)),
             "divergence": sample_dg_at_corners(disc, to_host(divQ)),
         }
-        Q_exact, p_exact = model_problem.solution(args.tfinal)
-        Q_err_nrm = timestepper.velocity_error_norm(Q, Q_exact)
-        p_err_nrm = timestepper.pressure_error_norm(p, p_exact)
-        print()
-        print(f"velocity error = {Q_err_nrm}")
-        print(f"pressure error = {p_err_nrm}")
-        print()
-        fields["velocity_exact"] = sample_dg_at_corners(disc, to_host(Q_exact))
-        fields["velocity_error"] = sample_dg_at_corners(disc, to_host(Q - Q_exact))
-        fields["pressure_exact"] = sample_dg_at_corners(disc, to_host(p_exact))
-        fields["pressure_error"] = sample_dg_at_corners(disc, to_host(p - p_exact))
+        exact = model_problem.solution(args.tfinal)
+        if exact is not None:
+            Q_exact, p_exact = exact
+            Q_err_nrm = timestepper.velocity_error_norm(Q, Q_exact)
+            p_err_nrm = timestepper.pressure_error_norm(p, p_exact)
+            print()
+            print(f"velocity error = {Q_err_nrm}")
+            print(f"pressure error = {p_err_nrm}")
+            print()
+            fields["velocity_exact"] = sample_dg_at_corners(disc, to_host(Q_exact))
+            fields["velocity_error"] = sample_dg_at_corners(disc, to_host(Q - Q_exact))
+            fields["pressure_exact"] = sample_dg_at_corners(disc, to_host(p_exact))
+            fields["pressure_error"] = sample_dg_at_corners(disc, to_host(p - p_exact))
+            result.update(velocity_error=Q_err_nrm, pressure_error=p_err_nrm)
         write_vtu("solution.vtu", mesh, fields)
         print("wrote solution.vtu")
-        result.update(velocity_error=Q_err_nrm, pressure_error=p_err_nrm)
     return result
 
 

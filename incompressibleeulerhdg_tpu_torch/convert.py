@@ -55,14 +55,17 @@ def bdm_from_jax(proj, dtype=torch.float64, device="cpu"):
 
 
 def tentative_operator_from_jax(op, dtype=torch.float64, device="cpu"):
-    """A flat factored TentativeOperator from the JAX package's (the branch
-    JAX builds off the TPU: 3-D tables, Sown not None)."""
-    if op.Sown is None or np.ndim(op.Ks01) != 3:
-        raise ValueError("expected a flat factored TentativeOperator")
-    t = lambda a: tensor(a, dtype, device)
-    return TentativeOperator(Dinv=t(op.Dinv), Sinv=t(op.Sinv), Dinv0=t(op.Dinv0),
-                             Sown=t(op.Sown), Pcell=t(op.Pcell), Ks01=t(op.Ks01),
-                             Ks10=t(op.Ks10), Bp=t(op.Bp), Cp=t(op.Cp))
+    """A TentativeOperator from the JAX package's flat branches (the ones
+    JAX builds off the TPU): factored (3-D ``Ks01``, uniform structured
+    meshes) or dense (``D``, ``Bx``, ``Cx``; unstructured meshes)."""
+    names = ("Dinv", "Sinv", "Dinv0")
+    if op.Sown is not None and np.ndim(op.Ks01) == 3:
+        names += ("Sown", "Pcell", "Ks01", "Ks10", "Bp", "Cp")
+    elif op.Sown is None and op.D is not None:
+        names += ("D", "Bx", "Cx")
+    else:
+        raise ValueError("expected a flat factored or dense TentativeOperator")
+    return TentativeOperator(**{n: tensor(getattr(op, n), dtype, device) for n in names})
 
 
 def condensed_system_from_jax(cs, dtype=torch.float64, device="cpu"):
@@ -75,15 +78,24 @@ def condensed_system_from_jax(cs, dtype=torch.float64, device="cpu"):
 
 
 def gtmg_from_jax(pc, dtype=torch.float64, device="cpu"):
-    """The structured (fft_neumann) two-level preconditioner from the JAX
-    package's."""
-    if pc.coarse_kind != "fft_neumann" or pc.vshift is None:
-        raise ValueError("expected a structured fft_neumann TwoLevelTracePC")
-    t = lambda a: tensor(a, dtype, device)
+    """The two-level preconditioner from the JAX package's (any coarse
+    kind; the JAX-only ``fft_f32`` and ``dist`` fields are not carried)."""
+    if pc.dist is not None:
+        raise ValueError("slab-decomposed TwoLevelTracePC: not ported (ROADMAP M14)")
+    t = lambda a: None if a is None else tensor(a, dtype, device)
+    structured = pc.coarse_kind != "cheb"
     return TwoLevelTracePC(
         Sdiag_inv=t(pc.Sdiag_inv), trace_nodes=t(pc.trace_nodes),
-        sign=float(np.asarray(pc.sign)), coarse_eig_inv=t(pc.coarse_eig_inv),
-        coarse_scale=t(pc.coarse_scale), vshift=pc.vshift,
-        n_vertices=int(pc.n_vertices), grid_shape=tuple(pc.grid_shape),
-        cheb_fine=int(pc.cheb_fine), lmax_fine=float(pc.lmax_fine),
+        sign=float(np.asarray(pc.sign)), facet_verts=t(pc.facet_verts),
+        K_elem=t(pc.K_elem), cells=t(pc.cells), K_diag_inv=t(pc.K_diag_inv),
+        vf=t(pc.vf), vf_end=t(pc.vf_end), vf_mask=t(pc.vf_mask),
+        vc=t(pc.vc), vc_pos=t(pc.vc_pos), vc_mask=t(pc.vc_mask),
+        coarse_eig_inv=t(pc.coarse_eig_inv) if structured else None,
+        coarse_scale=t(pc.coarse_scale) if pc.coarse_kind == "fft_neumann" else None,
+        star_inv=t(pc.star_inv), star_pos=t(pc.star_pos),
+        coarse_dense_inv=t(pc.coarse_dense_inv), vshift=pc.vshift,
+        n_vertices=int(pc.n_vertices), coarse_kind=pc.coarse_kind,
+        grid_shape=None if pc.grid_shape is None else tuple(pc.grid_shape),
+        cheb_fine=int(pc.cheb_fine), cheb_coarse=int(pc.cheb_coarse),
+        lmax_fine=float(pc.lmax_fine), lmax_coarse=float(pc.lmax_coarse),
     )

@@ -8,7 +8,8 @@ blocks of
 are constant in time and formed once on the host (numpy) per cell geometry
 class; the per-cell trace Schur blocks S_c = D_c - C_c A_c^{-1} B_c are
 stored batch-last (3nt, 3nt, nc) on the device, and the trace operator is
-their facet-scatter sum.
+their facet-scatter sum.  Cell<->facet moves are slot slices on structured
+meshes and index gathers on the others (the JAX package's two branches).
 """
 
 from dataclasses import dataclass
@@ -16,8 +17,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.fields import interior_mask, slot_values
 from ..ops.projection import cell_geometry_classes, amajor_perm, apply_class_blocks
-from ..ops.structured import slot_gather, slot_scatter
+from ..ops.structured import slot_scatter
 
 __all__ = [
     "CondensedSystem",
@@ -136,12 +138,24 @@ def build_condensed_system(disc, tau=1.0):
 def _facets_from_cells(geom, y_c):
     """Facet assembly of per-cell (3nt, nc) contributions -> (nt, nf)."""
     nt = y_c.shape[0] // 3
-    return slot_scatter(geom, [y_c[l * nt : (l + 1) * nt] for l in range(3)])
+    blocks = [y_c[l * nt : (l + 1) * nt] for l in range(3)]
+    if geom.shift is not None:
+        return slot_scatter(geom, blocks)
+    # each facet reads its plus and (interior) minus cell's slot of the
+    # facet's local index on that side
+    fl = geom.ftab // 2
+    msk = interior_mask(geom, 2)
+    out = 0.0
+    for l in range(3):
+        sel0 = (fl[0] == l).to(y_c.dtype)[None, :]
+        sel1 = (fl[1] == l).to(y_c.dtype)[None, :] * msk
+        out = out + sel0 * blocks[l][:, geom.fcells[0]] + sel1 * blocks[l][:, geom.fcells[1]]
+    return out
 
 
 def _cells_from_facets(geom, lam):
     """Per-cell trace dofs: (nt, nf) -> (3nt, nc), local facet major."""
-    return torch.cat(slot_gather(geom, lam), dim=0)
+    return torch.cat(slot_values(geom, lam), dim=0)
 
 
 def trace_matvec(geom, cs, lam):

@@ -1,11 +1,11 @@
 """Assembled tentative operator, its colored Schwarz preconditioner, and
 kernels K1-K3.
 
-Counterpart of incompressibleeulerhdg_tpu/linalg/preconditioners.py on the
-flat FACTORED branch of uniform structured meshes (the branch the JAX CPU
-reference runs, preconditioners.py:562-592).  Per stage the tentative
-operator M - c f_impl is assembled batch-last with the 2x2 component
-structure factored out:
+Counterpart of incompressibleeulerhdg_tpu/linalg/preconditioners.py on its
+flat branches (the ones the JAX CPU reference runs).  On a uniform
+structured mesh (unit square or periodic square, preconditioners.py:562-592)
+the tentative operator M - c f_impl of a stage is assembled batch-last with
+the 2x2 component structure factored out:
 
     D  = I2 (x) Sown + Pcell[half]       Sown (d1, d1, nc), Pcell (2, nu, nu)
     Bx = I2 (x) Ks01 + Bp[color]         Ks01 (d1, d1, nf), Bp (ncol, nu, nu)
@@ -14,6 +14,9 @@ structure factored out:
 together with the patch factors of the multiplicative colored facet-pair
 Schwarz sweep: the own-cell inverses Dinv (nu, nu, nc), their plus-cell
 copies Dinv0 (nu, nu, nf) and the per-facet Schur inverses Sinv (nu, nu, nf).
+On any other mesh (the unit disk, preconditioners.py:602-625) D, Bx and Cx
+are dense (nu, nu, n) tables applied by ``einsum`` and reached by index
+gathers; only the Gauss-Jordan inverses (K4) are kernels there.
 
 The three kernels of the TPU package that apply these tables are hand-written
 CUDA here, each beside its plain PyTorch version (the JAX fallback):
@@ -36,7 +39,7 @@ import torch
 
 from .. import kernels
 from ..ops import structured as st
-from ..ops.fields import interior_mask
+from ..ops.fields import gather_facet_contribs, interior_mask, slot_values
 from .smallinv import gauss_jordan_inv_bl
 
 __all__ = [
@@ -57,17 +60,22 @@ __all__ = [
 
 @dataclass
 class TentativeOperator:
-    """Per-stage factored tentative operator and its Schwarz factors."""
+    """Per-stage tentative operator and its Schwarz factors: factored tables
+    (``Sown`` ... ``Cp``) on uniform structured meshes, dense tables
+    (``D``, ``Bx``, ``Cx``) elsewhere; the other group is None."""
 
     Dinv: torch.Tensor  # (nu, nu, nc) own-cell inverses
     Sinv: torch.Tensor  # (nu, nu, nf) patch Schur inverses (identity on boundary)
     Dinv0: torch.Tensor  # (nu, nu, nf) Dinv of each facet's plus cell
-    Sown: torch.Tensor  # (d1, d1, nc) scalar own-cell blocks
-    Pcell: torch.Tensor  # (2, nu, nu) per-half constant penalty blocks
-    Ks01: torch.Tensor  # (d1, d1, nf) scalar cross blocks, plus rows
-    Ks10: torch.Tensor  # (d1, d1, nf) scalar cross blocks, minus rows
-    Bp: torch.Tensor  # (ncol, nu, nu) per-colour constant cross penalty
-    Cp: torch.Tensor  # (ncol, nu, nu)
+    Sown: torch.Tensor = None  # (d1, d1, nc) scalar own-cell blocks
+    Pcell: torch.Tensor = None  # (2, nu, nu) per-half constant penalty blocks
+    Ks01: torch.Tensor = None  # (d1, d1, nf) scalar cross blocks, plus rows
+    Ks10: torch.Tensor = None  # (d1, d1, nf) scalar cross blocks, minus rows
+    Bp: torch.Tensor = None  # (ncol, nu, nu) per-colour constant cross penalty
+    Cp: torch.Tensor = None  # (ncol, nu, nu)
+    D: torch.Tensor = None  # (nu, nu, nc) dense own-cell blocks
+    Bx: torch.Tensor = None  # (nu, nu, nf) dense cross blocks: plus rows, minus columns
+    Cx: torch.Tensor = None  # (nu, nu, nf) minus rows, plus columns
 
 
 CUDA_D1 = (3, 6, 10, 15, 21)  # k = 0 .. 4
@@ -123,6 +131,11 @@ def tile_facets(kernel, d1, dtype):
 def _bm(A, x):
     """Batch-last block matvec: (n, n, m) x (n, m) -> (n, m)."""
     return torch.einsum("ijn,jn->in", A, x)
+
+
+def _bmm(A, B):
+    """Batch-last block product: (n, n, m) x (n, n, m) -> (n, n, m)."""
+    return torch.einsum("ikf,kjf->ijf", A, B)
 
 
 def _bm2(A, x):
@@ -279,22 +292,24 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
 
 
 def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
-    """Assemble the factored blocks and the Schwarz factors of one stage.
+    """Assemble the blocks and the Schwarz factors of one stage.
 
     The 2x2 cell patch [[D_plus, Bx], [Cx, D_minus]] of every interior facet
     is factorised in block-Schur form: own-cell inverses (K4) plus the
-    per-facet Schur inverse of S = D_minus - Cx Dinv_plus Bx (K4, per
-    colour).  ``c`` = a_ii * dt is a float.
+    per-facet Schur inverse of S = D_minus - Cx Dinv_plus Bx (K4).  A
+    uniform structured mesh (square or periodic) gets the factored tables
+    that K1-K3 apply; any other mesh (the unit disk) gets dense (nu, nu, n)
+    tables, the JAX package's branch at preconditioners.py:352-357, 429-448
+    and 602-625.  ``c`` = a_ii * dt is a float.
     """
-    if geom.uniform is None or geom.shift is None:
-        raise NotImplementedError("the port assembles uniform structured meshes only")
+    if geom.shift is not None and geom.uniform is None:
+        raise NotImplementedError("a structured mesh without uniform facet families")
     star_bl, snq = star
     d1 = geom.d1
-    nu = 2 * d1
-    nc, nf = geom.n_cells, geom.n_facets
     dtype, dev = star_bl.dtype, star_bl.device
     c = float(c)
     upw = 1.0 if upwind else 0.0
+    factored = geom.shift is not None
 
     # own-cell scalar blocks: mass + c * volume convection + facet terms
     star_q = torch.einsum("qi,aic->aqc", geom.phi1, star_bl)
@@ -307,22 +322,71 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
     Gt = torch.einsum("tqi,tqj->tijq", geom.tphi1, geom.tphi1)
     Pt = torch.einsum("q,tqi,tqj->tij", geom.wqf, geom.tphi1, geom.tphi1)
     six = torch.arange(6, device=dev)[:, None]
-    Ct = star_bl.new_zeros((6, geom.wqf.shape[0], nc))
-    sn_slots = st.slot_gather(geom, snq)
-    flen_slots = st.slot_gather(geom, geom.flen)
+    Ct = star_bl.new_zeros((6, geom.wqf.shape[0], geom.n_cells))
+    NNt = star_bl.new_zeros((6, 2, 2, geom.n_cells))  # dense tables' penalty
+    sn_slots = slot_values(geom, snq)
+    flen_slots = slot_values(geom, geom.flen)
+    if not factored:
+        hfi_slots = slot_values(geom, geom.hF_inv)
+        nrm_slots = slot_values(geom, geom.normal)
     for l in range(3):
+        sn_l, flen_l = sn_slots[l], flen_slots[l]
         int_l = 1.0 - geom.cf_bnd[l].to(dtype)
-        w_l = geom.wqf[:, None] * flen_slots[l][None, :]
-        sn_l = sn_slots[l]
+        w_l = geom.wqf[:, None] * flen_l[None, :]
         coeff = (-c) * (0.5 * geom.cfsign[l] * sn_l - upw * torch.abs(sn_l)) * w_l * int_l
         onehot = (geom.cf_tab[l][None, :] == six).to(dtype)
         Ct = Ct + onehot[:, None, :] * coeff[None, :, :]
+        if not factored:
+            n_l = nrm_slots[l]
+            pen_l = c * alpha * hfi_slots[l] * flen_l
+            nn_l = n_l[:, None, :] * n_l[None, :, :]
+            NNt = NNt + onehot[:, None, None, :] * (pen_l * nn_l)[None]
     S_own = (S_own + torch.einsum("tijq,tqc->ijc", Gt, Ct)).contiguous()
+
+    # scalar cross blocks
+    U0 = geom.tphi1[geom.ftab[0]]  # (nf, nqf, d1)
+    U1 = geom.tphi1[geom.ftab[1]]
+    msk = interior_mask(geom, 1)
+    wf = geom.wqf[:, None] * geom.flen[None, :]
+    s01 = (-c) * (-0.5 * snq + upw * torch.abs(snq)) * wf * msk[None, :]
+    s10 = (-c) * (0.5 * snq + upw * torch.abs(snq)) * wf * msk[None, :]
+    K01s = torch.einsum("fqi,fqj,qf->ijf", U0, U1, s01).contiguous()
+    K10s = torch.einsum("fqi,fqj,qf->ijf", U1, U0, s10).contiguous()
+    if factored:
+        return _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha)
+
+    # dense tables: D = I2 (x) Sown + sum_t Pt (x) NNt, Bx = I2 (x) Ks01 +
+    # penalty (n (x) n) (x) K01p, Cx likewise
+    nu = 2 * d1
+    D_bl = _kron2(S_own) + torch.einsum("tij,tabc->aibjc", Pt, NNt).reshape(nu, nu, -1)
+    Dinv_bl = gauss_jordan_inv_bl(D_bl)
+    penf = (-c) * alpha * geom.hF_inv * msk
+    nnf = geom.normal[:, None, :] * geom.normal[None, :, :]
+    K01p = torch.einsum("fqi,fqj,qf->ijf", U0, U1, wf) * penf
+    K10p = torch.einsum("fqi,fqj,qf->ijf", U1, U0, wf) * penf
+    Bx = _kron2(K01s) + torch.einsum("abf,ijf->aibjf", nnf, K01p).reshape(nu, nu, -1)
+    Cx = _kron2(K10s) + torch.einsum("abf,ijf->aibjf", nnf, K10p).reshape(nu, nu, -1)
+    # patch Schur factors of every facet; identity blocks on the boundary
+    Dinv0 = Dinv_bl[:, :, geom.fcells[0]]
+    Sc = D_bl[:, :, geom.fcells[1]] - _bmm(Cx, _bmm(Dinv0, Bx))
+    eye = torch.eye(nu, dtype=dtype, device=dev)[:, :, None]
+    Sc = torch.where(msk[None, None, :] > 0, Sc, eye)
+    return TentativeOperator(Dinv=Dinv_bl, Sinv=gauss_jordan_inv_bl(Sc), Dinv0=Dinv0,
+                             D=D_bl, Bx=Bx, Cx=Cx)
+
+
+def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha):
+    """The factored tables of a uniform structured mesh and their Schwarz
+    factors, colour by colour (K4 on each colour's Schur blocks)."""
+    d1 = geom.d1
+    nu = 2 * d1
+    nf = geom.n_facets
+    dtype, dev = S_own.dtype, S_own.device
 
     # own-cell penalty: a constant per cell half (congruent facets)
     Pcell = []
     for h in (0, 1):
-        Ph = star_bl.new_zeros((2, d1, 2, d1))
+        Ph = S_own.new_zeros((2, d1, 2, d1))
         for (t, _ln, nx_, ny_) in geom.uniform[1][h]:
             nvec = torch.tensor([nx_, ny_], dtype=dtype, device=dev)
             nn = nvec[:, None] * nvec[None, :]
@@ -335,15 +399,8 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
     D_bl[:, :, nch:] += Pcell[1][:, :, None]
     Dinv_bl = gauss_jordan_inv_bl(D_bl)
 
-    # scalar cross blocks and per-colour constant cross penalties
-    U0 = geom.tphi1[geom.ftab[0]]  # (nf, nqf, d1)
-    U1 = geom.tphi1[geom.ftab[1]]
-    msk = interior_mask(geom, 1)
-    wf = geom.wqf[:, None] * geom.flen[None, :]
-    s01 = (-c) * (-0.5 * snq + upw * torch.abs(snq)) * wf * msk[None, :]
-    s10 = (-c) * (0.5 * snq + upw * torch.abs(snq)) * wf * msk[None, :]
-    K01s = pad_table(torch.einsum("fqi,fqj,qf->ijf", U0, U1, s01).contiguous())
-    K10s = pad_table(torch.einsum("fqi,fqj,qf->ijf", U1, U0, s10).contiguous())
+    # per-colour constant cross penalties
+    K01s, K10s = pad_table(K01s), pad_table(K10s)
     Bp, Cp = [], []
     for (t0, t1, _ln, nx_, ny_) in geom.uniform[0]:
         PM = torch.einsum("q,qi,qj->ij", geom.wqf, geom.tphi1[t0], geom.tphi1[t1])
@@ -367,8 +424,7 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
         Dinv0_parts.append(Dinv0_k)
         Bx_k = _kron2(K01s[:, :, b0:b1]) + Bp[k][:, :, None]
         Cx_k = _kron2(K10s[:, :, b0:b1]) + Cp[k][:, :, None]
-        Sc = D1 - torch.einsum("ikf,kjf->ijf", Cx_k,
-                               torch.einsum("ikf,kjf->ijf", Dinv0_k, Bx_k))
+        Sc = D1 - _bmm(Cx_k, _bmm(Dinv0_k, Bx_k))
         Sinv_parts.append(gauss_jordan_inv_bl(Sc))
     nbnd = nf - geom.n_int
     if nbnd:
@@ -389,8 +445,11 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
 
 
 def dense_blocks(geom, op):
-    """Dense (D (nu, nu, nc), Bx (nu, nu, nf), Cx) tables of a factored
-    operator (test helper; the hot paths never materialise them)."""
+    """Dense (D (nu, nu, nc), Bx (nu, nu, nf), Cx) tables of an operator:
+    its own on a dense one, expanded from a factored one (test helper; the
+    factored hot paths never materialise them)."""
+    if op.Sown is None:
+        return op.D, op.Bx, op.Cx
     nch = geom.shift[0] * geom.shift[1]
     D = _kron2(op.Sown)
     D[:, :, :nch] += op.Pcell[0][:, :, None]
@@ -425,12 +484,24 @@ def _cross_pair_color(geom, op, k, x0, x1):
                       (0, x0.shape[1]), x0, x1, aoff=b0)
 
 
+def _gather_sides_bl(geom, ub):
+    """Plus and minus cell columns of a (nu, nc) field at every facet, the
+    minus side zero on boundary facets: two (nu, nf) moves."""
+    if geom.shift is not None:
+        return st.gather_plus(geom, ub), st.gather_minus(geom, ub)
+    return ub[:, geom.fcells[0]], ub[:, geom.fcells[1]] * interior_mask(geom, 2)
+
+
 def _matvec_bl(geom, op, ub):
     """Assembled operator on a component-major (nu, nc) field."""
-    nch = geom.shift[0] * geom.shift[1]
-    r = fact_apply(op.Sown, op.Pcell, (0, nch, geom.n_cells), ub)
-    z0, z1 = _cross_pair_full(geom, op, st.gather_plus(geom, ub), st.gather_minus(geom, ub))
-    return r + st.scatter_sides_sum(geom, z0, z1 * interior_mask(geom, 2))
+    u0, u1 = _gather_sides_bl(geom, ub)
+    if op.Sown is None:
+        r, z0, z1 = _bm(op.D, ub), _bm(op.Bx, u1), _bm(op.Cx, u0)
+    else:
+        nch = geom.shift[0] * geom.shift[1]
+        r = fact_apply(op.Sown, op.Pcell, (0, nch, geom.n_cells), ub)
+        z0, z1 = _cross_pair_full(geom, op, u0, u1)
+    return r + gather_facet_contribs(geom, z0, z1 * interior_mask(geom, 2))
 
 
 def tentative_operator_matvec(geom, op, u):
@@ -452,6 +523,58 @@ def _patch_color_structured(geom, op, k, rb):
     z_lo = st.rect_pad(geom, y0, rect)
     z_up = st.roll2(geom, st.rect_pad(geom, y1, rect), (-off[0], -off[1]))
     return st.grid_join(geom, z_lo, z_up)
+
+
+def _patch_color(geom, op, k, rb):
+    """Exact solves of colour k's facet-pair patches on dense tables, moved
+    by index gathers: (nu, nc) residual -> (nu, nc), zero on cells without
+    a colour-k facet."""
+    b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
+    r0 = rb[:, geom.fcells[0, b0:b1]]
+    r1 = rb[:, geom.fcells[1, b0:b1]]
+    Dinv0 = op.Dinv0[:, :, b0:b1]
+    t = r1 - _bm(op.Cx[:, :, b0:b1], _bm(Dinv0, r0))
+    y1 = _bm(op.Sinv[:, :, b0:b1], t)
+    y0 = _bm(Dinv0, r0 - _bm(op.Bx[:, :, b0:b1], y1))
+    ycat = torch.cat([y0, y1], dim=1)
+    idx = geom.fcol_pos[k] + geom.fcol_side[k] * (b1 - b0)
+    return ycat[:, idx] * geom.fcol_mask[k][None, :]
+
+
+def _colored_apply_bl(geom, op, rb, symmetric=False):
+    """Multiplicative colored sweep on a (nu, nc) residual, with one full
+    matvec between colours; ``symmetric`` sweeps back through the colours.
+    Cells without an interior facet get their own-cell inverse."""
+    ncol = len(geom.fcol_bounds) - 1
+    patch = _patch_color_structured if geom.shift is not None else _patch_color
+    z = patch(geom, op, 0, rb)
+    if geom.fcol_orphans:
+        orphan = (torch.sum(geom.fcol_mask, dim=0) == 0.0).to(rb.dtype)
+        z = z + _bm(op.Dinv, rb) * orphan[None, :]
+    order = list(range(1, ncol))
+    if symmetric:
+        order += list(range(ncol - 2, -1, -1))
+    for k in order:
+        z = z + patch(geom, op, k, rb - _matvec_bl(geom, op, z))
+    return z
+
+
+def _patch_apply_bl(geom, op, rb):
+    """Additive facet-pair Schwarz on a (nu, nc) residual: every interior
+    facet's exact patch solve, summed into its cells with weight 1/3 (each
+    cell lies in three patches)."""
+    msk = interior_mask(geom, 2)
+    r0, r1 = _gather_sides_bl(geom, rb)
+    if op.Sown is None:
+        t = r1 - _bm(op.Cx, _bm(op.Dinv0, r0))
+        y1 = _bm(op.Sinv, t) * msk
+        y0 = _bm(op.Dinv0, r0 - _bm(op.Bx, y1))
+    else:
+        b = geom.fcol_bounds
+        t = r1 - fact_apply(op.Ks10, op.Cp, b, _bm(op.Dinv0, r0)) * msk
+        y1 = _bm(op.Sinv, t) * msk
+        y0 = _bm(op.Dinv0, r0 - fact_apply(op.Ks01, op.Bp, b, y1))
+    return gather_facet_contribs(geom, y0, y1) / 3.0
 
 
 def _color_cov(geom, k):

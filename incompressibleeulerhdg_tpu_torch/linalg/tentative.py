@@ -1,18 +1,28 @@
 """Tentative (advective) velocity solve.
 
 Counterpart of incompressibleeulerhdg_tpu/linalg/tentative.py in its default
-fused mode: right-preconditioned flexible GMRES whose preconditioner is one
-symmetric multiplicative colored facet-pair Schwarz sweep returning ``M v``
-together with the exact ``A M v`` (one sweep + one matvec per Arnoldi
-step).  The operator is
+mode.  The operator is
 
     a(u, w) = (w, u) - c * f_impl(w, u, Q*),    c = a_ii * dt
+
+On a structured mesh whose cells all carry an interior facet: right-
+preconditioned flexible GMRES whose preconditioner is one symmetric
+multiplicative colored facet-pair Schwarz sweep returning ``M v`` together
+with the exact ``A M v`` (one sweep + one matvec per Arnoldi step).  On any
+other mesh (the unit disk): left-preconditioned GMRES with one symmetric
+colored sweep, a full matvec between colours (the JAX package's selection,
+tentative.py:94-101).
 """
 
 from ..ops.fields import mass_apply
 from ..ops.forms import f_impl_apply
-from .krylov import gmres_right
-from .preconditioners import _matvec_bl, _colored_apply_fused_bl
+from .krylov import gmres, gmres_right
+from .preconditioners import (
+    _matvec_bl,
+    _colored_apply_bl,
+    _colored_apply_fused_bl,
+    _patch_apply_bl,
+)
 
 __all__ = ["tentative_matvec", "tentative_solve"]
 
@@ -25,18 +35,29 @@ def tentative_matvec(geom, star, u, c, alpha=1.0, upwind=True):
 
 def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200):
     """Solve (M - c f_impl) u = rhs with the stage's assembled
-    :class:`TentativeOperator` ``op``, preconditioned by one symmetric
-    colored sweep.  Returns (u (2, d1, nc), iters, relres)."""
+    :class:`TentativeOperator` ``op``.  Returns (u (2, d1, nc), iters, relres)."""
     shape = rhs.shape
     nu, nc = shape[0] * shape[1], shape[2]
 
     def matvec(v):
         return _matvec_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
 
-    def opM(v):
-        z, Az = _colored_apply_fused_bl(geom, op, v.reshape(nu, nc))
-        return z.reshape(-1), Az.reshape(-1)
+    if geom.shift is not None and not geom.fcol_orphans:
+        def opM(v):
+            z, Az = _colored_apply_fused_bl(geom, op, v.reshape(nu, nc))
+            return z.reshape(-1), Az.reshape(-1)
 
-    u, iters, relres = gmres_right(opM, matvec, rhs.reshape(-1), rtol=rtol,
-                                   restart=restart, maxiter=maxiter)
+        u, iters, relres = gmres_right(opM, matvec, rhs.reshape(-1), rtol=rtol,
+                                       restart=restart, maxiter=maxiter)
+        return u.reshape(shape), iters, relres
+
+    if geom.fcol_pos is not None:
+        def M(v):
+            return _colored_apply_bl(geom, op, v.reshape(nu, nc), symmetric=True).reshape(-1)
+    else:
+        def M(v):
+            return _patch_apply_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
+
+    u, iters, relres = gmres(matvec, rhs.reshape(-1), M=M, rtol=rtol, restart=restart,
+                             maxiter=maxiter)
     return u.reshape(shape), iters, relres

@@ -1,17 +1,25 @@
 """Batched field evaluation primitives shared by all weak-form operators.
 
-Counterpart of incompressibleeulerhdg_tpu/ops/fields.py, structured-mesh
-subset.  Fields are batch-last: scalar ``(d, nc)``, vector ``(2, d, nc)``,
-trace ``(nt, nf)``; quadrature values ``([2,] nq, nc)`` / ``([2,] nqf, nf)``.
-Per-facet trace tables are the 6 reference tables indexed by each facet's
-orientation code ``ftab`` (2 * local facet + flip).
+Counterpart of incompressibleeulerhdg_tpu/ops/fields.py.  Fields are
+batch-last: scalar ``(d, nc)``, vector ``(2, d, nc)``, trace ``(nt, nf)``;
+quadrature values ``([2,] nq, nc)`` / ``([2,] nqf, nf)``.  Per-facet trace
+tables are the 6 reference tables indexed by each facet's orientation code
+``ftab`` (2 * local facet + flip).
+
+Facet<->cell moves take one of two branches: on a structured mesh
+(``geom.shift``) the slices and rolls of ``ops/structured.py``; on any other
+mesh (the unit disk) index gathers through ``fcells`` and ``cfassemble``,
+as the JAX package's gather branches.
 """
 
 import torch
 
-from .structured import gather_plus, gather_minus, scatter_sides_sum
+from .structured import gather_plus, gather_minus, scatter_sides_sum, slot_gather
 
 __all__ = [
+    "gather_side",
+    "gather_facet_contribs",
+    "slot_values",
     "cell_values",
     "cell_grads",
     "cell_div",
@@ -52,16 +60,44 @@ def cell_div(geom, u):
     return g[0, 0] + g[1, 1]
 
 
+def gather_side(geom, u, side):
+    """Cell values of each facet's plus (side 0) or minus (side 1) cell:
+    (..., nc) -> (..., nf).  On boundary facets the minus values are zero
+    on a structured mesh and cell 0's on a gathered one; callers mask them."""
+    if geom.shift is not None:
+        return gather_plus(geom, u) if side == 0 else gather_minus(geom, u)
+    return u[..., geom.fcells[side]]
+
+
+def gather_facet_contribs(geom, c0, c1):
+    """Accumulate per-facet contributions into cells: c0 targets each
+    facet's plus cell, c1 its minus cell, (..., nf) each -> (..., nc).  The
+    gather branch reads three entries per cell from the side-concatenated
+    array (every cell has three facets), so no scatter is needed."""
+    if geom.shift is not None:
+        return scatter_sides_sum(geom, c0, c1)
+    zcat = torch.cat([c0, c1], dim=-1)
+    return sum(zcat[..., geom.cfassemble[l]] for l in range(3))
+
+
+def slot_values(geom, gf):
+    """Facet values per local cell slot: (..., nf) -> 3-list of (..., nc),
+    slot l of cell c holding ``gf[..., cell_facets[l, c]]``."""
+    if geom.shift is not None:
+        return slot_gather(geom, gf)
+    return [gf[..., geom.cell_facets[l]] for l in range(3)]
+
+
 def _eval_side(geom, tphi, u, side):
     """Trace of a DG field on one facet side: (..., nqf, nf)."""
-    ug = gather_plus(geom, u) if side == 0 else gather_minus(geom, u)
+    ug = gather_side(geom, u, side)
     U = tphi[geom.ftab[side]]  # (nf, nqf, nd)
     return torch.einsum("fqi,...if->...qf", U, ug)
 
 
 def facet_traces(geom, tphi, u):
     """Both-side traces at facet quadrature points, each (..., nqf, nf); the
-    minus trace is zero on boundary facets (mask with :func:`interior_mask`)."""
+    minus trace on boundary facets is not data (mask with :func:`interior_mask`)."""
     return _eval_side(geom, tphi, u, 0), _eval_side(geom, tphi, u, 1)
 
 
@@ -94,7 +130,7 @@ def scatter_facets(geom, tphi, g0, g1):
     trace; g1 is masked to interior facets."""
     c0 = _adjoint_side(geom, tphi, g0, 0)
     c1 = _adjoint_side(geom, tphi, g1 * interior_mask(geom, g1.ndim), 1)
-    return scatter_sides_sum(geom, c0, c1)
+    return gather_facet_contribs(geom, c0, c1)
 
 
 def facet_integrate_trace(geom, integrand):

@@ -13,8 +13,7 @@ import numpy as np
 import torch
 
 from ..fem.lagrange import shifted_legendre
-from .fields import cell_values, facet_traces, interior_mask
-from .structured import slot_gather
+from .fields import cell_values, facet_traces, interior_mask, slot_values
 
 __all__ = [
     "BDMProjection",
@@ -22,6 +21,7 @@ __all__ = [
     "project_bdm",
     "cell_geometry_classes",
     "amajor_perm",
+    "apply_class_blocks",
 ]
 
 
@@ -125,9 +125,17 @@ def build_bdm_projection(disc):
     )
 
 
+CLASS_LOOP_MAX = 16  # the JAX package's switch (projection.py:210, condense.py:238)
+
+
 def apply_class_blocks(tables, class_id, x):
-    """y[:, c] = tables[class_id[c]] @ x[:, c]: one (m, n) x (n, nc) product
-    per geometry class, selected by class id."""
+    """y[:, c] = tables[class_id[c]] @ x[:, c].  Up to ``CLASS_LOOP_MAX``
+    geometry classes (the structured meshes): one (m, n) x (n, nc) product
+    per class, selected by class id.  Above it (the unit disk, thousands of
+    classes) the per-class products would cost O(ncls * nc): gather each
+    cell's block and contract once."""
+    if tables.shape[0] > CLASS_LOOP_MAX:
+        return torch.einsum("cij,jc->ic", tables[class_id], x)
     out = x.new_zeros((tables.shape[1], x.shape[1]))
     for k in range(tables.shape[0]):
         out = torch.where((class_id == k)[None, :], tables[k] @ x, out)
@@ -159,7 +167,7 @@ def project_bdm(geom, proj, Q):
         im = Q.new_zeros((0, geom.n_cells))
 
     # (3) per-cell dofs (sign-corrected to the outward normal), reconstruct
-    mf_cell = [s * geom.cfsign[l][None, :] for l, s in enumerate(slot_gather(geom, m_f))]
+    mf_cell = [s * geom.cfsign[l][None, :] for l, s in enumerate(slot_values(geom, m_f))]
     dofs = torch.cat(mf_cell + [im], dim=0)
     sol = apply_class_blocks(proj.recon, proj.class_id, dofs)
     return sol.reshape(2, d1, geom.n_cells)

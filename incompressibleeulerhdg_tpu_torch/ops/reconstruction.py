@@ -11,7 +11,6 @@ import torch
 
 from . import fields as F
 from .forms import weak_divergence_values
-from .structured import gather_plus, gather_minus
 
 __all__ = ["pressure_reconstruction_rhs", "facet_grad_traces"]
 
@@ -21,9 +20,9 @@ def facet_grad_traces(geom, u):
     (g_plus, g_minus), each (..., 2, nqf, nf) with the derivative direction
     before nqf."""
     out = []
-    for side, gather in ((0, gather_plus), (1, gather_minus)):
-        ug = gather(geom, u)  # (..., d1, nf)
-        jinv = gather(geom, geom.jac_inv)  # (2=b, 2=a, nf)
+    for side in (0, 1):
+        ug = F.gather_side(geom, u, side)  # (..., d1, nf)
+        jinv = F.gather_side(geom, geom.jac_inv, side)  # (2=b, 2=a, nf)
         U = geom.tgphi1[geom.ftab[side]]  # (nf, nqf, d1, 2)
         gref = torch.einsum("fqib,...if->...bqf", U, ug)
         out.append(torch.stack(

@@ -114,8 +114,6 @@ def test_warmup_takes_one_step(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--problem", "shear"],
-    ["--problem", "kelvinhelmholtz"],
     ["--discretisation", "dg", "--timestepper", "implicit"],
     ["--discretisation", "conforming", "--timestepper", "implicit"],
     ["--tracer_advection"],

@@ -550,6 +550,94 @@ def test_cuda_operator_tables_padded(cuda):
         assert _rel(b, a) <= 1e-11
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_gauss_jordan_identity_blocks(cuda, dtype):
+    """K4 on one batch that mixes identity blocks (pivots of exactly 1, the
+    boundary facets of the disk's Schur batch) with blocks whose pivots span
+    three decades, S (I + 0.05 R) S with S = diag(10^-1.5 .. 1) (the disk's
+    blocks are mass-scaled like this), against its plain version."""
+    g = torch.Generator().manual_seed(21)
+    n, m = 20, 2 * 777
+    S = torch.logspace(-1.5, 0, n, dtype=dtype)
+    A = S[:, None, None] * (torch.eye(n, dtype=dtype)[:, :, None]
+                            + 0.05 * torch.randn(n, n, m, generator=g, dtype=dtype)) * S[None, :, None]
+    A[:, :, ::3] = torch.eye(n, dtype=dtype)[:, :, None]
+    A = A.to(cuda)
+    kernels.reset_launches()
+    got, ref = TI.gauss_jordan_inv_bl(A), TI.gauss_jordan_inv_plain(A)
+    assert kernels.LAUNCHES["gauss_jordan"] == 1
+    assert torch.equal(got[:, :, ::3], A[:, :, ::3])
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    assert _rel(got, ref) <= tol
+
+
+def _build_on(dev, mesh, k, dtype, seed):
+    from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
+    from incompressibleeulerhdg_tpu_torch.ops.forms import star_fields
+
+    disc = HDGDiscretisation(mesh, k, dtype=dtype, device=dev)
+    geom = disc.geom
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.standard_normal((2, geom.d1, geom.n_cells)), dtype=dtype, device=dev)
+    v = torch.as_tensor(rng.standard_normal((2 * geom.d1, geom.n_cells)), dtype=dtype, device=dev)
+    kernels.reset_launches()
+    op = TP.build_tentative_operator(geom, star_fields(geom, u), 0.01)
+    return geom, op, v, dict(kernels.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_cuda_periodic_path(cuda):
+    """The wrapped 8^2, k = 2 mesh on the card: three colours of 64 facets
+    at offsets 0, 64 and 128 and no tail; the operator build (K4), the fused
+    sweep (K1-K3) and the multiplicative sweep match the CPU in float64."""
+    from incompressibleeulerhdg_tpu_torch.mesh import periodic_square_mesh
+
+    mesh = periodic_square_mesh(8)
+    out = []
+    for dev in ("cpu", cuda):
+        geom, op, v, built = _build_on(dev, mesh, 2, torch.float64, 13)
+        assert geom.fcol_bounds == (0, 64, 128, 192) and geom.n_int == geom.n_facets
+        kernels.reset_launches()
+        res = [*TP._colored_apply_fused_bl(geom, op, v), TP._matvec_bl(geom, op, v),
+               TP._colored_apply_bl(geom, op, v, symmetric=True), op.Sinv, op.Dinv0]
+        out.append([a.cpu() for a in res])
+        if dev != "cpu":
+            assert built["gauss_jordan"] == 4  # own cells, then one per colour
+            assert all(kernels.LAUNCHES[n] > 0 for n in ("fact_apply", "cross_pair",
+                                                         "patch_solve"))
+    for a, b in zip(*out):
+        assert _rel(b, a) <= 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_disk_path(cuda, dtype):
+    """The unit disk (refinement 3, k = 2) on the card: the dense operator's
+    two inverses go to K4 (the Schur batch with its identity blocks), K1-K3
+    never launch, and the sweep and the tentative solve match the CPU."""
+    from incompressibleeulerhdg_tpu_torch.linalg.tentative import tentative_solve
+    from incompressibleeulerhdg_tpu_torch.mesh import unit_disk_mesh
+
+    mesh = unit_disk_mesh(3)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    out = []
+    for dev in ("cpu", cuda):
+        geom, op, v, built = _build_on(dev, mesh, 2, dtype, 14)
+        kernels.reset_launches()
+        z = TP._colored_apply_bl(geom, op, v, symmetric=True)
+        u, its, _ = tentative_solve(geom, op, v.reshape(2, geom.d1, -1), rtol=1e-6, restart=28)
+        out.append(([a.cpu() for a in (op.Dinv, op.Sinv, z, u)], its))
+        if dev != "cpu":
+            assert built["gauss_jordan"] == 2
+            assert sum(kernels.LAUNCHES[n] for n in ("fact_apply", "cross_pair",
+                                                     "patch_solve")) == 0
+    (cpu, its_cpu), (card, its_card) = out
+    for a, b in zip(card, cpu):
+        assert _rel(a, b) <= tol
+    assert its_card == its_cpu > 0
+
+
 def test_pad_table_layout():
     """pad_table: 16-byte rows, same values, the plain versions read the view;
     an aligned contiguous table comes back as it is."""
@@ -605,7 +693,8 @@ def test_operator_tables_padded_on_cpu():
     assert geom.n_facets % 4
     ld = kernels.table_ld("t", op.Dinv0, op.Sinv, op.Ks01, op.Ks10)
     assert ld == kernels.padded_ld(geom.n_facets, torch.float32) > geom.n_facets
-    dense = TP.TentativeOperator(**{f: getattr(op, f).contiguous() for f in op.__dataclass_fields__})
+    dense = TP.TentativeOperator(**{f: getattr(op, f).contiguous() for f in op.__dataclass_fields__
+                                    if getattr(op, f) is not None})
     v = torch.as_tensor(rng.standard_normal((2 * geom.d1, geom.n_cells)), dtype=torch.float32)
     for a, b in zip(TP._colored_apply_fused_bl(geom, op, v), TP._colored_apply_fused_bl(geom, dense, v)):
         assert torch.equal(a, b)

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's numpy modules equal the
-originals on the same inputs: the unit-square mesh (C++ kernel and numpy
-plain version, colourings included), the IMEX tableaus, the quadrature rules,
+originals on the same inputs: the unit-square, periodic-square and unit-disk
+meshes (C++ kernel and numpy plain version, colourings included), the shear
+problem's Fourier coefficients, the IMEX tableaus, the quadrature rules,
 Lagrange bases and space tabulations, and the checkpoint format."""
 
 import dataclasses
@@ -13,12 +14,14 @@ from incompressibleeulerhdg_tpu.fem import lagrange as JL
 from incompressibleeulerhdg_tpu.fem import quadrature as JQ
 from incompressibleeulerhdg_tpu.fem import spaces as JS
 from incompressibleeulerhdg_tpu.mesh import triangle_mesh as JTM
+from incompressibleeulerhdg_tpu.mesh import generators as JG
 from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh as j_unit_square
 from incompressibleeulerhdg_tpu.timesteppers import tableaus as JT
 from incompressibleeulerhdg_tpu.utils import checkpoint as JC
 from incompressibleeulerhdg_tpu_torch.fem import lagrange as TL
 from incompressibleeulerhdg_tpu_torch.fem import quadrature as TQ
 from incompressibleeulerhdg_tpu_torch.fem import spaces as TS
+from incompressibleeulerhdg_tpu_torch.mesh import generators as TG
 from incompressibleeulerhdg_tpu_torch.mesh import native as TN
 from incompressibleeulerhdg_tpu_torch.mesh import triangle_mesh as TTM
 from incompressibleeulerhdg_tpu_torch.mesh import unit_square_mesh as t_unit_square
@@ -49,6 +52,42 @@ def test_unit_square_mesh_equals_jax(nx, native):
     tc, tn = TTM.color_cells(tm, use_native=native)
     assert jn == tn
     np.testing.assert_array_equal(jc, tc)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("gen, arg", [("periodic_square_mesh", 6), ("periodic_square_mesh", 8),
+                                      ("unit_disk_mesh", 2), ("unit_disk_mesh", 3)])
+def test_periodic_and_disk_meshes_equal_jax(gen, arg, native):
+    """Arrays, colour bounds, shift and uniform specs (None on the disk) and
+    the cell colourings equal."""
+    jm = getattr(JG, gen)(arg)
+    tm = getattr(TG, gen)(arg, use_native=native)
+    for name in MESH_ARRAYS:
+        a, b = getattr(jm, name), getattr(tm, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    for name in MESH_META:
+        assert getattr(jm, name) == getattr(tm, name), name
+    assert (tm.shift_spec is None) == (gen == "unit_disk_mesh")
+    jc, jn = JTM.color_cells(jm)
+    tc, tn = TTM.color_cells(tm, use_native=native)
+    assert jn == tn
+    np.testing.assert_array_equal(jc, tc)
+
+
+def test_periodic_mesh_refuses_fewer_than_three_cells():
+    with pytest.raises(ValueError, match=">= 3"):
+        TG.periodic_square_mesh(2)
+
+
+def test_shear_fourier_coefficients_equal_jax():
+    """The 28 QUADPACK coefficients of the shear layer's initial pressure."""
+    from incompressibleeulerhdg_tpu.models.problems import DoubleLayerShearFlow as JShear
+    from incompressibleeulerhdg_tpu_torch.models.problems import DoubleLayerShearFlow as TShear
+
+    jc, tc = JShear(None)._coeffs, TShear(None).coeffs
+    assert tc.shape == (28,) and np.all(np.isfinite(tc))
+    np.testing.assert_array_equal(tc, jc)
 
 
 def test_mesh_kernel_builds_into_build_dir():
