@@ -21,12 +21,10 @@ Phases, each printing its own lines:
    blocks and its launch plan; a profiler session that records
    no device time is repeated, and after three such sessions the time is
    taken with CUDA events instead (the line names the timer);
-3b. the shapes of the periodic and disk paths: K1 on the periodic halves,
-   K2 and K3 on the periodic 256^2, k=2 colour layout (three colours of
-   65,536 facets, no boundary tail), and K4 on the real own-cell (20, 20,
-   98304) and Schur (20, 20, 147840, identity on the boundary) blocks of the
-   refinement-7 disk's first stage, float32 and float64, with times, bytes,
-   bounds and ``torch.linalg.inv`` on the disk blocks;
+3b. the shapes of the periodic path: K1 on the periodic halves, K2 and K3
+   on the periodic 256^2, k=2 colour layout (three colours of 65,536
+   facets, no boundary tail), float32 and float64, with times, bytes and
+   bounds;
 4. the main path: HDG IMEX SSP2(3,3,2), Richardson + projection, Taylor-Green
    vortex, 256^2 unit-square mesh, k=2, float32, dt = 1/256 -- set-up,
    initial trace, one warm-up step and three timed steps; validates
@@ -51,6 +49,11 @@ Phases, each printing its own lines:
    bounds ((e), (f): the kinetic energy ratio and, (f), the divergence
    bound of the JAX package's tests) and nonzero iteration counts, with
    set-up and s/step printed;
+6b. K4 on the blocks run (f) handed it: the own-cell (20, 20, 98304) and
+   Schur (20, 20, 147840, identity on the 768 boundary facets) batches of
+   its first stage build, recorded during the run, against its plain
+   version in float32 and float64, with times, bytes, bound and
+   ``torch.linalg.inv`` on the same blocks;
 7. the launch check: every kernel K1-K5 launched on some path.
 
 The JSON line before the card's name and power limit has one entry per
@@ -384,50 +387,33 @@ def compare_kernels(nx, degree):
     return results
 
 
-def disk_blocks():
-    """The own-cell blocks D (20, 20, 98304) and the patch Schur blocks Sc
-    (20, 20, 147840, identity on the 768 boundary facets) of the first SSP2
-    stage of the Kelvin-Helmholtz start on the refinement-7 disk, k = 2,
-    float32, built on the card as ``build_tentative_operator`` builds them."""
-    from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
+@contextlib.contextmanager
+def recording_k4_inputs(store, n=2):
+    """Within the block, the first ``n`` batches that the tentative
+    operator's build hands to the Gauss-Jordan inverse are cloned into
+    ``store`` (on the disk: the own-cell blocks, then the Schur blocks)."""
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
-    from incompressibleeulerhdg_tpu_torch.mesh import unit_disk_mesh
-    from incompressibleeulerhdg_tpu_torch.models.problems import KelvinHelmholtz
-    from incompressibleeulerhdg_tpu_torch.ops.fields import interior_mask
-    from incompressibleeulerhdg_tpu_torch.ops.forms import star_fields
-    from incompressibleeulerhdg_tpu_torch.ops.projection import build_bdm_projection, project_bdm
-    from incompressibleeulerhdg_tpu_torch.timesteppers.tableaus import TABLEAUS
 
-    t0 = time.perf_counter()
-    disc = HDGDiscretisation(unit_disk_mesh(DISK_REFINEMENT), DEGREE, dtype=torch.float32,
-                             device=torch.device("cuda:0"))
-    geom = disc.geom
-    Q0 = disc.interpolate_velocity(KelvinHelmholtz(disc).initial_condition()[0])
-    star = star_fields(geom, project_bdm(geom, build_bdm_projection(disc), Q0))
-    c = float(TABLEAUS["imex_ssp2_332"].a_impl[1][1]) / NX  # a_11 dt, dt = 1/256
-    op = P.build_tentative_operator(geom, star, c)
-    eye = torch.eye(op.D.shape[0], dtype=op.D.dtype, device=op.D.device)[:, :, None]
-    Sc = op.D[:, :, geom.fcells[1]] - P._bmm(op.Cx, P._bmm(op.Dinv0, op.Bx))
-    Sc = torch.where(interior_mask(geom, 1)[None, None, :] > 0, Sc, eye).contiguous()
-    torch.cuda.synchronize()
-    nbnd = geom.n_facets - geom.n_int
-    print(f"# disk refinement {DISK_REFINEMENT}, k={DEGREE}: {geom.n_cells} cells, "
-          f"{geom.n_facets} facets ({nbnd} on the boundary), colours {geom.fcol_bounds}; "
-          f"stage blocks built in {time.perf_counter() - t0:.1f} s", flush=True)
-    return op.D.contiguous(), Sc
+    real = P.gauss_jordan_inv_bl
+
+    def record(A):
+        if len(store) < n:
+            store.append(A.detach().clone())
+        return real(A)
+
+    P.gauss_jordan_inv_bl = record
+    try:
+        yield
+    finally:
+        P.gauss_jordan_inv_bl = real
 
 
-def compare_new_shapes():
+def compare_periodic_shapes():
     """Phase 3b: K1-K3 on the periodic 256^2, k = 2 layout (three colours
     of 65,536 facets at offsets 0, 65,536 and 131,072, no boundary tail,
-    196,608 table columns), and K4 on the disk's real own-cell and Schur
-    batches, against their plain versions in float32 and float64, with
-    device times, bytes and bounds (float32) and ``torch.linalg.inv`` on the
-    disk blocks.  The disk blocks are held per block (error relative to the
-    block's largest entry: their inverses reach 1e6)."""
+    196,608 table columns) against their plain versions in float32 and
+    float64, with device times, bytes and bounds (float32)."""
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
-    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
-    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
 
     m = NX * NX
     nc, nf, b = 2 * m, 3 * m, (0, m, 2 * m, 3 * m)
@@ -435,12 +421,11 @@ def compare_new_shapes():
     nu = 2 * d1
     rng = np.random.default_rng(2025)
     dev = torch.device("cuda:0")
-    holds = Holds("periodic / disk")
+    holds = Holds("periodic")
 
     def rnd(*shape, dtype):
         return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
 
-    D32, Sc32 = disk_blocks()
     for dtype in (torch.float64, torch.float32):
         A = rnd(d1, d1, nc, dtype=dtype)
         Pc = rnd(2, nu, nu, dtype=dtype)
@@ -469,41 +454,71 @@ def compare_new_shapes():
         for name, cases in pairs.items():
             for kern, plain in cases:
                 holds.check(name, dtype, kern(), plain())
-        D, Sc = D32.to(dtype), Sc32.to(dtype)
-        for G in (D, Sc):
-            # per block, float32 to K4's 5e-5 (blocks scaled to a unit largest entry)
-            holds.check("gauss_jordan", dtype, smallinv.gauss_jordan_inv_bl(G),
-                        smallinv.gauss_jordan_inv_plain(G), per_block=True,
-                        rel_tol=TOL_GJ_F32_ABS if dtype == torch.float32 else None)
         if dtype == torch.float32:
             t = holds.timed
             t("fact_apply", dtype, *pairs["fact_apply"][0], *work("fact_apply", dtype, d1, nc, 2),
               suffix="_periodic")
             t("cross_pair", dtype, *pairs["cross_pair"][0], *work("cross_pair", dtype, d1, nf, 3),
               suffix="_periodic")
-            t("cross_pair", dtype, *pairs["cross_pair"][3], *work("cross_pair", dtype, d1, m),
+            t("cross_pair", dtype, *pairs["cross_pair"][2], *work("cross_pair", dtype, d1, m),
               suffix="_periodic_color")
             t("patch_solve", dtype, *pairs["patch_solve"][2], *work("patch_solve", dtype, d1, m),
               suffix="_periodic")
-            gjr = holds.results["gauss_jordan"]
-            for key, G in (("_disk_own", D), ("_disk_schur", Sc)):
-                t("gauss_jordan", dtype, lambda G=G: smallinv.gauss_jordan_inv_bl(G),
-                  lambda G=G: smallinv.gauss_jordan_inv_plain(G),
-                  *work("gauss_jordan", dtype, d1, G.shape[2], n=nu), suffix=key)
-                gjr[f"library_ms{key}"] = device_time(
-                    lambda G=G: torch.linalg.inv(G.permute(2, 0, 1)))[0]
-                gjr[f"shape{key}"] = tuple(G.shape)
-        del A, Pc, xc, K01, K10, Di, Si, Bp, Cp, x0, x1, pairs, D, Sc
+        del A, Pc, xc, K01, K10, Di, Si, Bp, Cp, x0, x1, pairs
         torch.cuda.empty_cache()
 
     r = holds.results
-    for name, key, shape in (("fact_apply", "_periodic", f"({d1},{d1},{nc}), 2 halves"),
-                             ("cross_pair", "_periodic", f"2 x ({d1},{d1},{nf}), 3 colours, no tail"),
-                             ("cross_pair", "_periodic_color", f"one colour, {m} at offset {m}"),
-                             ("patch_solve", "_periodic", f"one colour, {m} at offset {2 * m}"),
-                             ("gauss_jordan", "_disk_own", str(r["gauss_jordan"]["shape_disk_own"])),
-                             ("gauss_jordan", "_disk_schur",
-                              str(r["gauss_jordan"]["shape_disk_schur"]))):
+    print_new_shapes(r, (("fact_apply", "_periodic", f"({d1},{d1},{nc}), 2 halves"),
+                         ("cross_pair", "_periodic", f"2 x ({d1},{d1},{nf}), 3 colours, no tail"),
+                         ("cross_pair", "_periodic_color", f"one colour, {m} at offset {m}"),
+                         ("patch_solve", "_periodic", f"one colour, {m} at offset {2 * m}")))
+    return r
+
+
+def compare_disk_blocks(blocks):
+    """Phase 6b: K4 on the own-cell and Schur batches that run (f)'s first
+    stage build handed it (float32), against its plain version in float32
+    and float64 (the same blocks, widened), with device times, bytes and
+    bounds (float32) and ``torch.linalg.inv`` on the same blocks.  Held per
+    block (error relative to the block's largest entry: the inverses of
+    these mass-scaled blocks reach 1e6)."""
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
+
+    own, schur = blocks
+    nu = own.shape[0]
+    eye = torch.eye(nu, dtype=schur.dtype, device=schur.device)[:, :, None]
+    n_eye = int((schur == eye).all(dim=1).all(dim=0).sum())
+    print(f"# disk refinement {DISK_REFINEMENT}, k={DEGREE}: run (f)'s first stage handed K4 "
+          f"own-cell blocks {tuple(own.shape)} and Schur blocks {tuple(schur.shape)} "
+          f"({n_eye} identity blocks)", flush=True)
+    if n_eye == 0 or schur.shape[2] <= own.shape[2]:
+        fail("run (f)'s second K4 batch is not the facet Schur batch with its boundary identities")
+    holds = Holds("disk")
+    for dtype in (torch.float64, torch.float32):
+        for G in (own.to(dtype), schur.to(dtype)):
+            # per block, float32 to K4's 5e-5 (blocks scaled to a unit largest entry)
+            holds.check("gauss_jordan", dtype, smallinv.gauss_jordan_inv_bl(G),
+                        smallinv.gauss_jordan_inv_plain(G), per_block=True,
+                        rel_tol=TOL_GJ_F32_ABS if dtype == torch.float32 else None)
+    gjr = holds.results["gauss_jordan"]
+    for key, G in (("_disk_own", own), ("_disk_schur", schur)):
+        holds.timed("gauss_jordan", torch.float32, lambda G=G: smallinv.gauss_jordan_inv_bl(G),
+                    lambda G=G: smallinv.gauss_jordan_inv_plain(G),
+                    *work("gauss_jordan", torch.float32, nu // 2, G.shape[2], n=nu), suffix=key)
+        gjr[f"library_ms{key}"] = device_time(lambda G=G: torch.linalg.inv(G.permute(2, 0, 1)))[0]
+        gjr[f"shape{key}"] = tuple(G.shape)
+    gjr["identity_blocks_disk_schur"] = n_eye
+    print_new_shapes(holds.results, (("gauss_jordan", "_disk_own", str(gjr["shape_disk_own"])),
+                                     ("gauss_jordan", "_disk_schur",
+                                      f"{gjr['shape_disk_schur']}, {n_eye} identity blocks")))
+    torch.cuda.empty_cache()
+    return holds.results
+
+
+def print_new_shapes(r, rows):
+    """One ``# kernel`` line per (name, suffix, shape) of ``rows``."""
+    for name, key, shape in rows:
         e = r[name]
         lib = (f" | torch.linalg.inv {e['library_ms' + key]:.4f} ms"
                if f"library_ms{key}" in e else "")
@@ -513,7 +528,6 @@ def compare_new_shapes():
               f"{e['bytes' + key] / 1e6:.1f} MB, bound {e['bound_ms' + key]:.4f} ms "
               f"({e['bound_by' + key]}), {pct_bound(e['bound_ms' + key], e['ms' + key], name):.1f}% "
               f"of bound{lib} (float32; timer {'/'.join(e['timers'])})", flush=True)
-    return r
 
 
 def ptxas_summary():
@@ -644,8 +658,10 @@ def main_path(card):
 
 
 def driver_runs():
-    """Phase 6: the port's CLI driver in-process, runs (a)-(d), each with
-    the launch counts zeroed just before it and read just after."""
+    """Phase 6: the port's CLI driver in-process, runs (a)-(f), each with
+    the launch counts zeroed just before it and read just after.  Returns
+    the launches by run and the first two batches run (f)'s tentative
+    operator build handed to K4 (own cells, then Schur blocks)."""
     from incompressibleeulerhdg_tpu_torch import kernels
     from incompressibleeulerhdg_tpu_torch.cli import driver
     from incompressibleeulerhdg_tpu_torch.utils.logging import PerformanceLog
@@ -670,6 +686,7 @@ def driver_runs():
           "--tfinal", 2 * dt, "--use_projection_method"]),
     ]
     launches = {}
+    disk_k4 = []
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)  # the driver writes solution.vtu
@@ -681,7 +698,8 @@ def driver_runs():
                 out = io.StringIO()
                 kernels.reset_launches()
                 t0 = time.perf_counter()
-                with contextlib.redirect_stdout(out):
+                record = recording_k4_inputs(disk_k4) if key == "f" else contextlib.nullcontext()
+                with contextlib.redirect_stdout(out), record:
                     res = driver.main(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
@@ -704,7 +722,7 @@ def driver_runs():
     if any(launches["f"][n] == 0 for n in DENSE_PATH_KERNELS) or \
             any(launches["f"][n] for n in MAIN_PATH_KERNELS if n not in DENSE_PATH_KERNELS):
         fail(f"run (f) on the disk must launch K4 only: {launches['f']}")
-    return launches
+    return launches, disk_k4
 
 
 def check_driver_run(key, label, vel_max, res, wall, timers, launches):
@@ -746,16 +764,11 @@ def check_flow_run(key, label, res, setup_s, steps, wall, counts, its, finite, l
     kinetic energy ratio E(T)/E(0) in its range, (f) the divergence bound,
     every Krylov solve > 0 iterations."""
     from incompressibleeulerhdg_tpu_torch.models import problems
-    from incompressibleeulerhdg_tpu_torch.ops import fields as F
+    from incompressibleeulerhdg_tpu_torch.utils.diagnostics import flow_diagnostics
 
-    stepper = res["timestepper"]
-    disc, geom = stepper.disc, stepper.geom
+    disc = res["timestepper"].disc
     problem = (problems.DoubleLayerShearFlow if key == "e" else problems.KelvinHelmholtz)(disc)
-    Q0 = disc.interpolate_velocity(problem.initial_condition()[0])
-    Q = res["Q"]
-    ratio = float(F.l2_norm_sq(geom, geom.phi1, Q) / F.l2_norm_sq(geom, geom.phi1, Q0))
-    divQ = F.mass_solve(geom, geom.m0inv, F.cell_integrate(geom, geom.phi0, F.cell_div(geom, Q)))
-    div = float(torch.sqrt(F.l2_norm_sq(geom, geom.phi0, divQ)))
+    ratio, div = flow_diagnostics(disc, problem, res["Q"])
     lo, hi = ENERGY_RANGE[key]
     per_step = {n: v / len(steps) for n, v in launches.items()}
     print(f"# driver run ({key}) {label}: setup {setup_s:.2f} s, "
@@ -787,14 +800,19 @@ def main():
     build_s = kernels.build_all()
     print(f"# kernel build: {build_s:.2f} s ({', '.join(kernels.KERNELS)})", flush=True)
     main_cmp = compare_kernels(NX, DEGREE)
-    new_cmp = compare_new_shapes()
+    new_cmp = compare_periodic_shapes()
     main_launches, launches_step = main_path(card)
     launches = {"main": main_launches}
     wide_cmp = compare_kernels(WIDE_NX, WIDE_DEGREE)
     spill = ptxas_summary()
     print(f"# ptxas: {spill} bytes of spill stores and loads over all instantiations", flush=True)
     ab = gauss_jordan_ab()
-    launches.update(driver_runs())
+    runs, disk_k4 = driver_runs()
+    launches.update(runs)
+    if len(disk_k4) != 2:
+        fail(f"run (f) handed K4 {len(disk_k4)} batches to record, not 2")
+    new_cmp.update(compare_disk_blocks(disk_k4))
+    del disk_k4
 
     rows = []
     for name in kernels.KERNELS:

@@ -544,37 +544,19 @@ def _patch_color(geom, op, k, rb):
 def _colored_apply_bl(geom, op, rb, symmetric=False):
     """Multiplicative colored sweep on a (nu, nc) residual, with one full
     matvec between colours; ``symmetric`` sweeps back through the colours.
-    Cells without an interior facet get their own-cell inverse."""
+    Needs every cell to carry an interior facet (true of every mesh the
+    port builds but the 1x1 square)."""
+    if geom.fcol_orphans:
+        raise ValueError("the colored sweep needs every cell to carry an interior facet")
     ncol = len(geom.fcol_bounds) - 1
     patch = _patch_color_structured if geom.shift is not None else _patch_color
     z = patch(geom, op, 0, rb)
-    if geom.fcol_orphans:
-        orphan = (torch.sum(geom.fcol_mask, dim=0) == 0.0).to(rb.dtype)
-        z = z + _bm(op.Dinv, rb) * orphan[None, :]
     order = list(range(1, ncol))
     if symmetric:
         order += list(range(ncol - 2, -1, -1))
     for k in order:
         z = z + patch(geom, op, k, rb - _matvec_bl(geom, op, z))
     return z
-
-
-def _patch_apply_bl(geom, op, rb):
-    """Additive facet-pair Schwarz on a (nu, nc) residual: every interior
-    facet's exact patch solve, summed into its cells with weight 1/3 (each
-    cell lies in three patches)."""
-    msk = interior_mask(geom, 2)
-    r0, r1 = _gather_sides_bl(geom, rb)
-    if op.Sown is None:
-        t = r1 - _bm(op.Cx, _bm(op.Dinv0, r0))
-        y1 = _bm(op.Sinv, t) * msk
-        y0 = _bm(op.Dinv0, r0 - _bm(op.Bx, y1))
-    else:
-        b = geom.fcol_bounds
-        t = r1 - fact_apply(op.Ks10, op.Cp, b, _bm(op.Dinv0, r0)) * msk
-        y1 = _bm(op.Sinv, t) * msk
-        y0 = _bm(op.Dinv0, r0 - fact_apply(op.Ks01, op.Bp, b, y1))
-    return gather_facet_contribs(geom, y0, y1) / 3.0
 
 
 def _color_cov(geom, k):

@@ -5,24 +5,20 @@ mode.  The operator is
 
     a(u, w) = (w, u) - c * f_impl(w, u, Q*),    c = a_ii * dt
 
-On a structured mesh whose cells all carry an interior facet: right-
-preconditioned flexible GMRES whose preconditioner is one symmetric
-multiplicative colored facet-pair Schwarz sweep returning ``M v`` together
-with the exact ``A M v`` (one sweep + one matvec per Arnoldi step).  On any
-other mesh (the unit disk): left-preconditioned GMRES with one symmetric
-colored sweep, a full matvec between colours (the JAX package's selection,
-tentative.py:94-101).
+On a structured mesh (square or periodic): right-preconditioned flexible
+GMRES whose preconditioner is one symmetric multiplicative colored
+facet-pair Schwarz sweep returning ``M v`` together with the exact ``A M v``
+(one sweep + one matvec per Arnoldi step).  On the unit disk: left-
+preconditioned GMRES with one symmetric colored sweep, a full matvec
+between colours (the JAX package's selection, tentative.py:94-101).  Both
+sweeps need every cell to carry an interior facet, which holds on every
+mesh the port builds but the 1x1 square; they raise otherwise.
 """
 
 from ..ops.fields import mass_apply
 from ..ops.forms import f_impl_apply
 from .krylov import gmres, gmres_right
-from .preconditioners import (
-    _matvec_bl,
-    _colored_apply_bl,
-    _colored_apply_fused_bl,
-    _patch_apply_bl,
-)
+from .preconditioners import _colored_apply_bl, _colored_apply_fused_bl, _matvec_bl
 
 __all__ = ["tentative_matvec", "tentative_solve"]
 
@@ -42,7 +38,7 @@ def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200):
     def matvec(v):
         return _matvec_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
 
-    if geom.shift is not None and not geom.fcol_orphans:
+    if geom.shift is not None:
         def opM(v):
             z, Az = _colored_apply_fused_bl(geom, op, v.reshape(nu, nc))
             return z.reshape(-1), Az.reshape(-1)
@@ -51,12 +47,8 @@ def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200):
                                        restart=restart, maxiter=maxiter)
         return u.reshape(shape), iters, relres
 
-    if geom.fcol_pos is not None:
-        def M(v):
-            return _colored_apply_bl(geom, op, v.reshape(nu, nc), symmetric=True).reshape(-1)
-    else:
-        def M(v):
-            return _patch_apply_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
+    def M(v):
+        return _colored_apply_bl(geom, op, v.reshape(nu, nc), symmetric=True).reshape(-1)
 
     u, iters, relres = gmres(matvec, rhs.reshape(-1), M=M, rtol=rtol, restart=restart,
                              maxiter=maxiter)

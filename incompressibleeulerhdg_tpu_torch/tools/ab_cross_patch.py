@@ -13,15 +13,23 @@ change, change, parent), in one call on one card.  It prints one JSON line:
   blocks of 128^2, k=4 and on one colour's 16256: ms per launch over 20
   launches after a warm-up (the tables exceed the 50 MB L2, or nearly, so
   every launch reads them from HBM), as device time from torch.profiler;
-- the main path (HDG IMEX SSP2, Taylor-Green, 256^2, k=2, float32, dt =
-  1/256): s/step over 3 steps after a warm-up step, each ended by
+- the main path (HDG IMEX SSP2, k=2, float32, dt = 1/256; Taylor-Green
+  on the 256^2 square, or with ``--problem`` the shear layer on the
+  periodic 256^2 square or Kelvin-Helmholtz on the unit disk at
+  ``--refinement``, built as the CLI driver builds them): set-up seconds,
+  s/step over 3 steps after a warm-up step, each ended by
   ``torch.cuda.synchronize()``, the iteration counts, launches a step, and
-  the device time per step of each kernel (and of all kernels) from
-  ``torch.profiler`` over one more step;
-- the same at 128^2, k=4 (chip_smoke.py's run (d), which runs K5), over
-  one step after a warm-up step (``wide_``).
+  from ``torch.profiler`` over one more step the device time of each kernel
+  and of all kernels, the device busy share and the PyTorch operators with
+  the most device time;
+- the same for Taylor-Green at 128^2, k=4 (chip_smoke.py's run (d), which
+  runs K5), over one step after a warm-up step (``wide_``).
+
+The tree must have ``cli.driver.make_mesh`` (any tree that runs the shear
+layer and the disk).
 
 Usage:  python incompressibleeulerhdg_tpu_torch/tools/ab_cross_patch.py --root DIR [--label L]
+            [--problem taylorgreen|shear|kelvinhelmholtz] [--refinement R]
 """
 
 import argparse
@@ -34,6 +42,7 @@ import torch
 
 NX, DEGREE, REPS, STEPS = 256, 2, 20, 3
 WIDE_NX, WIDE_DEGREE = 128, 4
+DISK_REFINEMENT = 7
 PROFILER_ATTEMPTS = 3
 # each kernel's symbol, as torch.profiler names its launches
 SYMBOLS = {name: f"{name}_kernel" for name in
@@ -149,46 +158,59 @@ def gauss_jordan_times(smallinv):
     return out
 
 
-def device_ms_by_kernel(fn):
-    """Device ms of each kernel K1-K5 and of all kernels during ``fn()``
-    (torch.profiler)."""
+def device_ms_by_kernel(fn, top=15):
+    """Device ms of each kernel K1-K5 and of all kernels during ``fn()``,
+    and the ``top`` PyTorch operators by device time (each with the kernels
+    it launches itself: name, ms, calls), from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     per = dict.fromkeys(SYMBOLS, 0.0)
-    total, n = 0.0, 0
+    total, n, ops = 0.0, 0, []
     for ev in prof.key_averages():
         us = _self_device_us(ev)
-        if ev.device_type != DeviceType.CUDA or us <= 0:
+        if us <= 0:
+            continue
+        if ev.device_type != DeviceType.CUDA:
+            ops.append((ev.key, us / 1e3, ev.count))
             continue
         total += us
         n += ev.count
         for name, sym in SYMBOLS.items():
             if sym in ev.key:
                 per[name] += us / 1e3
-    return {"kernel_device_ms": per, "device_ms": total / 1e3, "device_events": n}
+    ops.sort(key=lambda o: -o[1])
+    return {"kernel_device_ms": per, "device_ms": total / 1e3, "device_events": n,
+            "top_device_ms": ops[:top]}
 
 
-def main_path(nx=NX, degree=DEGREE, steps=STEPS):
-    """HDG IMEX SSP2 + projection, Taylor-Green, nx^2, k = degree, float32,
-    dt = 1/256: one warm-up step, ``steps`` timed steps, one profiled step."""
+def main_path(nx=NX, degree=DEGREE, steps=STEPS, problem="taylorgreen", refinement=DISK_REFINEMENT):
+    """HDG IMEX SSP2 + projection on ``problem``'s mesh as the CLI driver
+    builds it (nx^2, or the unit disk at ``refinement``), k = degree,
+    float32, dt = 1/256: set-up, one warm-up step, ``steps`` timed steps, one
+    profiled step; the device busy share is the profiled step's device time
+    over the mean timed step."""
     from incompressibleeulerhdg_tpu_torch import kernels
+    from incompressibleeulerhdg_tpu_torch.cli.driver import make_mesh, make_problem
     from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
-    from incompressibleeulerhdg_tpu_torch.mesh import unit_square_mesh
-    from incompressibleeulerhdg_tpu_torch.models.problems import TaylorGreen
     from incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex import (
         IncompressibleEulerHDGIMEXSSP2_332,
     )
 
     dt = 1.0 / NX
-    disc = HDGDiscretisation(unit_square_mesh(nx), degree, dtype=torch.float32, device="cuda")
+    args = argparse.Namespace(problem=problem, nx=nx, refinement=refinement, forcing="exponential",
+                              kappa=0.5)
+    t0 = time.perf_counter()
+    disc = HDGDiscretisation(make_mesh(args), degree, dtype=torch.float32, device="cuda")
     stepper = IncompressibleEulerHDGIMEXSSP2_332(disc, dt)
-    problem = TaylorGreen(disc)
-    f_rhs = problem.f_rhs()
-    state = stepper.initial_state(*problem.initial_condition())
+    model = make_problem(args, disc)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    f_rhs = model.f_rhs()
+    state = stepper.initial_state(*model.initial_condition())
     state = stepper.step(*state, 0.0, f_rhs)[:3]
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -200,16 +222,23 @@ def main_path(nx=NX, degree=DEGREE, steps=STEPS):
         times.append(time.perf_counter() - t0)
     launches = {n: v / steps for n, v in kernels.LAUNCHES.items()}
     prof = device_ms_by_kernel(lambda: stepper.step(*state, (steps + 1) * dt, f_rhs))
-    return {"s_per_step": sum(times) / steps, "steps_s": times,
+    per_step = sum(times) / steps
+    return {"problem": problem, "n_cells": disc.geom.n_cells, "setup_s": setup_s,
+            "s_per_step": per_step, "steps_s": times,
             "tentative": counts["tentative"], "pressure": counts["pressure"],
             "final": counts["final_pressure"], "recon": counts["reconstruction"],
-            "launches_per_step": launches, **prof}
+            "launches_per_step": launches, **prof,
+            "device_busy_share": prof["device_ms"] / 1e3 / per_step}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", required=True, help="tree whose port is measured")
     parser.add_argument("--label", default="")
+    parser.add_argument("--problem", choices=["taylorgreen", "shear", "kelvinhelmholtz"],
+                        default="taylorgreen", help="the main path's problem and mesh")
+    parser.add_argument("--refinement", type=int, default=DISK_REFINEMENT,
+                        help="unit-disk refinement of --problem kelvinhelmholtz")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("ab_cross_patch: needs a CUDA card (torch.cuda.is_available() is False)")
@@ -224,7 +253,8 @@ def main(argv=None):
     build_s = kernels.build_all()
     wide = main_path(WIDE_NX, WIDE_DEGREE, steps=1)
     res = {"label": args.label, "package": port.__file__, "build_s": build_s,
-           **kernel_times(P), **gauss_jordan_times(smallinv), **main_path(),
+           **kernel_times(P), **gauss_jordan_times(smallinv),
+           **main_path(problem=args.problem, refinement=args.refinement),
            **{f"wide_{k}": v for k, v in wide.items()}, "card": torch.cuda.get_device_name(0)}
     print(json.dumps(res), flush=True)
 

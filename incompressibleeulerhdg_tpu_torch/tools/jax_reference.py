@@ -7,13 +7,15 @@ and a checkpoint after the last step, then reads back:
 - the driver's averaged Krylov iteration counts and its timer table;
 - from the checkpoint (the file format both packages share), the final
   velocity, whose kinetic energy ratio E(T)/E(0) and divergence L2 norm are
-  computed with the port's own mesh and forms, as chip_smoke.py computes
+  computed by ``utils.diagnostics.flow_diagnostics`` on the port's own mesh
+  and forms, in the run's dtype on ``--device``, as chip_smoke.py computes
   them for the port's runs (e) and (f).
 
-It prints one JSON line.  On a CUDA host JAX uses the card (its Pallas
-kernels are TPU-only, so it runs its XLA fallbacks there);
-``XLA_PYTHON_CLIENT_PREALLOCATE=false`` keeps it from reserving the card's
-memory.
+It prints one JSON line.  With ``--device cuda`` (the default) JAX uses
+the card (its Pallas kernels are TPU-only, so it runs its XLA fallbacks
+there; ``XLA_PYTHON_CLIENT_PREALLOCATE=false`` keeps it from reserving the
+card's memory); with ``--device cpu`` both JAX and the diagnostics run on
+the CPU.
 
 Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.jax_reference \\
             --problem shear --nx 256 --degree 2 --dtype float32 --dt 0.00390625 --steps 2
@@ -30,18 +32,12 @@ import time
 
 import torch
 
-from ..cli.driver import make_mesh, make_problem
+from ..cli.driver import make_mesh, make_problem, select_device
 from ..fem.discretisation import HDGDiscretisation
-from ..ops import fields as F
 from ..utils.checkpoint import load_checkpoint
+from ..utils.diagnostics import averaged_counts, flow_diagnostics
 
-__all__ = ["run_reference", "averaged_counts", "flow_diagnostics"]
-
-
-def averaged_counts(out):
-    """The driver's "average number of solver iterations" block as a dict."""
-    return {m.group(1).strip(): float(m.group(2))
-            for m in re.finditer(r"^\s+(\w[\w ]*\w)\s+its\s+:\s+(\S+)$", out, re.M)}
+__all__ = ["run_reference", "reference_diagnostics"]
 
 
 def timer_table(out):
@@ -51,26 +47,26 @@ def timer_table(out):
     return {m.group(1): (int(m.group(2)), *(float(m.group(i)) for i in (3, 4, 5))) for m in rows}
 
 
-def flow_diagnostics(args, Q):
+def reference_diagnostics(args, Q):
     """(E(T)/E(0), divergence L2 norm) of a final velocity array ``Q``
-    (2, d1, nc) on the port's discretisation of the run's mesh, in float64
-    on the CPU."""
-    disc = HDGDiscretisation(make_mesh(args), args.degree, dtype=torch.float64, device="cpu")
-    geom = disc.geom
-    Q = torch.as_tensor(Q, dtype=torch.float64)
-    Q0 = disc.interpolate_velocity(make_problem(args, disc).initial_condition()[0])
-    ratio = float(F.l2_norm_sq(geom, geom.phi1, Q) / F.l2_norm_sq(geom, geom.phi1, Q0))
-    divQ = F.mass_solve(geom, geom.m0inv, F.cell_integrate(geom, geom.phi0, F.cell_div(geom, Q)))
-    return ratio, float(torch.sqrt(F.l2_norm_sq(geom, geom.phi0, divQ)))
+    (2, d1, nc) on the port's discretisation of the run's mesh, in the run's
+    dtype on ``args.device``."""
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    disc = HDGDiscretisation(make_mesh(args), args.degree, dtype=dtype,
+                             device=select_device(args.device))
+    return flow_diagnostics(disc, make_problem(args, disc), Q)
 
 
-def run_reference(args, extra_env=None):
-    """Run the JAX driver for ``args.steps`` steps; returns the result dict."""
+def run_reference(args):
+    """Run the JAX driver for ``args.steps`` steps on ``args.device``;
+    returns the result dict."""
     argv = ["--problem", args.problem, "--nx", str(args.nx), "--refinement", str(args.refinement),
             "--degree", str(args.degree), "--dtype", args.dtype, "--dt", repr(args.dt),
             "--tfinal", repr(args.steps * args.dt), "--use_projection_method",
             "--checkpoint_every", str(args.steps)]
-    env = dict(os.environ, XLA_PYTHON_CLIENT_PREALLOCATE="false", **(extra_env or {}))
+    env = dict(os.environ, XLA_PYTHON_CLIENT_PREALLOCATE="false")
+    if args.device == "cpu":
+        env["JAX_PLATFORMS"] = "cpu"
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     with tempfile.TemporaryDirectory() as tmp:
@@ -84,7 +80,7 @@ def run_reference(args, extra_env=None):
             raise RuntimeError(f"JAX driver failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
         state, t_ck, _ = load_checkpoint(ck)
     out = proc.stdout
-    ratio, div = flow_diagnostics(args, state["stage_Q"][0])
+    ratio, div = reference_diagnostics(args, state["stage_Q"][0])
     devices = re.search(r"^jax devices = (.*)$", out, re.M)
     return {
         "argv": argv,
@@ -108,13 +104,14 @@ def build_parser():
     p.add_argument("--dtype", choices=["float32", "float64"], default="float64")
     p.add_argument("--dt", type=float, default=0.05)
     p.add_argument("--steps", type=int, default=2)
-    p.add_argument("--cpu", action="store_true", help="run JAX on the CPU (JAX_PLATFORMS=cpu)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where JAX runs and the diagnostics are computed")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    res = run_reference(args, {"JAX_PLATFORMS": "cpu"} if args.cpu else None)
+    res = run_reference(args)
     print(json.dumps(res))
     return res
 

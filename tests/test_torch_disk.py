@@ -7,12 +7,15 @@ applied per cell (more than 16 geometry classes) and the GTMG smoother is
 the vertex-star one.  At refinements 2 (k = 1) and 3 (k = 2):
 
 - forms, fields, projection and condensation: <= 1e-12 relative;
-- the dense tentative operator, its matvec, each colour's patch solve, the
-  symmetric colored sweep and the additive patch preconditioner: <= 1e-12;
+- the dense tentative operator, its matvec, each colour's patch solve and
+  the colored sweeps: <= 1e-12 (and the sweep refuses a cell without an
+  interior facet);
 - the two-level preconditioner's tables and its application, with the
   dense coarse solve and with the Chebyshev one: <= 1e-12;
 - the tentative and pressure solves: equal iteration counts, <= 1e-10;
-- one SSP2(3,3,2) projection step and the driver: equal counts, <= 1e-10;
+- one SSP2(3,3,2) projection step: equal counts, <= 1e-10;
+- the driver with projection SSP2, the monolithic default and HDG implicit:
+  equal averaged counts and final states (<= 1e-10);
 - the port's counterpart of test_integration_extra.py's Kelvin-Helmholtz run.
 
 The generic tests here also run on the periodic square
@@ -20,7 +23,6 @@ The generic tests here also run on the periodic square
 """
 
 import dataclasses
-import re
 from functools import cached_property
 
 import numpy as np
@@ -61,6 +63,12 @@ from incompressibleeulerhdg_tpu_torch.ops import projection as TPr
 from incompressibleeulerhdg_tpu_torch.ops import reconstruction as TR
 from incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex import (
     IncompressibleEulerHDGIMEXSSP2_332 as TSSP2,
+)
+from incompressibleeulerhdg_tpu_torch.utils.checkpoint import load_checkpoint
+from incompressibleeulerhdg_tpu_torch.utils.diagnostics import (
+    averaged_counts,
+    divergence_norm,
+    kinetic_energy,
 )
 
 torch.set_num_threads(1)
@@ -221,7 +229,7 @@ def test_tentative_operator_tables(case):
     assert [f.name for f in dataclasses.fields(conv) if getattr(conv, f.name) is not None] == names
 
 
-@pytest.mark.parametrize("name", ["matvec", "colored_symmetric", "colored", "patch_apply"])
+@pytest.mark.parametrize("name", ["matvec", "colored_symmetric", "colored", "orphans_refused"])
 def test_tentative_operator_applies(case, name):
     jop, top = case.op
     nu = 2 * case.jg.d1
@@ -235,8 +243,11 @@ def test_tentative_operator_applies(case, name):
         sym = name.endswith("symmetric")
         got = TP._colored_apply_bl(case.tg, top, tv, symmetric=sym)
         ref = JP._colored_apply_bl(case.jg, jop, jv, symmetric=sym)
-    else:
-        got, ref = TP._patch_apply_bl(case.tg, top, tv), JP._patch_apply_bl(case.jg, jop, jv)
+    else:  # a cell without an interior facet (only the 1x1 square has one)
+        orphaned = dataclasses.replace(case.tg, fcol_orphans=True)
+        with pytest.raises(ValueError, match="interior facet"):
+            TP._colored_apply_bl(orphaned, top, tv, symmetric=True)
+        return
     close(got, ref)
 
 
@@ -361,16 +372,6 @@ def test_ssp2_step_matches_jax(step_case):
     assert min(tc["tentative"] + tc["pressure"]) > 0
 
 
-def kinetic_energy(geom, Q):
-    return 0.5 * float(TFd.l2_norm_sq(geom, geom.phi1, Q))
-
-
-def divergence_norm(geom, Q):
-    divQ = TFd.mass_solve(geom, geom.m0inv,
-                          TFd.cell_integrate(geom, geom.phi0, TFd.cell_div(geom, Q)))
-    return float(torch.sqrt(TFd.l2_norm_sq(geom, geom.phi0, divQ)))
-
-
 def test_kelvin_helmholtz_disk_end_to_end():
     """tests/test_integration_extra.py's Kelvin-Helmholtz run through the
     port (refinement 2, k = 1, dt = 0.05 to T = 0.25): finite, no energy
@@ -389,25 +390,30 @@ def test_kelvin_helmholtz_disk_end_to_end():
     assert stepper.domain_volume == pytest.approx(3.10583, abs=5e-6)
 
 
-def _avg_counts(out):
-    return {m.group(1).strip(): float(m.group(2))
-            for m in re.finditer(r"^\s+(\w[\w ]*\w)\s+its\s+:\s+(\S+)$", out, re.M)}
-
-
-def check_cli_matches_jax(argv, tmp_path, monkeypatch, capsys):
+def check_cli_matches_jax(argv, tmp_path, monkeypatch, capsys, n_counts=4):
     """The port's driver and the JAX driver on the same flags: the same
-    averaged iteration counts, no error norms (no exact solution), a
-    solution.vtu from each."""
+    ``n_counts`` averaged iteration counts (projection SSP2 prints four, the
+    monolithic scheme two, HDG implicit none), the same final state (each
+    driver's checkpoint after its last step, <= 1e-10), no error norms (no
+    exact solution), a solution.vtu from each."""
     monkeypatch.chdir(tmp_path)
+    argv = argv + ["--checkpoint_every", "1", "--checkpoint_file", "state.npz"]
     capsys.readouterr()
     res = tdriver.main(argv + ["--device", "cpu"])
     out = capsys.readouterr().out
     (tmp_path / "solution.vtu").unlink()
+    (tmp_path / "state.npz").rename(tmp_path / "port.npz")
     jdriver.main(argv)
     jout = capsys.readouterr().out
     assert (tmp_path / "solution.vtu").exists()
-    counts, jcounts = _avg_counts(out), _avg_counts(jout)
-    assert len(counts) == 4 and counts == jcounts, (counts, jcounts)
+    counts, jcounts = averaged_counts(out), averaged_counts(jout)
+    assert len(counts) == n_counts and counts == jcounts, (counts, jcounts)
+    (state, t, _), (jstate, jt, _) = (load_checkpoint(tmp_path / f) for f in ("port.npz",
+                                                                               "state.npz"))
+    assert t == pytest.approx(jt, abs=1e-12) and state.keys() == jstate.keys()
+    for name, ref in jstate.items():
+        for a, b in zip(*((v if isinstance(v, list) else [v]) for v in (state[name], ref))):
+            close(a, b, 1e-10)
     for text in (out, jout):
         assert "velocity error" not in text and "pressure error" not in text
     assert "velocity_error" not in res
@@ -420,6 +426,22 @@ def test_cli_kelvin_helmholtz_matches_jax(tmp_path, monkeypatch, capsys):
         ["--problem", "kelvinhelmholtz", "--refinement", "2", "--degree", "1", "--dt", "0.05",
          "--tfinal", "0.1", "--use_projection_method"], tmp_path, monkeypatch, capsys)
     assert "mesh refinement = 2" in out and "kappa" not in out
+
+
+SCHEMES = {"monolithic": ([], 2),
+           "implicit": (["--timestepper", "implicit", "--use_projection_method"], 0),
+           "implicit_monolithic": (["--timestepper", "implicit"], 0)}
+
+
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_cli_kelvin_helmholtz_schemes_match_jax(scheme, tmp_path, monkeypatch, capsys):
+    """The CLI default (monolithic SSP2) and HDG implicit, with projection
+    (the left-preconditioned tentative GMRES at restart 40) and monolithic,
+    on the disk: one step each."""
+    flags, n_counts = SCHEMES[scheme]
+    check_cli_matches_jax(["--problem", "kelvinhelmholtz", "--refinement", "2", "--degree", "1",
+                           "--dt", "0.05", "--tfinal", "0.05", *flags],
+                          tmp_path, monkeypatch, capsys, n_counts)
 
 
 def test_disk_mesh_takes_the_gather_paths(case):

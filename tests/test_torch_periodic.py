@@ -27,12 +27,13 @@ from incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex import (
     IncompressibleEulerHDGIMEXSSP2_332 as TSSP2,
 )
 
+from incompressibleeulerhdg_tpu_torch.utils.diagnostics import divergence_norm, kinetic_energy
+
 from test_torch_disk import (  # noqa: F401 -- run here on the periodic ``case``
+    SCHEMES,
     Case,
     check_cli_matches_jax,
     close,
-    divergence_norm,
-    kinetic_energy,
     test_condense_matches_jax,
     test_fields_match_jax,
     test_forms_match_jax,
@@ -122,6 +123,16 @@ def test_cli_shear_matches_jax(tmp_path, monkeypatch, capsys):
     assert "mesh size = 8 x 8" in out and "kappa" not in out
 
 
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_cli_shear_schemes_match_jax(scheme, tmp_path, monkeypatch, capsys):
+    """The CLI default (monolithic SSP2) and HDG implicit, with projection
+    (the fused right-preconditioned tentative GMRES) and monolithic, on the
+    wrapped 6^2 mesh: one step each."""
+    flags, n_counts = SCHEMES[scheme]
+    check_cli_matches_jax(["--problem", "shear", "--nx", "6", "--degree", "1", "--dt", "0.05",
+                           "--tfinal", "0.05", *flags], tmp_path, monkeypatch, capsys, n_counts)
+
+
 def test_jax_reference_tool_matches_port_run():
     """tools/jax_reference.py runs the JAX driver in a subprocess and reads
     its counts and final state back: on the CPU in float64 they equal the
@@ -129,8 +140,8 @@ def test_jax_reference_tool_matches_port_run():
     from incompressibleeulerhdg_tpu_torch.tools import jax_reference as JR
 
     args = JR.build_parser().parse_args(["--problem", "shear", "--nx", "6", "--degree", "1",
-                                         "--dt", "0.05", "--steps", "2", "--cpu"])
-    ref = JR.run_reference(args, {"JAX_PLATFORMS": "cpu"})
+                                         "--dt", "0.05", "--steps", "2", "--device", "cpu"])
+    ref = JR.run_reference(args)
     assert ref["jax_devices"].startswith("[Cpu") and ref["t_final"] == pytest.approx(0.1)
     assert ref["timers"]["timestep"][0] == 2
     disc = TDisc(TM.periodic_square_mesh(6), 1, device="cpu")
@@ -142,6 +153,6 @@ def test_jax_reference_tool_matches_port_run():
               "final pressure": stepper.niter_final_pressure.value,
               "pressure reconstruction": stepper.niter_pressure_reconstruction.value}
     assert ref["counts"] == pytest.approx(counts, abs=0.005)
-    ratio, div = JR.flow_diagnostics(args, Q)
+    ratio, div = JR.reference_diagnostics(args, Q)
     assert ref["energy_ratio"] == pytest.approx(ratio, rel=1e-10)
     assert ref["divergence"] == pytest.approx(div, rel=1e-10)
