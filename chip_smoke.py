@@ -38,7 +38,7 @@ Phases, each printing its own lines:
    device time (torch.profiler), in turns;
 6. the port's CLI driver, in-process (``driver.main``), in a temporary
    directory: (a) the default monolithic SSP2 at 256^2, k=2, float32,
-   dt = 1/256, two steps; (b) HDG implicit + projection at the same size,
+   dt = 1/256, one step; (b) HDG implicit + projection at the same size,
    three steps; (c) ``--test_pressure_solver`` at 256^2, k=2, float32;
    (d) projection SSP2 at 128^2, k=4, float32, two steps, which must launch
    K5 and the d1 = 21 kernels; (e) the double shear layer on the periodic
@@ -48,7 +48,14 @@ Phases, each printing its own lines:
    K1-K3 (dense tables); each validated on finite state, the L2 error
    bounds ((e), (f): the kinetic energy ratio and, (f), the divergence
    bound of the JAX package's tests) and nonzero iteration counts, with
-   set-up and s/step printed;
+   set-up and s/step printed; then (g) DG implicit at 256^2, k=2, two
+   steps (the coupled FGMRES, K1-K4); (h) the conforming RT1 x DG0 scheme,
+   projection, at 256^2, two steps, and (i) its monolithic branch (the CLI
+   default) in float64 at 16^2, two steps, neither of which launches a
+   kernel; (j) the main path's configuration with ``--tracer_advection
+   --animation``, two steps, its tracer finite and its L2 norm held to the
+   JAX package's, and ``evolution.pvd`` listing three .vtu files that hold
+   velocity, pressure, vorticity and tracer;
 6b. K4 on the blocks run (f) handed it: the own-cell (20, 20, 98304) and
    Schur (20, 20, 147840, identity on the 768 boundary facets) batches of
    its first stage build, recorded during the run, against its plain
@@ -96,8 +103,34 @@ ERROR_VELOCITY_MAX_IMPLICIT = 2.5e-4
 # pressure L2 errors of 4.43e-4 and 5.19e-4 at run (a)'s configuration
 # (256^2, k=2, float32, dt = 1/256, two steps; its CUDA path on an H100),
 # where the projection path reaches 1e-6.  Run (a) is held to 2e-3, about
-# 4.5 times the reference's value, and to the usual pressure bound.
+# 4.5 times the reference's two-step value, and to the usual pressure bound;
+# it takes one step (30-50 s on the H100), which keeps the whole script
+# under 600 s beside run (g).
 ERROR_VELOCITY_MAX_MONOLITHIC = 2.0e-3
+# Runs (g)-(i) are held to at most 5 times the JAX package's own velocity and
+# pressure L2 errors at the same configuration on the same card (its driver
+# through tools/jax_reference.py, XLA fallbacks, NVIDIA H100 80GB HBM3 at
+# 700.00 W; PERF.md section 6, PR 6), and run (j)'s tracer to the JAX
+# package's L2 norm:
+# (g) DG implicit 256^2, k=2, float32, dt = 1/256, two steps; its coupled
+#     FGMRES stops at its cap, as the monolithic HDG stage solve does, so
+#     the unconverged residual sets the error (the port's was 1.85e-4 and
+#     6.13e-4 in the same call);
+# (h) conforming, projection, 256^2, float32, two steps (RT1 x DG0: first
+#     order in space);
+# (i) conforming, monolithic, 16^2, float64, two steps.  Run (i) is reduced
+#     to 16^2 (and runs in float64): each of its FGMRES iterations applies a
+#     mass solve and a Schur CG of mass solves, which is what a step of run
+#     (h) does (3.6 s at 256^2 on the H100), and a step may take 100 of them;
+# (j) projection SSP2, 256^2, k=2, float32, with the tracer, two steps: the
+#     tracer's L2 norm is 0.5000003576 in the JAX package; the port's may
+#     differ by 1e-4 relative (it differed by 1.2e-7 in the same call).
+JAX_SAME_CARD_ERRORS = {"g": (5.064e-5, 5.196e-4), "h": (4.325e-3, 1.497e-3),
+                        "i": (6.877e-2, 3.288e-2)}
+ERROR_BOUNDS = {k: (5 * v, 5 * p) for k, (v, p) in JAX_SAME_CARD_ERRORS.items()}
+TRACER_L2_JAX = 0.5000003576
+TRACER_L2_RTOL = 1.0e-4
+CONFORMING_MONOLITHIC_NX = 16
 WIDE_NX, WIDE_DEGREE = 128, 4
 DISK_REFINEMENT = 7  # the largest disk under the vertex-star gate (49,537 vertices)
 # runs (e) and (f): kinetic energy E(T)/E(0) and the divergence bound of the
@@ -669,7 +702,7 @@ def driver_runs():
     dt = 1.0 / NX
     runs = [
         ("a", f"monolithic SSP2 {NX}^2 k=2", ERROR_VELOCITY_MAX_MONOLITHIC,
-         ["--nx", NX, "--degree", DEGREE, "--tfinal", 2 * dt]),
+         ["--nx", NX, "--degree", DEGREE, "--tfinal", dt]),
         ("b", f"HDG implicit + projection {NX}^2 k=2", ERROR_VELOCITY_MAX_IMPLICIT,
          ["--nx", NX, "--degree", DEGREE, "--tfinal", 3 * dt, "--timestepper", "implicit",
           "--use_projection_method"]),
@@ -685,15 +718,31 @@ def driver_runs():
          ["--problem", "kelvinhelmholtz", "--refinement", DISK_REFINEMENT, "--degree", DEGREE,
           "--tfinal", 2 * dt, "--use_projection_method"]),
     ]
+    dg, conf = ["--discretisation", "dg"], ["--discretisation", "conforming"]
+    runs += [
+        ("g", f"DG implicit {NX}^2 k=2", ERROR_BOUNDS["g"],
+         ["--nx", NX, "--degree", DEGREE, "--tfinal", 2 * dt, *dg, "--timestepper", "implicit"]),
+        ("h", f"conforming RT1 x DG0, projection, {NX}^2", ERROR_BOUNDS["h"],
+         ["--nx", NX, "--tfinal", 2 * dt, *conf, "--timestepper", "implicit",
+          "--use_projection_method"]),
+        ("i", f"conforming RT1 x DG0, monolithic, {CONFORMING_MONOLITHIC_NX}^2 float64",
+         ERROR_BOUNDS["i"], ["--nx", CONFORMING_MONOLITHIC_NX, "--tfinal", 2 * dt, *conf,
+                             "--timestepper", "implicit", "--dtype", "float64"]),
+        ("j", f"projection SSP2 {NX}^2 k=2 with the tracer and the animation",
+         ERROR_VELOCITY_MAX, ["--nx", NX, "--degree", DEGREE, "--tfinal", 2 * dt,
+                              "--use_projection_method", "--tracer_advection", "--animation",
+                              "--checkpoint_every", 2, "--checkpoint_file", "tracer.npz"]),
+    ]
     launches = {}
     disk_k4 = []
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
-        os.chdir(tmp)  # the driver writes solution.vtu
+        os.chdir(tmp)  # the driver writes solution.vtu (and run (j) its animation)
         try:
             for key, label, vel_max, argv in runs:
-                argv = [str(a) for a in argv] + ["--dt", str(dt), "--dtype", "float32",
-                                                 "--device", "cuda"]
+                # the run's own flags last: argparse keeps the last value
+                argv = ["--dt", str(dt), "--dtype", "float32", "--device", "cuda",
+                        *(str(a) for a in argv)]
                 PerformanceLog.reset()
                 out = io.StringIO()
                 kernels.reset_launches()
@@ -709,6 +758,8 @@ def driver_runs():
                         print(f"# driver ({key}) | {line}", flush=True)
                 check_driver_run(key, label, vel_max, res, wall, PerformanceLog.data,
                                  launches[key])
+                if key == "j":
+                    check_tracer_run(res)
         finally:
             os.chdir(cwd)
     wide = launches["d"]
@@ -722,12 +773,19 @@ def driver_runs():
     if any(launches["f"][n] == 0 for n in DENSE_PATH_KERNELS) or \
             any(launches["f"][n] for n in MAIN_PATH_KERNELS if n not in DENSE_PATH_KERNELS):
         fail(f"run (f) on the disk must launch K4 only: {launches['f']}")
+    missing = [n for n in MAIN_PATH_KERNELS if launches["g"][n] == 0]
+    if missing:
+        fail(f"run (g), DG implicit, never launched {missing}")
+    for key in ("h", "i"):
+        if any(launches[key].values()):
+            fail(f"run ({key}), the conforming scheme, launched a kernel: {launches[key]}")
     return launches, disk_k4
 
 
 def check_driver_run(key, label, vel_max, res, wall, timers, launches):
     """Print one driver run's numbers and fail on non-finite state, errors
-    above their bounds or a solve that took no iterations."""
+    above their bounds (``vel_max``: the velocity bound, or a (velocity,
+    pressure) pair) or a solve that took no iterations."""
     setup_s = sum(timers.get("setup", []))
     if key == "c":
         its = res["iterations"]
@@ -739,24 +797,55 @@ def check_driver_run(key, label, vel_max, res, wall, timers, launches):
         return
     steps = timers["timestep"]
     counts = res["timestepper"].step_counts
-    its = [n for c in counts for n in c["tentative"] + c["pressure"]]
-    its += [c[k] for c in counts for k in ("final_pressure", "reconstruction") if k in c]
+    its = [n for c in counts for k, v in c.items() if k != "max_relres"
+           for n in (v if isinstance(v, list) else [v])]
     finite = all(bool(torch.isfinite(res[f]).all()) for f in ("Q", "p"))
     if key in ENERGY_RANGE:
         check_flow_run(key, label, res, setup_s, steps, wall, counts, its, finite, launches)
         return
     err_v, err_p = res["velocity_error"], res["pressure_error"]
+    vel_max, p_max = vel_max if isinstance(vel_max, tuple) else (vel_max, ERROR_PRESSURE_MAX)
+    per_step = {n: v / len(steps) for n, v in launches.items()}
     print(f"# driver run ({key}) {label}: setup {setup_s:.2f} s, "
           f"{sum(steps) / len(steps):.4f} s/step (steps {[round(t, 4) for t in steps]}), "
           f"wall {wall:.1f} s | iters {[{k: v for k, v in c.items() if k != 'max_relres'} for c in counts]} "
           f"| err velocity {err_v:.3e} (bound {vel_max:.1e}) pressure {err_p:.3e} "
-          f"(bound {ERROR_PRESSURE_MAX:.1e}) | launches {launches}", flush=True)
+          f"(bound {p_max:.1e}) | launches {launches} (per step {per_step})", flush=True)
     if not finite:
         fail(f"driver run ({key}): non-finite state")
-    if not (err_v < vel_max and err_p < ERROR_PRESSURE_MAX):
+    if not (err_v < vel_max and err_p < p_max):
         fail(f"driver run ({key}): errors above bound: velocity {err_v:.3e} pressure {err_p:.3e}")
     if not (its and min(its) > 0):
         fail(f"driver run ({key}): a Krylov solve took zero iterations")
+
+
+def check_tracer_run(res):
+    """Run (j): the checkpointed tracer is finite with its L2 norm within
+    ``TRACER_L2_RTOL`` of the JAX package's, and ``evolution.pvd`` lists the
+    initial state and both steps, each .vtu holding velocity, pressure,
+    vorticity and tracer samples, all finite."""
+    from incompressibleeulerhdg_tpu_torch.utils.checkpoint import load_checkpoint
+    from incompressibleeulerhdg_tpu_torch.utils.diagnostics import tracer_norm
+
+    state, t, _ = load_checkpoint("tracer.npz")
+    q = state["q_tracer"]
+    l2 = tracer_norm(res["timestepper"].disc, q)
+    files = re.findall(r'file="([^"]+)"', Path("evolution.pvd").read_text())
+    arrays = {}
+    for f in files:
+        text = Path(f).read_text()
+        arrays[f] = {m.group(1): bool(np.all(np.isfinite(np.array(m.group(2).split(), float))))
+                     for m in re.finditer(r'Name="(\w+)"[^>]*>\n([^<]*)\n</DataArray>', text)}
+    print(f"# driver run (j) tracer: shape {q.shape}, t = {t}, L2 {l2:.7e} (JAX {TRACER_L2_JAX:.7e}, "
+          f"relative difference {abs(l2 / TRACER_L2_JAX - 1):.2e}, bound {TRACER_L2_RTOL:.0e}) "
+          f"| evolution.pvd: {files} | point data {arrays}", flush=True)
+    if not np.all(np.isfinite(q)):
+        fail("driver run (j): non-finite tracer")
+    if not abs(l2 / TRACER_L2_JAX - 1) <= TRACER_L2_RTOL:
+        fail(f"driver run (j): tracer L2 norm {l2:.7e} differs from the JAX package's")
+    names = {"velocity", "pressure", "vorticity", "tracer"}
+    if len(files) != 3 or any(not names <= set(a) or not all(a.values()) for a in arrays.values()):
+        fail(f"driver run (j): evolution.pvd must list 3 .vtu files with finite {sorted(names)}")
 
 
 def check_flow_run(key, label, res, setup_s, steps, wall, counts, its, finite, launches):

@@ -4,12 +4,15 @@ Counterpart of incompressibleeulerhdg_tpu/cli/driver.py with the same flags
 and printed lines: run banner, the stand-alone pressure-solver benchmark,
 the solve with its averaged iteration counts and timer table, the error
 norms against the analytic solution where the problem has one, and
-``solution.vtu``.  The port runs the HDG discretisation of the three model
-problems (Taylor-Green on the unit square, the double shear layer on the
-periodic square, Kelvin-Helmholtz on the unit disk) with the HDG IMEX and
-HDG implicit schemes, projection or monolithic, on one device; ``--device``
-picks it (default ``cuda``; no card is an error, never a silent CPU run).  Flags of the JAX driver that the port does not run yet
-raise NotImplementedError, naming their ROADMAP item, before any work.
+``solution.vtu``.  The port runs the three model problems (Taylor-Green on
+the unit square, the double shear layer on the periodic square,
+Kelvin-Helmholtz on the unit disk) with the HDG IMEX and HDG implicit
+schemes (projection or monolithic), DG implicit and conforming RT1 x DG0
+implicit (projection or monolithic), optionally advecting a tracer and
+writing the ``evolution.pvd`` animation, on one device; ``--device`` picks
+it (default ``cuda``; no card is an error, never a silent CPU run).
+``--n_devices > 1`` raises NotImplementedError, naming its ROADMAP item,
+before any work.
 
 Run:  python -m incompressibleeulerhdg_tpu_torch.cli.driver --help
 """
@@ -24,6 +27,8 @@ from ..mesh import periodic_square_mesh, unit_disk_mesh, unit_square_mesh
 from ..models.problems import DoubleLayerShearFlow, KelvinHelmholtz, TaylorGreen
 from ..ops import fields as F
 from ..timesteppers.common import to_host
+from ..timesteppers.conforming_implicit import IncompressibleEulerConformingImplicit
+from ..timesteppers.dg_implicit import IncompressibleEulerDGImplicit
 from ..timesteppers.hdg_implicit import IncompressibleEulerHDGImplicit
 from ..timesteppers.hdg_imex import (
     IncompressibleEulerHDGIMEXImplicit,
@@ -32,6 +37,7 @@ from ..timesteppers.hdg_imex import (
     IncompressibleEulerHDGIMEXSSP2_332,
     IncompressibleEulerHDGIMEXSSP3_433,
 )
+from ..utils.callbacks import AnimationCallback
 from ..utils.logging import PerformanceLog, log_summary
 from ..utils.vtk import sample_dg_at_corners, write_vtu
 
@@ -93,7 +99,7 @@ def build_parser():
 
 def check_args(args):
     """The JAX driver's checks of invalid combinations, then refusal of the
-    flags the port does not run yet."""
+    one flag the port does not run yet."""
     if args.discretisation == "conforming" and args.timestepper != "implicit":
         raise RuntimeError(
             f"Invalid timestepping method for conforming discretisation: '{args.timestepper}'")
@@ -103,19 +109,9 @@ def check_args(args):
         if args.timestepper != "implicit":
             raise RuntimeError(
                 f"Invalid timestepping method for DG discretisation: '{args.timestepper}'")
-    todo = []
-    if args.discretisation == "dg":
-        todo.append("--discretisation dg (ROADMAP Queue 1, M10)")
-    if args.discretisation == "conforming":
-        todo.append("--discretisation conforming (ROADMAP Queue 1, M11)")
-    if args.tracer_advection:
-        todo.append("--tracer_advection (ROADMAP Queue 1, M12)")
-    if args.animation:
-        todo.append("--animation (ROADMAP Queue 1, M12)")
     if args.n_devices > 1:
-        todo.append("--n_devices > 1 (ROADMAP Queue 1, M14)")
-    if todo:
-        raise NotImplementedError("not ported to PyTorch yet: " + "; ".join(todo))
+        raise NotImplementedError(
+            "not ported to PyTorch yet: --n_devices > 1 (ROADMAP Queue 1, M14)")
 
 
 def select_device(name):
@@ -148,13 +144,25 @@ def make_problem(args, disc):
     return TaylorGreen(disc, args.forcing, args.kappa)
 
 
-def make_timestepper(args, disc):
+def make_timestepper(args, disc, callbacks=None):
+    if args.discretisation == "conforming":
+        return IncompressibleEulerConformingImplicit(
+            disc, args.dt, flux=args.flux, use_projection_method=args.use_projection_method,
+            callbacks=callbacks)
+    if args.discretisation == "dg":
+        return IncompressibleEulerDGImplicit(disc, args.dt, flux=args.flux, callbacks=callbacks)
     if args.timestepper == "implicit":
         return IncompressibleEulerHDGImplicit(disc, args.dt, flux=args.flux,
-                                              use_projection_method=args.use_projection_method)
+                                              use_projection_method=args.use_projection_method,
+                                              callbacks=callbacks)
     return IMEX_CLASSES[args.timestepper](disc, args.dt, flux=args.flux,
                                           use_projection_method=args.use_projection_method,
-                                          n_richardson=args.richardson)
+                                          n_richardson=args.richardson, callbacks=callbacks)
+
+
+def tracer_initial_condition(x, y):
+    """The tracer at t = 0: sin(2 pi x) sin(2 pi y)."""
+    return torch.sin(2 * math.pi * x) * torch.sin(2 * math.pi * y)
 
 
 def main(argv=None):
@@ -167,8 +175,13 @@ def main(argv=None):
 
     with PerformanceLog("setup"):
         mesh = make_mesh(args)
-        disc = HDGDiscretisation(mesh, args.degree, dtype=dtype, device=device)
-        timestepper = make_timestepper(args, disc)
+        degree = args.degree
+        if args.discretisation == "conforming":
+            print("Warning: ignoring degree for conforming method")
+            degree = 0
+        disc = HDGDiscretisation(mesh, degree, dtype=dtype, device=device)
+        callbacks = [AnimationCallback(disc, "evolution.pvd")] if args.animation else None
+        timestepper = make_timestepper(args, disc, callbacks)
 
     print("+-------------------------------------------------+")
     print("! timesteppers for incompressible Euler equations !")
@@ -218,8 +231,9 @@ def main(argv=None):
     if args.checkpoint_every or args.resume:
         solve_kwargs = dict(checkpoint_every=args.checkpoint_every,
                             checkpoint_path=args.checkpoint_file, resume=args.resume)
-    Q, p = timestepper.solve(Q_0, p_0, model_problem.f_rhs(), args.tfinal, warmup=args.warmup,
-                             **solve_kwargs)
+    q_0 = tracer_initial_condition if args.tracer_advection else None
+    Q, p = timestepper.solve(Q_0, p_0, q_0, model_problem.f_rhs(), args.tfinal,
+                             warmup=args.warmup, **solve_kwargs)
     result.update(Q=Q, p=p)
 
     log_summary()

@@ -9,11 +9,13 @@ their attributes and ``numpy.asarray``.
 import numpy as np
 import torch
 
+from .fem.cg import CGSpace
 from .fem.discretisation import Geom
 from .linalg.condense import CondensedSystem
 from .linalg.gtmg import TwoLevelTracePC
 from .linalg.preconditioners import TentativeOperator
 from .ops.projection import BDMProjection
+from .ops.rt import RTTables, facet_slots
 
 __all__ = [
     "tensor",
@@ -23,6 +25,8 @@ __all__ = [
     "tentative_operator_from_jax",
     "condensed_system_from_jax",
     "gtmg_from_jax",
+    "rt_tables_from_jax",
+    "cg_space_from_jax",
 ]
 
 
@@ -99,3 +103,20 @@ def gtmg_from_jax(pc, dtype=torch.float64, device="cpu"):
         cheb_fine=int(pc.cheb_fine), cheb_coarse=int(pc.cheb_coarse),
         lmax_fine=float(pc.lmax_fine), lmax_coarse=float(pc.lmax_coarse),
     )
+
+
+def rt_tables_from_jax(rt, geom, dtype=torch.float64, device="cpu"):
+    """RTTables from the JAX package's, with the facet slots of the port's
+    ``geom`` (the JAX package scatters instead)."""
+    t = lambda a: tensor(a, dtype, device)
+    return RTTables(P_opp=t(rt.P_opp), area=t(rt.area), mass_elem=t(rt.mass_elem),
+                    mass_diag_inv=t(rt.mass_diag_inv), xqf=t(rt.xqf), bnd_mask=t(rt.bnd_mask),
+                    int_dof_mask=t(rt.int_dof_mask), fslot=facet_slots(geom))
+
+
+def cg_space_from_jax(space, dtype=torch.float64, device="cpu"):
+    """A CGSpace from the JAX package's."""
+    t = lambda a: tensor(a, dtype, device)
+    return CGSpace(dofmap=tensor(space.dofmap, device=device), phi_at_q1=t(space.phi_at_q1),
+                   mass_diag=t(space.mass_diag), node_coords=t(space.node_coords),
+                   degree=int(space.degree), n_dofs=int(space.n_dofs))

@@ -1,10 +1,11 @@
-"""Restarted GMRES with iteration-count observables, as eager loops.
+"""Restarted GMRES and CG with iteration-count observables, as eager loops.
 
 Counterpart of incompressibleeulerhdg_tpu/linalg/krylov.py ``gmres`` (left
 preconditioned, with an optional nullspace projector), ``gmres_right``
-(flexible, right preconditioned, with a fused preconditioner + operator) and
+(flexible, right preconditioned, with a fused preconditioner + operator),
 ``fgmres`` (flexible, right preconditioned, for an inner-iteration
-preconditioner).
+preconditioner) and ``cg`` (preconditioned conjugate gradients, with the
+JAX package's stopping rule).
 The JAX ``lax.while_loop`` becomes a Python loop: the Krylov basis and all
 vector work stay on the device, and each Arnoldi step makes ONE host read
 (the new Hessenberg column and its norm), on which the host applies the
@@ -16,7 +17,7 @@ Vectors are flat 1-D tensors; callers flatten their field layouts.
 import numpy as np
 import torch
 
-__all__ = ["gmres", "gmres_right", "fgmres", "deflate_constant"]
+__all__ = ["gmres", "gmres_right", "fgmres", "cg", "deflate_constant"]
 
 
 def deflate_constant(nullvec):
@@ -209,3 +210,40 @@ def fgmres(matvec, b, *, M=None, x0=None, rtol=1e-12, restart=30, maxiter=200, p
         res = res_c
         iters += j
     return x, iters, res / max(bnorm, tiny)
+
+
+def cg(matvec, b, *, M=None, x0=None, rtol=1e-12, atol=0.0, maxiter=500, project=None):
+    """Preconditioned conjugate gradients from ``x0`` (default 0).
+
+    Runs while the unpreconditioned residual norm exceeds
+    ``max(rtol * ||P b||, atol)`` and fewer than ``maxiter`` iterations were
+    taken; ``project`` (P) is applied to b, to the starting residual, to
+    every operator output and every preconditioned residual.  One host read
+    (the residual norm) per iteration.
+
+    :returns: (x, iters, relres) with iters an int and relres
+        ``||r|| / max(||P b||, 1e-300)``, a float
+    """
+    M = M or _identity
+    project = project or _identity
+    b = project(b)
+    bnorm = _norm(b)
+    target = max(rtol * bnorm, atol)
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = project(b - matvec(x))
+    z = project(M(r))
+    p = z
+    rz = torch.dot(r, z)
+    res, iters = _norm(r), 0
+    while res > target and iters < maxiter:
+        Ap = project(matvec(p))
+        alpha = rz / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = project(M(r))
+        rz_new = torch.dot(r, z)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        iters += 1
+        res = _norm(r)
+    return x, iters, res / max(bnorm, 1e-300)

@@ -1,7 +1,8 @@
 """Batched weak-form operators of the HDG incompressible Euler discretisation.
 
 Counterpart of incompressibleeulerhdg_tpu/ops/forms.py (the forms of the
-HDG IMEX and implicit schemes, projection and monolithic).  Each function
+HDG IMEX and implicit schemes, projection and monolithic, and the DG
+scheme's pressure coupling).  Each function
 returns test-function coefficients of one form given trial fields as
 coefficient arrays; the derivations are in the JAX package's docstrings.  The facet normal ``n_f`` points out of the plus
 cell.
@@ -25,6 +26,7 @@ __all__ = [
     "star_fields",
     "f_impl_apply",
     "pressure_gradient_apply",
+    "pressure_gradient_dg_apply",
     "gamma_apply",
     "weak_divergence_apply",
     "weak_divergence_values",
@@ -104,6 +106,17 @@ def pressure_gradient_apply(geom, p, lam):
     lam_q = trace_values(geom, lam)
     nrm = geom.normal[:, None, :]
     return gw + scatter_facets(geom, geom.tphi1, -lam_q[None] * nrm, lam_q[None] * nrm)
+
+
+def pressure_gradient_dg_apply(geom, p):
+    """u-row coefficients of the trace-free DG pressure coupling of the DG
+    scheme: ``g_DG(w, p) = int p div w - int_dS (w+ - w-).n avg(p) - int_ds
+    (w.n) p``."""
+    gw = _div_test_coeffs(geom, cell_values(geom.phi0, p))
+    p0, p1 = facet_traces(geom, geom.tphi0, p)
+    pavg = torch.where(interior_mask(geom) > 0, 0.5 * (p0 + p1), p0)
+    nrm = geom.normal[:, None, :]
+    return gw + scatter_facets(geom, geom.tphi1, -pavg[None] * nrm, pavg[None] * nrm)
 
 
 def gamma_apply(geom, u, p, lam, tau=1.0):

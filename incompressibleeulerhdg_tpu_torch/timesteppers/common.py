@@ -1,9 +1,12 @@
 """Timestepper base: shared FEM operations of the schemes (single device).
 
 Counterpart of incompressibleeulerhdg_tpu/timesteppers/common.py, with the
-checkpoint of the plain (Q, p) state through the port's copy of the numpy
-checkpoint format (``utils/checkpoint.py``; the files are interchangeable
-between the two packages).
+checkpoint of the plain (Q, p, tracer) state through the port's copy of the
+numpy checkpoint format (``utils/checkpoint.py``; the files are
+interchangeable between the two packages), the lazily built CG space of the
+tracer's velocity projection, and the timestepping loop of the schemes
+without stage state (HDG implicit, DG, conforming): each supplies its
+initial fields, its forcing and ``advance``; IMEX has its own loop.
 """
 
 import numpy as np
@@ -11,7 +14,9 @@ import torch
 
 from ..ops import fields as F
 from ..ops.projection import build_bdm_projection, project_bdm
+from ..ops.tracer import tracer_step
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.logging import PerformanceLog
 
 __all__ = ["IncompressibleEuler"]
 
@@ -22,16 +27,19 @@ class IncompressibleEuler:
     :arg disc: HDGDiscretisation (mesh + degree + dtype + device)
     :arg dt: timestep size
     :arg label: name of the timestepping method
+    :arg callbacks: per-timestep callbacks (``utils/callbacks.py``)
     """
 
-    def __init__(self, disc, dt, label=None):
+    def __init__(self, disc, dt, label=None, callbacks=None):
         self.disc = disc
         self.geom = disc.geom
         self.degree = disc.degree
         self._dt = float(dt)
         self._label = label
+        self.callbacks = [] if callbacks is None else callbacks
         self.domain_volume = disc.domain_volume
         self._proj = build_bdm_projection(disc)
+        self._cg_space = None
 
     @property
     def label(self):
@@ -57,6 +65,27 @@ class IncompressibleEuler:
         """Shift pressure to zero mean."""
         return p - self.pressure_mean(p)
 
+    def tracer_cg_space(self):
+        """Vector CG(k+1) space of the tracer's advecting-velocity projection,
+        built on first use (most runs carry no tracer)."""
+        if self._cg_space is None:
+            from ..fem.cg import build_cg_space
+
+            self._cg_space = build_cg_space(self.disc, self.degree + 1)
+        return self._cg_space
+
+    def initial_tracer(self, q_initial):
+        """The tracer interpolated into V_p, or None without a tracer."""
+        return None if q_initial is None else self.disc.interpolate_pressure(q_initial)
+
+    def notify(self, Q, p, t, q_tracer, reset=False):
+        """Hand the fields at time ``t`` to every callback (``reset`` first at
+        the start of a run)."""
+        for callback in self.callbacks:
+            if reset:
+                callback.reset()
+            callback(Q, p, t, q_tracer=q_tracer)
+
     def _checkpoint_config(self):
         """Run-defining config validated on resume (mesh/scheme/dt guard)."""
         return {
@@ -67,10 +96,10 @@ class IncompressibleEuler:
         }
 
     def save_state(self, checkpoint_path, k, state):
-        """Atomically save ``state`` (name -> tensor or list of tensors) after
-        step ``k``."""
+        """Atomically save ``state`` (name -> tensor, list of tensors or None,
+        which is left out) after step ``k``."""
         host = {name: [to_host(a) for a in v] if isinstance(v, list) else to_host(v)
-                for name, v in state.items()}
+                for name, v in state.items() if v is not None}
         save_checkpoint(checkpoint_path, host, t=k * self._dt, config=self._checkpoint_config())
 
     def resume_state(self, checkpoint_path):
@@ -103,6 +132,67 @@ class IncompressibleEuler:
     def rtol_tentative(self):
         """Tentative-velocity GMRES tolerance, loosened in float32."""
         return 1.0e-10 if self.disc.dtype == torch.float64 else 1.0e-6
+
+    # ------------------------------------------------------------------
+    # the loop of the schemes with a plain (Q, p) state
+    # ------------------------------------------------------------------
+
+    def initial_fields(self, Q_initial, p_initial):
+        """(Q, p) at t = 0 from the initial-condition expressions."""
+        Q = self.disc.interpolate_velocity(Q_initial)
+        return Q, self.shift_pressure(self.disc.interpolate_pressure(p_initial))
+
+    def forcing(self, fn):
+        """The forcing expression ``fn`` in the velocity space of the state."""
+        return self.disc.interpolate_velocity(fn)
+
+    def output_fields(self, Q, p):
+        """(velocity (2, d1, nc), pressure (d0, nc)) of the state, as the
+        tracer, the callbacks, the error norms and the VTK output read it."""
+        return Q, p
+
+    def advance(self, Q, p, f):
+        """One timestep; returns (Q, p, dict of iteration-count lists)."""
+        raise NotImplementedError
+
+    def solve(self, Q_initial, p_initial, q_initial, f_rhs, T_final, warmup=False,
+              checkpoint_every=0, checkpoint_path="checkpoint.npz", resume=False):
+        """Propagate (Q, p) from the initial expressions to T_final; the
+        tracer, when ``q_initial`` is given, takes one explicit step with the
+        old velocity before each velocity step.  ``self.step_counts`` keeps
+        each step's iteration counts.
+
+        :arg f_rhs: ``t -> ((x, y) -> (fx, fy))`` forcing factory
+        :arg warmup: take a single timestep only
+        :arg checkpoint_every: save (Q, p, tracer) every N steps (0 = off)
+        :arg resume: load ``checkpoint_path`` (validated against this run's
+            mesh/scheme/dt) and continue from its step
+        :returns: :meth:`output_fields` of the final state
+        """
+        dt = self._dt
+        nt = self.get_timesteps(T_final, warmup)
+        Q, p = self.initial_fields(Q_initial, p_initial)
+        q_tracer = self.initial_tracer(q_initial)
+        k_start = 0
+        if resume:
+            state, k_start = self.resume_state(checkpoint_path)
+            Q, p = state["Q"], state["p"]
+            if state.get("q_tracer") is not None and q_tracer is not None:
+                q_tracer = state["q_tracer"]
+        self.notify(*self.output_fields(Q, p), k_start * dt, q_tracer, reset=True)
+        self.step_counts = []
+        for k in range(k_start, nt):
+            with PerformanceLog("timestep"):
+                if q_tracer is not None:
+                    q_tracer = tracer_step(self.geom, q_tracer, self.output_fields(Q, p)[0], dt,
+                                           cg_space=self.tracer_cg_space())
+                Q, p, counts = self.advance(Q, p, self.forcing(f_rhs(k * dt)))
+                synchronize(Q)
+            self.step_counts.append(counts)
+            if checkpoint_every and (k + 1) % checkpoint_every == 0:
+                self.save_state(checkpoint_path, k + 1, {"Q": Q, "p": p, "q_tracer": q_tracer})
+            self.notify(*self.output_fields(Q, p), (k + 1) * dt, q_tracer)
+        return self.output_fields(Q, p)
 
 
 def to_host(t):

@@ -13,15 +13,21 @@ timestep:
 - final-stage mixed solve from the unrolled final residual;
 - pressure reconstruction from the new velocity.
 
+With a tracer, each stage advects the tableau-combined tracer stages with
+that stage's own CG-projected velocity, and the final tracer sums every
+stage's flux, each with its own stage velocity, as the JAX package does.
+
 The stage loop is a Python loop on eager tensors.  Iteration counts of every
 solve are returned by :meth:`step` and averaged by :meth:`solve`, which also
-checkpoints and resumes the full stage state.  The tentative GMRES keeps the
-JAX package's defaults (restart 28, one symmetric colored sweep per
-application); its ``IEHDG_*`` knobs are not ported.
+checkpoints and resumes the full stage state (and the tracer), hands each
+step's fields to the callbacks, and warns of a non-finite Krylov residual
+and of a projection run that stalled above its tolerance.  The tentative
+GMRES keeps the JAX package's defaults (restart 28, one symmetric colored
+sweep per application); its ``IEHDG_*`` knobs are not ported.
 """
 
-import math
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -39,6 +45,7 @@ from ..ops.forms import (
 )
 from ..ops.projection import project_bdm
 from ..ops.reconstruction import pressure_reconstruction_rhs
+from ..ops.tracer import cg_project_velocity, tracer_advection_apply
 from ..linalg.condense import build_condensed_system
 from ..linalg.gtmg import build_gtmg, gtmg_apply
 from ..linalg.pressure import pressure_solve
@@ -70,14 +77,15 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
     :arg use_projection_method: Richardson + projection instead of monolithic
     :arg n_richardson: number of Richardson iterations
     :arg label: name of the method (default: the tableau's)
+    :arg callbacks: per-timestep callbacks
     """
 
     tableau_name = None  # set by subclasses
 
     def __init__(self, disc, dt, flux="upwind", use_projection_method=True, n_richardson=2,
-                 label=None):
+                 label=None, callbacks=None):
         tab = self.tableau = TABLEAUS[self.tableau_name]
-        super().__init__(disc, dt, label or tab.label)
+        super().__init__(disc, dt, label or tab.label, callbacks=callbacks)
         if flux not in ("upwind", "centered"):
             raise ValueError(f"flux must be 'upwind' or 'centered', got {flux!r}")
         self.flux = flux
@@ -210,6 +218,27 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         )
         return stage_Q, stage_p, stage_lam, counts
 
+    def tracer_step(self, q, SQ):
+        """The tracer after one step from ``q``, given the step's stage
+        velocities ``SQ`` (the old velocity, then stages 1..s-1).  Stage i
+        advects the explicit-tableau combination of the tracer stages with
+        stage i's own CG-projected velocity; the final tracer sums every
+        stage's flux, each with its own stage velocity."""
+        geom, dt, tab = self.geom, self._dt, self.tableau
+        s = self.nstages
+        u_adv = [cg_project_velocity(geom, self.tracer_cg_space(), Q) for Q in SQ]
+        a_expl = torch.as_tensor(tab.a_expl, dtype=q.dtype, device=q.device)
+        QS = [q] + [torch.zeros_like(q)] * (s - 1)
+        for i in range(1, s):
+            q_comb = torch.einsum("s,s...->...", a_expl[i], torch.stack(QS))
+            b_q = (F.mass_apply(geom, geom.m0, QS[0])
+                   + dt * tracer_advection_apply(geom, q_comb, u_adv[i]))
+            QS[i] = F.mass_solve(geom, geom.m0inv, b_q)
+        b_q = F.mass_apply(geom, geom.m0, QS[0])
+        for w, q_i, u_i in zip(tab.b_expl.tolist(), QS, u_adv):
+            b_q = b_q + dt * w * tracer_advection_apply(geom, q_i, u_i)
+        return F.mass_solve(geom, geom.m0inv, b_q)
+
     def _reconstruct_trace(self, Q, p):
         """Facet mass solve for lambda(0): (nt, nf)."""
         geom = self.geom
@@ -260,11 +289,13 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
             "projection": bool(self.use_projection_method),
         }
 
-    def solve(self, Q_initial, p_initial, f_rhs, T_final, warmup=False, checkpoint_every=0,
-              checkpoint_path="checkpoint.npz", resume=False):
-        """Propagate (Q, p) from the initial expressions to T_final;
-        ``self.step_counts`` keeps each step's iteration counts.
+    def solve(self, Q_initial, p_initial, q_initial, f_rhs, T_final, warmup=False,
+              checkpoint_every=0, checkpoint_path="checkpoint.npz", resume=False):
+        """Propagate (Q, p) and, when ``q_initial`` is given, the tracer from
+        the initial expressions to T_final; ``self.step_counts`` keeps each
+        step's iteration counts.
 
+        :arg q_initial: tracer expression ``(x, y) -> q`` or None
         :arg f_rhs: ``t -> ((x, y) -> (fx, fy))`` forcing factory
         :arg warmup: take a single timestep only
         :arg checkpoint_every: save the full stage state every N steps (0 = off)
@@ -274,19 +305,26 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         """
         n_steps = self.get_timesteps(T_final, warmup)
         stage_Q, stage_p, stage_lam = self.initial_state(Q_initial, p_initial)
+        q_tracer = self.initial_tracer(q_initial)
         k_start = 0
         if resume:
             state, k_start = self.resume_state(checkpoint_path)
             stage_Q, stage_p, stage_lam = state["stage_Q"], state["stage_p"], state["stage_lam"]
+            if state.get("q_tracer") is not None and q_tracer is not None:
+                q_tracer = state["q_tracer"]
         for av in (self.niter_tentative, self.niter_pressure,
                    self.niter_final_pressure, self.niter_pressure_reconstruction):
             av.reset()
         self.max_relres = 0.0
+        self.notify(stage_Q[0], stage_p[0], 0.0, q_tracer, reset=True)
         self.step_counts = []
         for k in range(k_start, n_steps):
             with PerformanceLog("timestep"):
+                Q_old = stage_Q[0]
                 stage_Q, stage_p, stage_lam, counts = self.step(
                     stage_Q, stage_p, stage_lam, k * self._dt, f_rhs)
+                if q_tracer is not None:
+                    q_tracer = self.tracer_step(q_tracer, [Q_old] + stage_Q[1:])
                 synchronize(stage_Q[0])
             self.step_counts.append(counts)
             for n in counts["tentative"]:
@@ -295,11 +333,17 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
                 self.niter_pressure.update(n)
             self.niter_final_pressure.update(counts["final_pressure"])
             self.niter_pressure_reconstruction.update(counts["reconstruction"])
-            r = counts["max_relres"]  # a NaN residual counts as diverged
-            self.max_relres = max(self.max_relres, float("inf") if math.isnan(r) else r)
+            r = counts["max_relres"]
+            if not np.isfinite(r):  # counts as diverged, and is reported at once
+                r = float("inf")
+                warnings.warn(f"non-finite Krylov residual at step {k + 1}/{n_steps} — "
+                              f"the solve diverged (NaN/Inf state likely)", RuntimeWarning)
+            self.max_relres = max(self.max_relres, r)
             if checkpoint_every and (k + 1) % checkpoint_every == 0:
                 self.save_state(checkpoint_path, k + 1, {
-                    "stage_Q": stage_Q, "stage_p": stage_p, "stage_lam": stage_lam})
+                    "stage_Q": stage_Q, "stage_p": stage_p, "stage_lam": stage_lam,
+                    "q_tracer": q_tracer})
+            self.notify(stage_Q[0], stage_p[0], k * self._dt + self._dt, q_tracer)
         print("average number of solver iterations")
         print(40 * "-")
         print(f"  tentative velocity its      : {self.niter_tentative.value:8.2f}")
@@ -309,6 +353,16 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         print(f"  pressure reconstruction its : {self.niter_pressure_reconstruction.value:8.2f}")
         if self.use_projection_method:
             print(f"  max Krylov relative residual: {self.max_relres:8.2e}")
+            # a solve that leaves through the stagnation guard above its
+            # tolerance is otherwise silent; in float32 the threshold is
+            # floored at 1e3 eps, the attainable accuracy of the true
+            # residual that the tentative solve reports
+            stall_tol = 20.0 * max(self.rtol_pressure, self.rtol_tentative)
+            if self.disc.dtype == torch.float32:
+                stall_tol = max(stall_tol, 1.0e3 * torch.finfo(torch.float32).eps)
+            if self.max_relres > stall_tol:
+                warnings.warn(f"Krylov solver stalled above tolerance: max relative residual "
+                              f"{self.max_relres:.2e} > {stall_tol:.2e}", RuntimeWarning)
         print()
         return stage_Q[0], stage_p[0]
 

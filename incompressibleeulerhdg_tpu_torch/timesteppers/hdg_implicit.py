@@ -1,7 +1,8 @@
 """First-order HDG solver: Chorin projection method (and monolithic variant).
 
 Counterpart of incompressibleeulerhdg_tpu/timesteppers/hdg_implicit.py
-(without the tracer and the multi-device paths).  Per timestep:
+(without the multi-device paths; the loop, the tracer and the checkpoint are
+the base class's).  Per timestep:
 
   1. Q* = project_bdm(Q)
   projection:
@@ -14,8 +15,7 @@ Counterpart of incompressibleeulerhdg_tpu/timesteppers/hdg_implicit.py
   3. p <- phi, shifted to zero mean
 """
 
-from .common import IncompressibleEuler, synchronize
-from ..utils.logging import PerformanceLog
+from .common import IncompressibleEuler
 from ..ops import fields as F
 from ..ops.forms import star_fields
 from ..ops.projection import project_bdm
@@ -36,10 +36,11 @@ class IncompressibleEulerHDGImplicit(IncompressibleEuler):
     :arg dt: timestep size
     :arg flux: "upwind" or "centered"
     :arg use_projection_method: Chorin projection instead of monolithic solve
+    :arg callbacks: per-timestep callbacks
     """
 
-    def __init__(self, disc, dt, flux="upwind", use_projection_method=True):
-        super().__init__(disc, dt, label="HDG Implicit")
+    def __init__(self, disc, dt, flux="upwind", use_projection_method=True, callbacks=None):
+        super().__init__(disc, dt, label="HDG Implicit", callbacks=callbacks)
         if flux not in ("upwind", "centered"):
             raise ValueError(f"flux must be 'upwind' or 'centered', got {flux!r}")
         self.flux = flux
@@ -74,28 +75,7 @@ class IncompressibleEulerHDGImplicit(IncompressibleEuler):
                 upwind=self.upwind, rtol=self.rtol_pressure)
         return Q_new, self.shift_pressure(p_new), it_tent, it_p
 
-    def solve(self, Q_initial, p_initial, f_rhs, T_final, warmup=False, checkpoint_every=0,
-              checkpoint_path="checkpoint.npz", resume=False):
-        """Timestepping loop; ``self.step_counts`` keeps each step's
-        iteration counts (tentative and pressure, or FGMRES twice).
-
-        :arg f_rhs: ``t -> ((x, y) -> (fx, fy))`` forcing factory
-        :returns: (Q, p) final coefficient tensors
-        """
-        nt = self.get_timesteps(T_final, warmup)
-        Q = self.disc.interpolate_velocity(Q_initial)
-        p = self.shift_pressure(self.disc.interpolate_pressure(p_initial))
-        k_start = 0
-        if resume:
-            state, k_start = self.resume_state(checkpoint_path)
-            Q, p = state["Q"], state["p"]
-        self.step_counts = []
-        for k in range(k_start, nt):
-            with PerformanceLog("timestep"):
-                f_nodal = self.disc.interpolate_velocity(f_rhs(k * self._dt))
-                Q, p, it_tent, it_p = self.step(Q, p, f_nodal)
-                synchronize(Q)
-            self.step_counts.append(dict(tentative=[it_tent], pressure=[it_p]))
-            if checkpoint_every and (k + 1) % checkpoint_every == 0:
-                self.save_state(checkpoint_path, k + 1, {"Q": Q, "p": p})
-        return Q, p
+    def advance(self, Q, p, f_nodal):
+        """:meth:`step` with its counts as ``self.step_counts`` keeps them."""
+        Q, p, it_tent, it_p = self.step(Q, p, f_nodal)
+        return Q, p, dict(tentative=[it_tent], pressure=[it_p])

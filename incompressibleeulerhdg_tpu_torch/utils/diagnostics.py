@@ -5,6 +5,7 @@ without an exact solution and for comparing two drivers.
   checks of tests/test_integration_extra.py (the energy ratio E(T)/E(0) and
   the L2 norm of the divergence of the final velocity), computed on the
   device and in the dtype of the discretisation they are given;
+- ``tracer_norm``: the L2 norm of a tracer field;
 - ``averaged_counts``: the "average number of solver iterations" block that
   the HDG IMEX ``solve`` of either package prints, as a dict.
 """
@@ -15,7 +16,8 @@ import torch
 
 from ..ops import fields as F
 
-__all__ = ["kinetic_energy", "divergence_norm", "flow_diagnostics", "averaged_counts"]
+__all__ = ["kinetic_energy", "divergence_norm", "flow_diagnostics", "tracer_norm",
+           "averaged_counts"]
 
 
 def kinetic_energy(geom, Q):
@@ -37,6 +39,14 @@ def flow_diagnostics(disc, problem, Q):
     Q = torch.as_tensor(Q).to(device=geom.device, dtype=geom.dtype)
     Q0 = disc.interpolate_velocity(problem.initial_condition()[0])
     return kinetic_energy(geom, Q) / kinetic_energy(geom, Q0), divergence_norm(geom, Q)
+
+
+def tracer_norm(disc, q):
+    """L2 norm of a (d0, nc) tracer (a tensor or an array, moved to
+    ``disc``'s device and dtype)."""
+    geom = disc.geom
+    q = torch.as_tensor(q).to(device=geom.device, dtype=geom.dtype)
+    return float(torch.sqrt(F.l2_norm_sq(geom, geom.phi0, q)))
 
 
 def averaged_counts(out):

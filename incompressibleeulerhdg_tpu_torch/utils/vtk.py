@@ -1,15 +1,17 @@
-"""Minimal VTK output: .vtu unstructured-grid files.
+"""Minimal VTK output: .vtu unstructured-grid files + .pvd time-series index.
 
-The port's own copy of the part of incompressibleeulerhdg_tpu/utils/vtk.py
-that the driver writes (``solution.vtu``); the .pvd time series of
-``--animation`` waits for ROADMAP M12.  DG fields are written on a
-disconnected triangulation (each cell contributes its own three corner
-points), which renders DG discontinuities faithfully in ParaView.
+The port's own copy of incompressibleeulerhdg_tpu/utils/vtk.py: the driver's
+``solution.vtu`` and the ``--animation`` series (``evolution.pvd`` with one
+``evolution_<index>.vtu`` a step).  DG fields are written on a disconnected
+triangulation (each cell contributes its own three corner points), which
+renders DG discontinuities faithfully in ParaView.
 """
+
+import os
 
 import numpy as np
 
-__all__ = ["write_vtu", "sample_dg_at_corners"]
+__all__ = ["write_vtu", "VTKTimeSeries", "sample_dg_at_corners"]
 
 _CORNERS = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
 
@@ -80,3 +82,34 @@ def write_vtu(filename, mesh, point_data=None):
     a("</VTKFile>")
     with open(filename, "w") as f:
         f.write("\n".join(lines))
+
+
+class VTKTimeSeries:
+    """.pvd collection of timestamped .vtu files (Firedrake VTKFile analogue)."""
+
+    def __init__(self, filename):
+        if not filename.endswith(".pvd"):
+            raise ValueError(f"a VTK time series is a .pvd file, got {filename!r}")
+        self.filename = filename
+        self.base = filename[:-4]
+        self.entries = []
+        os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+
+    def write(self, mesh, point_data, time=None):
+        idx = len(self.entries)
+        vtu = f"{self.base}_{idx:05d}.vtu"
+        write_vtu(vtu, mesh, point_data)
+        self.entries.append((time if time is not None else float(idx), os.path.basename(vtu)))
+        self._write_pvd()
+
+    def _write_pvd(self):
+        lines = [
+            '<?xml version="1.0"?>',
+            '<VTKFile type="Collection" version="0.1" byte_order="LittleEndian">',
+            "<Collection>",
+        ]
+        for t, name in self.entries:
+            lines.append(f'<DataSet timestep="{t}" group="" part="0" file="{name}"/>')
+        lines += ["</Collection>", "</VTKFile>"]
+        with open(self.filename, "w") as f:
+            f.write("\n".join(lines))

@@ -381,7 +381,7 @@ def test_kelvin_helmholtz_disk_end_to_end():
     problem = TPB.KelvinHelmholtz(disc)
     Q0e, p0e = problem.initial_condition()
     E0 = kinetic_energy(disc.geom, disc.interpolate_velocity(Q0e))
-    Q, _ = stepper.solve(Q0e, p0e, problem.f_rhs(), 0.25)
+    Q, _ = stepper.solve(Q0e, p0e, None, problem.f_rhs(), 0.25)
     assert bool(torch.isfinite(Q).all()) and problem.solution(0.25) is None
     E1 = kinetic_energy(disc.geom, Q)
     assert 0.2 * E0 <= E1 <= 1.05 * E0, (E0, E1)

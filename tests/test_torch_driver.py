@@ -7,8 +7,9 @@
   the projection run);
 - ``--test_pressure_solver``: the same iteration count;
 - checkpoint every step, then resume: the final state equals a straight run;
-- the flags outside the port raise NotImplementedError before any work, and
-  the JAX driver's checks of invalid combinations keep their exceptions;
+- ``--n_devices > 1``, the one flag outside the port, raises
+  NotImplementedError before any work, and the JAX driver's checks of
+  invalid combinations keep their exceptions;
 - ``--device cuda`` without a card exits non-zero;
 - the constant forcing of the Taylor-Green problem matches the JAX package.
 """
@@ -114,10 +115,6 @@ def test_warmup_takes_one_step(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--discretisation", "dg", "--timestepper", "implicit"],
-    ["--discretisation", "conforming", "--timestepper", "implicit"],
-    ["--tracer_advection"],
-    ["--animation"],
     ["--n_devices", "2"],
 ], ids=lambda f: "_".join(a.strip("-") for a in f))
 def test_out_of_slice_flags_raise(tmp_path, monkeypatch, flags):

@@ -23,11 +23,15 @@ PORT_MODULES = [
     "incompressibleeulerhdg_tpu_torch.fem.lagrange",
     "incompressibleeulerhdg_tpu_torch.fem.spaces",
     "incompressibleeulerhdg_tpu_torch.fem.discretisation",
+    "incompressibleeulerhdg_tpu_torch.fem.cg",
     "incompressibleeulerhdg_tpu_torch.ops.structured",
     "incompressibleeulerhdg_tpu_torch.ops.fields",
     "incompressibleeulerhdg_tpu_torch.ops.forms",
     "incompressibleeulerhdg_tpu_torch.ops.projection",
     "incompressibleeulerhdg_tpu_torch.ops.reconstruction",
+    "incompressibleeulerhdg_tpu_torch.ops.rt",
+    "incompressibleeulerhdg_tpu_torch.ops.tracer",
+    "incompressibleeulerhdg_tpu_torch.ops.vorticity",
     "incompressibleeulerhdg_tpu_torch.models.problems",
     "incompressibleeulerhdg_tpu_torch.linalg.condense",
     "incompressibleeulerhdg_tpu_torch.linalg.krylov",
@@ -40,6 +44,8 @@ PORT_MODULES = [
     "incompressibleeulerhdg_tpu_torch.timesteppers.common",
     "incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex",
     "incompressibleeulerhdg_tpu_torch.timesteppers.hdg_implicit",
+    "incompressibleeulerhdg_tpu_torch.timesteppers.dg_implicit",
+    "incompressibleeulerhdg_tpu_torch.timesteppers.conforming_implicit",
     "incompressibleeulerhdg_tpu_torch.linalg.monolithic",
     "incompressibleeulerhdg_tpu_torch.cli.driver",
     "incompressibleeulerhdg_tpu_torch.tools.microbench_gj",
@@ -50,6 +56,8 @@ PORT_MODULES = [
     "incompressibleeulerhdg_tpu_torch.utils.checkpoint",
     "incompressibleeulerhdg_tpu_torch.utils.vtk",
     "incompressibleeulerhdg_tpu_torch.utils.diagnostics",
+    "incompressibleeulerhdg_tpu_torch.utils.callbacks",
+    "incompressibleeulerhdg_tpu_torch.utils.grid",
     "chip_smoke",
 ]
 

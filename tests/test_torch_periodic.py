@@ -108,7 +108,7 @@ def test_shear_layer_periodic_end_to_end():
     problem = TPB.DoubleLayerShearFlow(disc)
     Q0e, p0e = problem.initial_condition()
     E0 = kinetic_energy(disc.geom, disc.interpolate_velocity(Q0e))
-    Q, _ = stepper.solve(Q0e, p0e, problem.f_rhs(), 0.25)
+    Q, _ = stepper.solve(Q0e, p0e, None, problem.f_rhs(), 0.25)
     assert bool(torch.isfinite(Q).all()) and problem.solution(0.25) is None
     E1 = kinetic_energy(disc.geom, Q)
     assert 0.5 * E0 <= E1 <= 1.05 * E0, (E0, E1)
@@ -140,14 +140,15 @@ def test_jax_reference_tool_matches_port_run():
     from incompressibleeulerhdg_tpu_torch.tools import jax_reference as JR
 
     args = JR.build_parser().parse_args(["--problem", "shear", "--nx", "6", "--degree", "1",
-                                         "--dt", "0.05", "--steps", "2", "--device", "cpu"])
+                                         "--dt", "0.05", "--steps", "2", "--device", "cpu",
+                                         "--use_projection_method"])
     ref = JR.run_reference(args)
     assert ref["jax_devices"].startswith("[Cpu") and ref["t_final"] == pytest.approx(0.1)
     assert ref["timers"]["timestep"][0] == 2
     disc = TDisc(TM.periodic_square_mesh(6), 1, device="cpu")
     stepper = TSSP2(disc, 0.05)
     problem = TPB.DoubleLayerShearFlow(disc)
-    Q, _ = stepper.solve(*problem.initial_condition(), problem.f_rhs(), 0.1)
+    Q, _ = stepper.solve(*problem.initial_condition(), None, problem.f_rhs(), 0.1)
     counts = {"tentative velocity": stepper.niter_tentative.value,
               "pressure": stepper.niter_pressure.value,
               "final pressure": stepper.niter_final_pressure.value,

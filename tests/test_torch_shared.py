@@ -2,7 +2,8 @@
 originals on the same inputs: the unit-square, periodic-square and unit-disk
 meshes (C++ kernel and numpy plain version, colourings included), the shear
 problem's Fourier coefficients, the IMEX tableaus, the quadrature rules,
-Lagrange bases and space tabulations, and the checkpoint format."""
+Lagrange bases and space tabulations, the checkpoint format, the VTK time
+series and the grid spacing."""
 
 import dataclasses
 
@@ -18,6 +19,8 @@ from incompressibleeulerhdg_tpu.mesh import generators as JG
 from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh as j_unit_square
 from incompressibleeulerhdg_tpu.timesteppers import tableaus as JT
 from incompressibleeulerhdg_tpu.utils import checkpoint as JC
+from incompressibleeulerhdg_tpu.utils import grid as JGr
+from incompressibleeulerhdg_tpu.utils import vtk as JV
 from incompressibleeulerhdg_tpu_torch.fem import lagrange as TL
 from incompressibleeulerhdg_tpu_torch.fem import quadrature as TQ
 from incompressibleeulerhdg_tpu_torch.fem import spaces as TS
@@ -27,6 +30,8 @@ from incompressibleeulerhdg_tpu_torch.mesh import triangle_mesh as TTM
 from incompressibleeulerhdg_tpu_torch.mesh import unit_square_mesh as t_unit_square
 from incompressibleeulerhdg_tpu_torch.timesteppers import tableaus as TT
 from incompressibleeulerhdg_tpu_torch.utils import checkpoint as TC
+from incompressibleeulerhdg_tpu_torch.utils import grid as TGr
+from incompressibleeulerhdg_tpu_torch.utils import vtk as TV
 
 torch.set_num_threads(1)
 
@@ -158,3 +163,33 @@ def test_checkpoint_format_shared(tmp_path, writer):
     np.testing.assert_array_equal(got["p"], state["p"])
     with pytest.raises(ValueError, match="mismatch"):
         load(str(path), expect_config={"nx": 8})
+
+
+def test_vtk_time_series_equals_jax(tmp_path):
+    """Both packages' VTKTimeSeries write the same .pvd index and the same
+    .vtu files, byte for byte, for the same fields and times (the default
+    time is the entry's index)."""
+    mesh = t_unit_square(3)
+    rng = np.random.default_rng(3)
+    frames = [({"velocity": rng.standard_normal((mesh.n_cells, 3, 2)),
+                "pressure": rng.standard_normal((mesh.n_cells, 3))}, t) for t in (0.0, 0.05, None)]
+    for pkg, name in ((JV, "jax"), (TV, "port")):
+        series = pkg.VTKTimeSeries(str(tmp_path / name / "evolution.pvd"))
+        for fields, t in frames:
+            series.write(mesh, fields, time=t)
+    files = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert files == ["evolution.pvd"] + [f"evolution_{i:05d}.vtu" for i in range(3)]
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == files
+    for f in files:
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+    assert 'timestep="2.0"' in (tmp_path / "port" / "evolution.pvd").read_text()
+    with pytest.raises(ValueError, match=".pvd"):
+        TV.VTKTimeSeries(str(tmp_path / "evolution.vtu"))
+
+
+@pytest.mark.parametrize("gen, arg", [("unit_square_mesh", 5), ("periodic_square_mesh", 6),
+                                      ("unit_disk_mesh", 2)])
+def test_gridspacing_equals_jax(gen, arg):
+    jm, tm = getattr(JG, gen)(arg), getattr(TG, gen)(arg)
+    h = TGr.gridspacing(tm)
+    assert h == JGr.gridspacing(jm) and 0 < h[0] <= h[1]

@@ -112,7 +112,7 @@ def _solve_errors(cls, nx, dt, tfinal):
     stepper = cls(disc, dt)
     problem = TTG(disc)
     Q0, p0 = problem.initial_condition()
-    Q, p = stepper.solve(Q0, p0, problem.f_rhs(), tfinal)
+    Q, p = stepper.solve(Q0, p0, None, problem.f_rhs(), tfinal)
     Q_exact, p_exact = problem.solution(tfinal)
     return stepper.velocity_error_norm(Q, Q_exact), stepper.pressure_error_norm(p, p_exact)
 
