@@ -48,8 +48,8 @@ Phases, each printing its own lines:
    K1-K3 (dense tables); each validated on finite state, the L2 error
    bounds ((e), (f): the kinetic energy ratio and, (f), the divergence
    bound of the JAX package's tests) and nonzero iteration counts, with
-   set-up and s/step printed; then (g) DG implicit at 256^2, k=2, two
-   steps (the coupled FGMRES, K1-K4); (h) the conforming RT1 x DG0 scheme,
+   set-up and s/step printed; then (g) DG implicit at 256^2, k=2, one
+   step (the coupled FGMRES, K1-K4); (h) the conforming RT1 x DG0 scheme,
    projection, at 256^2, two steps, and (i) its monolithic branch (the CLI
    default) in float64 at 16^2, two steps, neither of which launches a
    kernel; (j) the main path's configuration with ``--tracer_advection
@@ -61,12 +61,25 @@ Phases, each printing its own lines:
    its first stage build, recorded during the run, against its plain
    version in float32 and float64, with times, bytes, bound and
    ``torch.linalg.inv`` on the same blocks;
+6c. (k) the main path's configuration slab-decomposed over 2 ranks (the
+   ``--n_devices`` path: ``stepper.distribute``, ``parallel.launch``),
+   one warm-up and 2 timed steps; with one card the ranks share cuda:0
+   through gloo (a check of the distributed numbers, not of scaling), with
+   two or more cards NCCL also runs one rank per card.  Validates the bench
+   gates, the state against the single-rank main path's after as many
+   steps, no gather inside a step, every kernel of the path launched; each
+   rank then holds K1-K3 on its slab-local colour layout and K4 on its
+   stage build's own-cell and Schur batches against their plain versions,
+   with times, bytes and bounds; prints both runs' counts, each rank's peak
+   memory, halo exchanges and all-reduces a step and s/step;
 7. the launch check: every kernel K1-K5 launched on some path.
 
 The JSON line before the card's name and power limit has one entry per
 kernel (route, source, the TPU kernel it replaces, launches by path and per
 timed main-path step, errors, ms, plain_ms, bytes, bound_ms, bound_by,
-pct_bound, library_ms, timers); the last line is ``{"ok": true, "device": {...}}``.
+pct_bound, library_ms, timers; K1-K4 also ``*_slab``: phase (k)'s slab
+shape, error, times, bound and launches a step over the ranks); the last
+line is ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it.
 """
 
@@ -115,7 +128,9 @@ ERROR_VELOCITY_MAX_MONOLITHIC = 2.0e-3
 # (g) DG implicit 256^2, k=2, float32, dt = 1/256, two steps; its coupled
 #     FGMRES stops at its cap, as the monolithic HDG stage solve does, so
 #     the unconverged residual sets the error (the port's was 1.85e-4 and
-#     6.13e-4 in the same call);
+#     6.13e-4 in the same call).  Run (g) now takes one step (about 60 s),
+#     held to the same bound, which keeps the script under 600 s beside
+#     phase (k);
 # (h) conforming, projection, 256^2, float32, two steps (RT1 x DG0: first
 #     order in space);
 # (i) conforming, monolithic, 16^2, float64, two steps.  Run (i) is reduced
@@ -140,6 +155,14 @@ ENERGY_RANGE = {"e": (0.5, 1.05), "f": (0.2, 1.05)}
 DIVERGENCE_MAX_KH = 1.0e-3
 DENSE_PATH_KERNELS = ("gauss_jordan",)
 MAIN_PATH_KERNELS = ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan")
+# phase (k): the main path's configuration slab-decomposed over 2 ranks, one
+# warm-up and 2 timed steps; its state is held to the single-rank main
+# path's after as many steps, to 1e-4 of its largest entry (float32 Krylov
+# tolerances; the two runs differ in the order of the sums)
+SLAB_RANKS = 2
+SLAB_STEPS = 2
+SLAB_STATE_RTOL = 1.0e-4
+SLAB_TIMEOUT = 900
 # the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
 # 700 W): its bytes (each input read once, each output written once) over
 # the 3.35 TB/s of HBM, or its floating-point operations (an FMA is two)
@@ -660,6 +683,8 @@ def main_path(card):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         all_counts.append(counts)
+        if k + 2 == 1 + SLAB_STEPS:  # phase (k)'s state: after its warm-up and timed steps
+            slab_ref = (sQ[0].cpu(), all_counts[:])
     launches = dict(kernels.LAUNCHES)
     launches_step = {n: (launches[n] - before[n]) / N_STEPS for n in launches}
 
@@ -687,7 +712,7 @@ def main_path(card):
     missing = [n for n in MAIN_PATH_KERNELS if launches[n] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    return launches, launches_step
+    return launches, launches_step, slab_ref
 
 
 def driver_runs():
@@ -721,7 +746,7 @@ def driver_runs():
     dg, conf = ["--discretisation", "dg"], ["--discretisation", "conforming"]
     runs += [
         ("g", f"DG implicit {NX}^2 k=2", ERROR_BOUNDS["g"],
-         ["--nx", NX, "--degree", DEGREE, "--tfinal", 2 * dt, *dg, "--timestepper", "implicit"]),
+         ["--nx", NX, "--degree", DEGREE, "--tfinal", dt, *dg, "--timestepper", "implicit"]),
         ("h", f"conforming RT1 x DG0, projection, {NX}^2", ERROR_BOUNDS["h"],
          ["--nx", NX, "--tfinal", 2 * dt, *conf, "--timestepper", "implicit",
           "--use_projection_method"]),
@@ -877,6 +902,194 @@ def check_flow_run(key, label, res, setup_s, steps, wall, counts, its, finite, l
         fail(f"driver run ({key}): a Krylov solve took zero iterations")
 
 
+def slab_stage_tables(stepper, state):
+    """The tentative operator of a stage build on this rank's slab and the
+    batches it handed K4 (own cells, then colour 0's Schur blocks); a
+    collective: every rank builds at once."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.ops.forms import star_fields
+    from incompressibleeulerhdg_tpu_torch.ops.projection import project_bdm
+
+    geom = stepper.geom
+    star = star_fields(geom, project_bdm(geom, stepper._proj, state[0][0]))
+    k4 = []
+    with recording_k4_inputs(k4):
+        op = P.build_tentative_operator(geom, star, float(stepper.tableau.a_impl[1][1]) * stepper._dt)
+    return op, k4
+
+
+def slab_kernel_checks(geom, op, k4, rank):
+    """Phase (k) on one rank: K1-K3 on this rank's slab-local colour layout
+    (random fields on the stage build's real tables) and K4 on the own-cell
+    and first Schur batch of that build (held per block, as phase 6b), each
+    against its plain version in float32, the run's dtype; device times,
+    bytes and bounds of K1, K2 (full layout), K3 (colour 1) and K4 (own
+    cells)."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+
+    dtype, dev = geom.dtype, geom.device
+    d1, nc, nf, b = geom.d1, geom.n_cells, geom.n_facets, geom.fcol_bounds
+    nu = 2 * d1
+    rng = np.random.default_rng(7 + rank)
+    rnd = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+    x, u0, u1 = rnd(nu, nc), rnd(nu, nf), rnd(nu, nf)
+    halves = (0, nc // 2, nc)
+    holds = Holds(f"slab rank {rank}")
+    colour = {}
+    for k in range(len(b) - 1):
+        m = b[k + 1] - b[k]
+        r = (rnd(nu, m), rnd(nu, m))
+        pargs = (op.Dinv0, op.Sinv, op.Ks01, op.Ks10, op.Bp[k], op.Cp[k], *r, b[k])
+        holds.check("patch_solve", dtype, P.patch_solve(*pargs), P.patch_solve_plain(*pargs))
+        cargs = (op.Ks01, op.Ks10, op.Bp[k:k + 1], op.Cp[k:k + 1], (0, m), *r)
+        holds.check("cross_pair", dtype, P.cross_pair(*cargs, aoff=b[k]),
+                    P.cross_pair_plain(*cargs, aoff=b[k]))
+        colour[k] = pargs
+    for G in k4:
+        holds.check("gauss_jordan", dtype, smallinv.gauss_jordan_inv_bl(G),
+                    smallinv.gauss_jordan_inv_plain(G), per_block=True, rel_tol=TOL_GJ_F32_ABS)
+    G, m1 = k4[0], b[2] - b[1]
+    timed = {
+        "fact_apply": (lambda: P.fact_apply(op.Sown, op.Pcell, halves, x),
+                       lambda: P.fact_apply_plain(op.Sown, op.Pcell, halves, x),
+                       work("fact_apply", dtype, d1, nc, 2), f"({d1},{d1},{nc}), 2 halves"),
+        "cross_pair": (lambda: P.cross_pair(op.Ks01, op.Ks10, op.Bp, op.Cp, b, u0, u1),
+                       lambda: P.cross_pair_plain(op.Ks01, op.Ks10, op.Bp, op.Cp, b, u0, u1),
+                       work("cross_pair", dtype, d1, nf, 3),
+                       f"2 x ({d1},{d1},{nf}), colours at {b[:3]} + tail {nf - b[3]}"),
+        "patch_solve": (lambda: P.patch_solve(*colour[1]), lambda: P.patch_solve_plain(*colour[1]),
+                        work("patch_solve", dtype, d1, m1), f"colour 1: {m1} at offset {b[1]}"),
+        "gauss_jordan": (lambda: smallinv.gauss_jordan_inv_bl(G),
+                         lambda: smallinv.gauss_jordan_inv_plain(G),
+                         work("gauss_jordan", dtype, d1, G.shape[2], n=nu),
+                         f"{tuple(G.shape)} own cells; Schur {tuple(k4[1].shape)}"),
+    }
+    for name, (kern, plain, (nbytes, flops), shape) in timed.items():
+        if name != "gauss_jordan":
+            holds.check(name, dtype, kern(), plain())
+        holds.timed(name, dtype, kern, plain, nbytes, flops)
+        holds.results[name]["shape"] = shape
+    return holds.results
+
+
+def slab_rank(comm, device, steps):
+    """Phase (k), one rank: the main path's configuration on this rank's
+    slab (set-up, initial trace, one warm-up step, ``steps`` timed steps),
+    then its kernels on the slab's tables, one rank at a time.  Returns its
+    times, counts, launches, collectives a step and peak memory; rank 0
+    also the gathered state and its errors."""
+    from incompressibleeulerhdg_tpu_torch import kernels
+    from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
+    from incompressibleeulerhdg_tpu_torch.mesh import unit_square_mesh
+    from incompressibleeulerhdg_tpu_torch.models.problems import TaylorGreen
+    from incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex import (
+        IncompressibleEulerHDGIMEXSSP2_332,
+    )
+
+    dt = 1.0 / NX
+    t0 = time.perf_counter()
+    disc = HDGDiscretisation(unit_square_mesh(NX), DEGREE, dtype=torch.float32, device="cpu")
+    stepper = IncompressibleEulerHDGIMEXSSP2_332(disc, dt)
+    problem = TaylorGreen(disc)
+    stepper.distribute(comm, device)
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+    f_rhs = problem.f_rhs()
+    state = stepper.initial_state(*problem.initial_condition())
+    t0 = time.perf_counter()
+    *state, counts = stepper.step(*state, 0.0, f_rhs)
+    torch.cuda.synchronize(device)
+    warmup_s = time.perf_counter() - t0
+    all_counts = [counts]
+    kernels.reset_launches()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    step_s = []
+    for k in range(1, steps + 1):
+        t0 = time.perf_counter()
+        *state, counts = stepper.step(*state, k * dt, f_rhs)
+        torch.cuda.synchronize(device)
+        step_s.append(time.perf_counter() - t0)
+        all_counts.append(counts)
+    out = dict(rank=comm.rank, setup_s=setup_s, warmup_s=warmup_s, step_s=step_s,
+               counts=all_counts, launches=dict(kernels.LAUNCHES),
+               per_step={k: v / steps for k, v in comm.counts.items()},
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               table_mib=stepper.dec.table_bytes() / 2**20)
+    Q, p = stepper.gather(state[0][0]), stepper.gather(state[1][0])
+    if comm.rank == 0:
+        Q_exact, p_exact = problem.solution((1 + steps) * dt)
+        out.update(Q=Q, finite=bool(torch.isfinite(Q).all() and torch.isfinite(p).all()),
+                   err_vel=stepper.velocity_error_norm(Q, Q_exact),
+                   err_p=stepper.pressure_error_norm(p, p_exact))
+    op, k4 = slab_stage_tables(stepper, state)
+    for r in range(comm.size):  # one rank at a time on the card
+        if r == comm.rank:
+            out["kernels"] = slab_kernel_checks(stepper.geom, op, k4, comm.rank)
+        comm.barrier()
+    return out
+
+
+def slab_phase(card, Q_single, counts_single):
+    """Phase (k): the main path slab-decomposed over SLAB_RANKS ranks; with
+    one card they share cuda:0 through gloo (a check of the distributed
+    numbers and kernels, not of scaling), with enough cards NCCL runs one
+    rank per card as well.  Fails on a rank's failure, the bench gates, a
+    state that leaves the single-rank run's, a gather inside a step, or a
+    kernel of the path never launched.  Returns the launches summed over the
+    ranks of the (first) run and rank 0's kernel rows."""
+    from incompressibleeulerhdg_tpu_torch.parallel.launch import run_ranks
+
+    modes = [True] + ([False] if torch.cuda.device_count() >= SLAB_RANKS else [])
+    first = None
+    for shared in modes:
+        label = (f"{SLAB_RANKS} ranks sharing one card (cuda:0, gloo through host memory; "
+                 f"no scaling measured)" if shared else f"{SLAB_RANKS} ranks, one card each (NCCL)")
+        print(f"# phase (k): {label}", flush=True)
+        t0 = time.perf_counter()
+        out = run_ranks(slab_rank, SLAB_RANKS, args=(SLAB_STEPS,), device="cuda",
+                        share_device=shared, timeout=SLAB_TIMEOUT)
+        wall = time.perf_counter() - t0
+        r0 = out[0]
+        diff = float((r0["Q"] - Q_single).abs().max()) / float(Q_single.abs().max())
+        strip = lambda cs: [{k: v for k, v in c.items() if k != "max_relres"} for c in cs]
+        for r in out:
+            print(f"# phase (k) rank {r['rank']}: setup {r['setup_s']:.2f} s, warm-up "
+                  f"{r['warmup_s']:.3f} s, {sum(r['step_s']) / len(r['step_s']):.4f} s/step "
+                  f"(steps {[round(t, 4) for t in r['step_s']]}) | a step: {r['per_step']} | "
+                  f"peak {r['peak_gib']:.3f} GiB, slab tables {r['table_mib']:.1f} MiB | "
+                  f"launches {r['launches']} | {label} | card {card}", flush=True)
+        print(f"# phase (k) {NX}^2 k={DEGREE} float32 SSP2 over {SLAB_RANKS} ranks: wall "
+              f"{wall:.1f} s | iters {strip(r0['counts'])} (single rank {strip(counts_single)}) "
+              f"| err velocity {r0['err_vel']:.3e} pressure {r0['err_p']:.3e} | "
+              f"max|Q_dist - Q_single| / max|Q_single| {diff:.3e} (bound {SLAB_STATE_RTOL:.0e})",
+              flush=True)
+        if not r0["finite"]:
+            fail("phase (k): non-finite state")
+        if not (r0["err_vel"] < ERROR_VELOCITY_MAX and r0["err_p"] < ERROR_PRESSURE_MAX):
+            fail(f"phase (k): errors above bound: velocity {r0['err_vel']:.3e} "
+                 f"pressure {r0['err_p']:.3e}")
+        if not diff <= SLAB_STATE_RTOL:
+            fail(f"phase (k): the distributed state differs from the single-rank one by {diff:.3e}")
+        if any(r["per_step"]["gather"] or not r["per_step"]["halo"] for r in out):
+            fail("phase (k): a step gathered, or exchanged no halo")
+        launches = {n: sum(r["launches"][n] for r in out) for n in out[0]["launches"]}
+        missing = [n for n in MAIN_PATH_KERNELS if launches[n] == 0]
+        if missing:
+            fail(f"phase (k): kernels never launched on the slab path: {missing}")
+        for name, e in r0["kernels"].items():
+            print(f"# kernel {name} on rank 0's slab ({e['shape']}): rel err f32 "
+                  f"{e['rel']['float32']:.3e} (rank 1 {out[1]['kernels'][name]['rel']['float32']:.3e})"
+                  f" | kernel {e['ms']:.4f} ms plain {e['plain_ms']:.4f} ms | {e['bytes'] / 1e6:.1f} MB, "
+                  f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+                  f"{pct_bound(e['bound_ms'], e['ms'], name):.1f}% of bound | launches a step "
+                  f"{launches[name] / SLAB_STEPS:.1f} over the ranks (timer {'/'.join(e['timers'])})",
+                  flush=True)
+        first = first or (launches, r0["kernels"])
+    return first
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "incompressibleeulerhdg_tpu_torch" / "csrc").is_dir():
@@ -890,7 +1103,7 @@ def main():
     print(f"# kernel build: {build_s:.2f} s ({', '.join(kernels.KERNELS)})", flush=True)
     main_cmp = compare_kernels(NX, DEGREE)
     new_cmp = compare_periodic_shapes()
-    main_launches, launches_step = main_path(card)
+    main_launches, launches_step, slab_ref = main_path(card)
     launches = {"main": main_launches}
     wide_cmp = compare_kernels(WIDE_NX, WIDE_DEGREE)
     spill = ptxas_summary()
@@ -902,6 +1115,8 @@ def main():
         fail(f"run (f) handed K4 {len(disk_k4)} batches to record, not 2")
     new_cmp.update(compare_disk_blocks(disk_k4))
     del disk_k4
+    slab_launches, slab_cmp = slab_phase(card, *slab_ref)
+    launches["k"] = slab_launches
 
     rows = []
     for name in kernels.KERNELS:
@@ -940,6 +1155,13 @@ def main():
         for sfx in ("_periodic", "_periodic_color", "_disk_own", "_disk_schur"):
             if f"ms{sfx}" in n:
                 row[f"pct_bound{sfx}"] = pct_bound(n[f"bound_ms{sfx}"], n[f"ms{sfx}"], name)
+        if name in slab_cmp:
+            e = slab_cmp[name]
+            row.update(shape_slab=e["shape"], max_abs_err_slab=e["abs"]["float32"],
+                       ms_slab=e["ms"], plain_ms_slab=e["plain_ms"], bytes_slab=e["bytes"],
+                       bound_ms_slab=e["bound_ms"], bound_by_slab=e["bound_by"],
+                       pct_bound_slab=pct_bound(e["bound_ms"], e["ms"], name),
+                       launches_slab_per_step=slab_launches[name] / SLAB_STEPS)
         rows.append(row)
     missing = [row["name"] for row in rows if row["launches"] == 0]
     if missing:

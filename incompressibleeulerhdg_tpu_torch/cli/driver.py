@@ -9,10 +9,14 @@ the unit square, the double shear layer on the periodic square,
 Kelvin-Helmholtz on the unit disk) with the HDG IMEX and HDG implicit
 schemes (projection or monolithic), DG implicit and conforming RT1 x DG0
 implicit (projection or monolithic), optionally advecting a tracer and
-writing the ``evolution.pvd`` animation, on one device; ``--device`` picks
-it (default ``cuda``; no card is an error, never a silent CPU run).
-``--n_devices > 1`` raises NotImplementedError, naming its ROADMAP item,
-before any work.
+writing the ``evolution.pvd`` animation; ``--device`` picks the device
+(default ``cuda``; no card is an error, never a silent CPU run).
+``--n_devices N`` runs the slab decomposition of the structured meshes
+(parallel/slab.py) on N ranks, one process each (rank r on ``cuda:r``, or
+on the CPU with ``--device cpu``), wherever the JAX package takes its slab
+path; rank 0 prints and writes the outputs from the state gathered at the
+end.  The cases the JAX package runs on its GSPMD sharding instead raise
+NotImplementedError, naming ROADMAP M14b, before any work.
 
 Run:  python -m incompressibleeulerhdg_tpu_torch.cli.driver --help
 """
@@ -26,6 +30,7 @@ from ..fem.discretisation import HDGDiscretisation
 from ..mesh import periodic_square_mesh, unit_disk_mesh, unit_square_mesh
 from ..models.problems import DoubleLayerShearFlow, KelvinHelmholtz, TaylorGreen
 from ..ops import fields as F
+from ..parallel.slab import check_split
 from ..timesteppers.common import to_host
 from ..timesteppers.conforming_implicit import IncompressibleEulerConformingImplicit
 from ..timesteppers.dg_implicit import IncompressibleEulerDGImplicit
@@ -99,7 +104,7 @@ def build_parser():
 
 def check_args(args):
     """The JAX driver's checks of invalid combinations, then refusal of the
-    one flag the port does not run yet."""
+    ``--n_devices`` cases the port does not run."""
     if args.discretisation == "conforming" and args.timestepper != "implicit":
         raise RuntimeError(
             f"Invalid timestepping method for conforming discretisation: '{args.timestepper}'")
@@ -110,8 +115,25 @@ def check_args(args):
             raise RuntimeError(
                 f"Invalid timestepping method for DG discretisation: '{args.timestepper}'")
     if args.n_devices > 1:
+        check_distributed_args(args)
+
+
+def check_distributed_args(args):
+    """``--n_devices`` where the JAX package takes its slab path; its GSPMD
+    cases raise NotImplementedError naming M14b."""
+    n = args.n_devices
+    gspmd = None
+    if args.problem == "kelvinhelmholtz":
+        gspmd = "the unstructured unit disk"
+    elif args.discretisation == "conforming":
+        gspmd = "the conforming scheme"
+    elif args.tracer_advection and args.timestepper == "implicit":
+        gspmd = "the tracer under HDG or DG implicit"
+    if gspmd:
         raise NotImplementedError(
-            "not ported to PyTorch yet: --n_devices > 1 (ROADMAP Queue 1, M14)")
+            f"--n_devices {n} with {gspmd}: the JAX package runs it on its GSPMD sharding, "
+            f"not ported (ROADMAP Queue 1, M14b)")
+    check_split(args.nx, n, args.problem == "shear")
 
 
 def select_device(name):
@@ -166,22 +188,45 @@ def tracer_initial_condition(x, y):
 
 
 def main(argv=None):
-    """Run the driver; returns a dict with the timestepper and, where
-    computed, the error norms or the pressure-solver benchmark's numbers."""
+    """Run the driver; returns a dict with the timestepper (on one device),
+    each step's iteration counts and, where computed, the final state, the
+    error norms or the pressure-solver benchmark's numbers.  With
+    ``--n_devices N`` the dict is rank 0's, without the timestepper."""
     args = build_parser().parse_args(argv)
     check_args(args)
-    device = select_device(args.device)
-    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    if args.n_devices > 1:
+        from ..parallel.launch import run_ranks
 
+        return run_ranks(_run_rank, args.n_devices, args=(args,), device=args.device)[0]
+    return run(args, select_device(args.device))
+
+
+def _run_rank(comm, device, args):
+    """One rank of a ``--n_devices`` run: :func:`run` without the
+    timestepper in its result (it stays in the rank's process)."""
+    res = run(args, device, comm)
+    res.pop("timestepper")
+    return res
+
+
+def run(args, device, comm=None):
+    """The driver's work on ``device``; with ``comm``, as one rank of a
+    slab-decomposed run (the global tables are built on the host, then each
+    rank keeps its slab's on its device; rank 0 prints and writes)."""
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    root = comm is None or comm.rank == 0
     with PerformanceLog("setup"):
         mesh = make_mesh(args)
         degree = args.degree
         if args.discretisation == "conforming":
             print("Warning: ignoring degree for conforming method")
             degree = 0
-        disc = HDGDiscretisation(mesh, degree, dtype=dtype, device=device)
+        disc = HDGDiscretisation(mesh, degree, dtype=dtype,
+                                 device=device if comm is None else "cpu")
         callbacks = [AnimationCallback(disc, "evolution.pvd")] if args.animation else None
         timestepper = make_timestepper(args, disc, callbacks)
+        if comm is not None:
+            timestepper.distribute(comm, device)
 
     print("+-------------------------------------------------+")
     print("! timesteppers for incompressible Euler equations !")
@@ -206,6 +251,8 @@ def main(argv=None):
     print(f"advect tracer = {args.tracer_advection}")
     print(f"timestepping method = {timestepper.label}")
     print(f"dtype = {args.dtype}")
+    if comm is not None:
+        print(f"distributed over {comm.size} devices")
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
     print(f"torch device = {device} ({name})")
     print()
@@ -234,6 +281,9 @@ def main(argv=None):
     q_0 = tracer_initial_condition if args.tracer_advection else None
     Q, p = timestepper.solve(Q_0, p_0, q_0, model_problem.f_rhs(), args.tfinal,
                              warmup=args.warmup, **solve_kwargs)
+    result.update(step_counts=timestepper.step_counts)
+    if not root:
+        return result
     result.update(Q=Q, p=p)
 
     log_summary()

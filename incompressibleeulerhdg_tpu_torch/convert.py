@@ -6,6 +6,8 @@ on its own.  Nothing here imports JAX: the JAX objects are read through
 their attributes and ``numpy.asarray``.
 """
 
+from dataclasses import fields
+
 import numpy as np
 import torch
 
@@ -27,6 +29,7 @@ __all__ = [
     "gtmg_from_jax",
     "rt_tables_from_jax",
     "cg_space_from_jax",
+    "slab_decomposition_from_jax",
 ]
 
 
@@ -81,12 +84,13 @@ def condensed_system_from_jax(cs, dtype=torch.float64, device="cpu"):
                            tau=float(cs.tau), nt=int(cs.nt))
 
 
-def gtmg_from_jax(pc, dtype=torch.float64, device="cpu"):
+def gtmg_from_jax(pc, dtype=torch.float64, device="cpu", comm=None):
     """The two-level preconditioner from the JAX package's (any coarse
-    kind; the JAX-only ``fft_f32`` and ``dist`` fields are not carried)."""
-    if pc.dist is not None:
-        raise ValueError("slab-decomposed TwoLevelTracePC: not ported (ROADMAP M14)")
+    kind; the JAX-only ``fft_f32`` field is not carried).  A slab's
+    preconditioner (``dist`` set: one slab of the JAX package's stacked
+    tables) gets ``comm`` in place of the JAX axis name."""
     t = lambda a: None if a is None else tensor(a, dtype, device)
+    dist = None if pc.dist is None else (comm,) + tuple(pc.dist[1:])
     structured = pc.coarse_kind != "cheb"
     return TwoLevelTracePC(
         Sdiag_inv=t(pc.Sdiag_inv), trace_nodes=t(pc.trace_nodes),
@@ -101,7 +105,7 @@ def gtmg_from_jax(pc, dtype=torch.float64, device="cpu"):
         n_vertices=int(pc.n_vertices), coarse_kind=pc.coarse_kind,
         grid_shape=None if pc.grid_shape is None else tuple(pc.grid_shape),
         cheb_fine=int(pc.cheb_fine), cheb_coarse=int(pc.cheb_coarse),
-        lmax_fine=float(pc.lmax_fine), lmax_coarse=float(pc.lmax_coarse),
+        lmax_fine=float(pc.lmax_fine), lmax_coarse=float(pc.lmax_coarse), dist=dist,
     )
 
 
@@ -120,3 +124,39 @@ def cg_space_from_jax(space, dtype=torch.float64, device="cpu"):
     return CGSpace(dofmap=tensor(space.dofmap, device=device), phi_at_q1=t(space.phi_at_q1),
                    mass_diag=t(space.mass_diag), node_coords=t(space.node_coords),
                    degree=int(space.degree), n_dofs=int(space.n_dofs))
+
+
+def slab_decomposition_from_jax(dec, rank, dtype=torch.float64, device="cpu", comm=None):
+    """Slab ``rank`` of a JAX ``SlabDecomposition`` as the port's tables: its
+    stacked per-slab arrays (taken at ``rank``, as numpy) become the
+    ``geom``, ``cs``, ``proj`` and ``pc`` of the port's
+    ``parallel.slab.SlabDecomposition``, with ``comm`` in place of the JAX
+    axis name in the geometry's spec and the GTMG transfers; also the slab's
+    index maps and masks.  Returns a dict of those names.  The JAX
+    package's slab sweeps its colours in their stored order (by plus slot),
+    which the spec's sweep order keeps."""
+    at = lambda tree: _slab_slice(tree, rank)
+    jg = at(dec.geom)
+    shift = tuple(jg.shift[:6]) + ((comm, jg.shift[6][1], tuple(range(len(jg.shift[4])))),)
+    arrays = {f.name: getattr(jg, f.name, None) for f in fields(Geom)}
+    arrays.update(shift=shift, uniform=jg.uniform, fcol_bounds=tuple(jg.fcol_bounds))
+    pc = at(dec.pc)
+    return dict(
+        geom=Geom.from_arrays(arrays, dtype, device),
+        cs=condensed_system_from_jax(at(dec.cs), dtype, device),
+        proj=bdm_from_jax(at(dec.proj), dtype, device),
+        pc=gtmg_from_jax(pc, dtype, device, comm=comm),
+        cell_map=np.asarray(dec.cell_maps[rank]), facet_map=np.asarray(dec.facet_maps[rank]),
+        cell_valid=np.asarray(dec.cell_valid[rank]),
+        facet_valid=np.asarray(dec.facet_valid[rank]),
+    )
+
+
+def _slab_slice(tree, rank):
+    """One slab of a JAX stacked dataclass: every array field at ``rank``
+    (numpy), every other field as it is."""
+    kw = {}
+    for f in fields(tree):
+        v = getattr(tree, f.name)
+        kw[f.name] = np.asarray(v)[rank] if hasattr(v, "shape") and np.ndim(v) > 0 else v
+    return type(tree)(**kw)

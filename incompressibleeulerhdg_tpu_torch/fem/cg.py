@@ -12,6 +12,9 @@ A CG field is a flat tensor over global dofs; cell-local views are gathers
 through the (nloc, n_cells) dof map, operators are batched dense element
 kernels followed by a scatter-add (``index_add_``), and the mass solve is a
 Jacobi-preconditioned CG iteration.  The numbering is host numpy, built once.
+On a slab-local geometry (parallel/slab.py) the dof vector stays replicated:
+each rank accumulates its own cells into it and a sum over the ranks
+resolves the slab-interface dofs, as the GTMG coarse residual.
 """
 
 from dataclasses import dataclass
@@ -21,6 +24,7 @@ import torch
 
 from .lagrange import triangle_basis, tri_dim
 from ..linalg.krylov import cg
+from ..ops.structured import dist_axis
 
 __all__ = ["CGSpace", "build_cg_space", "cg_gather", "cg_scatter", "cg_mass_matvec",
            "cg_mass_solve", "cg_project_dg", "cg_eval_at_q"]
@@ -136,11 +140,21 @@ def cg_scatter(space, local):
                           local.reshape(local.shape[:-2] + (-1,)))
 
 
+def _assemble(geom, space, local):
+    """:func:`cg_scatter` of a geometry's cells: the dummy cells of an uneven
+    slab split left out, summed over the ranks of a slab-local geometry."""
+    if geom.cvalid is not None:
+        local = local * geom.cvalid
+    out = cg_scatter(space, local)
+    comm = dist_axis(geom)
+    return out if comm is None else comm.allreduce(out)
+
+
 def cg_mass_matvec(geom, space, v):
     """Consistent CG mass matrix action on (..., n_dofs) vectors."""
     loc = cg_gather(space, v)
     Mloc = torch.einsum("q,qi,qj->ij", geom.wq, space.phi_at_q1, space.phi_at_q1)
-    return cg_scatter(space, geom.det_jac * torch.einsum("ij,...jc->...ic", Mloc, loc))
+    return _assemble(geom, space, geom.det_jac * torch.einsum("ij,...jc->...ic", Mloc, loc))
 
 
 def cg_mass_solve(geom, space, b, rtol=1e-12, maxiter=200):
@@ -165,7 +179,7 @@ def cg_project_dg(geom, space, u, rtol=1e-12):
     Returns (x ([2,] n_dofs), iters)."""
     uq = torch.einsum("qi,...ic->...qc", geom.phi1, u)
     loc = torch.einsum("c,q,qi,...qc->...ic", geom.det_jac, geom.wq, space.phi_at_q1, uq)
-    return cg_mass_solve(geom, space, cg_scatter(space, loc), rtol=rtol)
+    return cg_mass_solve(geom, space, _assemble(geom, space, loc), rtol=rtol)
 
 
 def cg_eval_at_q(geom, space, x):

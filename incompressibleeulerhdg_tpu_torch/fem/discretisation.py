@@ -78,6 +78,13 @@ class Geom:
     fcol_pos: torch.Tensor  # (ncol, nc) int64
     fcol_side: torch.Tensor  # (ncol, nc) int64
     fcol_mask: torch.Tensor  # (ncol, nc)
+    # slab-local layouts only (parallel/slab.py), else None: interior facet
+    # mask (boundary facets sit inside the colour rectangles there), the
+    # real facet positions of the uniform layout, the real cells of an
+    # uneven split
+    fint: torch.Tensor = None  # (nf,)
+    fvalid: torch.Tensor = None  # (nf,)
+    cvalid: torch.Tensor = None  # (nc,)
     # static metadata
     n_int: int = 0
     degree: int = 1
@@ -118,11 +125,11 @@ class Geom:
     def from_arrays(cls, arrays, dtype, device):
         """Build from host arrays (a dict or an object with the field names):
         floats to ``dtype``, index tables to int64, on ``device``."""
-        get = arrays.get if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
+        get = arrays.get if isinstance(arrays, dict) else (lambda k: getattr(arrays, k, None))
         kw = {}
         for f in fields(cls):
             v = get(f.name)
-            if f.name in META_FIELDS:
+            if f.name in META_FIELDS or v is None:
                 kw[f.name] = v
             elif f.name in _INT_FIELDS:
                 kw[f.name] = torch.as_tensor(np.asarray(v, np.int64), device=device)

@@ -12,7 +12,13 @@ coarse Laplacian, and linear interpolation along facets between them.
   dense pseudo-inverse up to 8,192 vertices, else Chebyshev over Jacobi
   (``cheb``);
 - transfers: slices and shifts of the vertex grid on structured meshes,
-  index gathers through the padded vertex adjacency on the others.
+  index gathers through the padded vertex adjacency on the others.  On a
+  slab-local layout (``dist``, parallel/slab.py) the restriction fills a
+  canvas of the slab's nxl + 1 vertex rows, embeds it at row ``rank *
+  nxl`` of the global grid and sums it over the ranks (neighbouring slabs
+  share one vertex row, which the sum resolves): the coarse residual is
+  the one replicated object of the distributed solve, and the coarse solve
+  runs replicated on every rank.
 
 The set-up (spectral bounds by power iteration, the star inverses, the
 coarse spectrum) is host numpy with the same seeded generator as the JAX
@@ -57,6 +63,8 @@ class TwoLevelTracePC:
     star_pos: torch.Tensor = None  # (2, nf) position of each facet in its end stars
     coarse_dense_inv: torch.Tensor = None  # (nv, nv) pseudo-inverse of the P1 Laplacian
     vshift: tuple = None  # (Mx, My, wrap, groups): facet endpoint vertex offsets
+    # slab-local transfers: (comm, n_slabs, Mx, My, canvas rows, local groups, wrap)
+    dist: tuple = None
     n_vertices: int = 0
     coarse_kind: str = "cheb"  # "cheb" | "fft_neumann" | "fft_periodic"
     grid_shape: tuple = None
@@ -361,10 +369,53 @@ def _coarse_solve(pc, rc):
     return _chebyshev(Ac, lambda v: pc.K_diag_inv * v, rc, pc.cheb_coarse, pc.lmax_coarse)
 
 
+def _canvas_shift(a, d, wrap):
+    """Shift of a slab's vertex canvas: i offsets stay inside the canvas,
+    j offsets wrap on periodic meshes."""
+    return shift2(shift2(a, (d[0], 0), False), (0, d[1]), wrap)
+
+
+def _dist_prolong_ends(pc, zc):
+    """Facet endpoint values of a slab-local layout from the replicated
+    global coarse solution: the slab's canvas rows, then its groups."""
+    comm, n_slabs, Mx, My, crows, groups, wrap = pc.dist
+    zg = zc.reshape(Mx, My)
+    if wrap:  # the last slab's interface row is row 0
+        zg = torch.cat([zg, zg[:1]])
+    rows = n_slabs * (crows - 1) + 1  # dummy columns of an uneven split
+    if rows > zg.shape[0]:
+        zg = torch.cat([zg, zg.new_zeros((rows - zg.shape[0], My))])
+    local = zg[comm.rank * (crows - 1): comm.rank * (crows - 1) + crows]
+    lo = torch.cat([rect_flat(_canvas_shift(local, g[6], wrap), g[2:6]) for g in groups])
+    hi = torch.cat([rect_flat(_canvas_shift(local, g[7], wrap), g[2:6]) for g in groups])
+    return lo, hi
+
+
+def _dist_restrict(pc, a_lo, a_hi):
+    """Adjoint of :func:`_dist_prolong_ends`: the slab's canvas, embedded at
+    its row offset of the global vertex grid and summed over the ranks."""
+    comm, n_slabs, Mx, My, crows, groups, wrap = pc.dist
+    canvas = a_lo.new_zeros((crows, My))
+    for (f0, f1, i0, j0, ni, nj, dlo, dhi) in groups:
+        for arr, d in ((a_lo, dlo), (a_hi, dhi)):
+            seg = arr[f0:f1].reshape(ni, nj)
+            pad = torch.nn.functional.pad(seg, (j0, My - j0 - nj, i0, crows - i0 - ni))
+            canvas = canvas + _canvas_shift(pad, (-d[0], -d[1]), wrap)
+    rows = max(Mx + 1 if wrap else Mx, n_slabs * (crows - 1) + 1)
+    glob = a_lo.new_zeros((rows, My))
+    row0 = comm.rank * (crows - 1)
+    glob[row0: row0 + crows] = canvas
+    if wrap:
+        glob[0] += glob[Mx]
+    return comm.allreduce(glob[:Mx]).reshape(-1)
+
+
 def prolong(pc, zc):
     """P1 vertex values -> trace dofs by linear interpolation along each
     facet: (nv,) -> (nt, nf)."""
-    if pc.vshift is not None:
+    if pc.dist is not None:
+        lo, hi = _dist_prolong_ends(pc, zc)
+    elif pc.vshift is not None:
         Mx, My, wrap, groups = pc.vshift
         zg = zc.reshape(Mx, My)
         lo = torch.cat([rect_flat(shift2(zg, g[6], wrap), g[2:6]) for g in groups])
@@ -380,6 +431,8 @@ def restrict(pc, lam):
     s = pc.trace_nodes[:, None]
     a_lo = torch.sum(lam * (1.0 - s), dim=0)
     a_hi = torch.sum(lam * s, dim=0)
+    if pc.dist is not None:
+        return _dist_restrict(pc, a_lo, a_hi)
     if pc.vshift is None:
         acat = torch.cat([a_lo, a_hi])
         nf = a_lo.shape[0]
@@ -428,6 +481,9 @@ def gtmg_apply(geom, cs, pc, r_flat):
 
     z = _chebyshev(A, Dinv, r, pc.cheb_fine, pc.lmax_fine)
     zc = _coarse_solve(pc, restrict(pc, r - A(z)))
-    z = z + prolong(pc, zc)
+    pr = prolong(pc, zc)
+    if geom.fvalid is not None:
+        pr = pr * geom.fvalid  # dummy facet positions of a slab-local layout
+    z = z + pr
     z = z + _chebyshev(A, Dinv, r - A(z), pc.cheb_fine, pc.lmax_fine)
     return (sign * z).reshape(-1)

@@ -11,20 +11,31 @@ vector work stay on the device, and each Arnoldi step makes ONE host read
 (the new Hessenberg column and its norm), on which the host applies the
 Givens rotations in float64 and decides whether to continue.
 
-Vectors are flat 1-D tensors; callers flatten their field layouts.
+Vectors are flat 1-D tensors; callers flatten their field layouts.  With a
+``comm`` (parallel/comm.py) the vectors are one rank's slab of a
+distributed vector: every inner product and norm is summed over the ranks,
+so each stopping test reads the same all-reduced value on every rank and
+all ranks take the same iterations (the JAX package's ``axis_name``).
 """
 
 import numpy as np
 import torch
 
-__all__ = ["gmres", "gmres_right", "fgmres", "cg", "deflate_constant"]
+__all__ = ["gmres", "gmres_right", "fgmres", "cg", "deflate_constant", "pdot", "pnorm"]
 
 
-def deflate_constant(nullvec):
-    """Projector v -> v - (nullvec . v) nullvec for a unit ``nullvec``."""
+def pdot(a, b, comm=None):
+    """Inner product (0-d tensor), summed over the ranks of ``comm``."""
+    d = torch.dot(a, b)
+    return d if comm is None else comm.allreduce(d)
+
+
+def deflate_constant(nullvec, comm=None):
+    """Projector v -> v - (nullvec . v) nullvec for a unit ``nullvec`` (unit
+    in the global norm when distributed)."""
 
     def proj(v):
-        return v - nullvec * torch.dot(nullvec, v)
+        return v - nullvec * pdot(nullvec, v, comm)
 
     return proj
 
@@ -38,9 +49,10 @@ class _Arnoldi:
     rotations.  The basis V (m+1, n) lives on the device; R, the rotations
     and g live on the host in float64."""
 
-    def __init__(self, r, beta, m, tiny):
+    def __init__(self, r, beta, m, tiny, comm=None):
         self.m = m
         self.tiny = tiny
+        self.comm = comm
         self.V = r.new_zeros((m + 1, r.shape[0]))
         self.V[0] = r / max(beta, tiny)
         self.R = np.zeros((m, m))
@@ -55,8 +67,10 @@ class _Arnoldi:
         rotations; returns |g[j+1]|, the residual estimate."""
         Vj = self.V[: j + 1]
         h = Vj @ w
+        if self.comm is not None:
+            h = self.comm.allreduce(h)
         w = w - Vj.T @ h
-        hnext = torch.linalg.vector_norm(w)
+        hnext = pnorm(w, self.comm)
         self.V[j + 1] = w / torch.clamp(hnext, min=self.tiny)
         hh = torch.cat([h, hnext[None]]).cpu().numpy().astype(np.float64)
         for i in range(j):
@@ -87,11 +101,24 @@ def _tiny(dtype):
     return 1e-300 if dtype == torch.float64 else 1e-30
 
 
-def _norm(v):
-    return float(torch.linalg.vector_norm(v))
+def pnorm(v, comm=None):
+    """2-norm (0-d tensor), over the ranks of ``comm``."""
+    if comm is None:
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(comm.allreduce(torch.dot(v, v)))
 
 
-def gmres(matvec, b, *, M=None, rtol=1e-12, restart=30, maxiter=200, project=None):
+def _norm(v, comm=None):
+    return float(pnorm(v, comm))
+
+
+def _all_finite(x, comm=None):
+    """Whether x is finite on every rank."""
+    bad = (~torch.isfinite(x)).sum().to(torch.float64)
+    return float(bad if comm is None else comm.allreduce(bad)) == 0.0
+
+
+def gmres(matvec, b, *, M=None, rtol=1e-12, restart=30, maxiter=200, project=None, comm=None):
     """Left-preconditioned restarted GMRES from x = 0: solves ``M A x = M b``.
 
     Converged when the preconditioned residual norm drops below
@@ -106,14 +133,14 @@ def gmres(matvec, b, *, M=None, rtol=1e-12, restart=30, maxiter=200, project=Non
     m = restart
     tiny = _tiny(b.dtype)
     b = project(b)
-    Mb_norm = _norm(M(b))
+    Mb_norm = _norm(M(b), comm)
     target = rtol * Mb_norm
     x = torch.zeros_like(b)
     res, iters, go = float("inf"), 0, True
     while res > target and iters < maxiter and go:
         r = M(project(b - matvec(x)))
-        beta = _norm(r)
-        arn = _Arnoldi(r, beta, m, tiny)
+        beta = _norm(r, comm)
+        arn = _Arnoldi(r, beta, m, tiny, comm)
         j, res_c = 0, beta
         while j < m and res_c > target:
             res_c = arn.step(j, M(project(matvec(arn.V[j]))))
@@ -126,7 +153,7 @@ def gmres(matvec, b, *, M=None, rtol=1e-12, restart=30, maxiter=200, project=Non
     return x, iters, res / max(Mb_norm, tiny)
 
 
-def gmres_right(opM, matvec, b, *, rtol=1e-12, restart=30, maxiter=200):
+def gmres_right(opM, matvec, b, *, rtol=1e-12, restart=30, maxiter=200, comm=None):
     """Right-preconditioned flexible GMRES from x = 0 with a fused
     preconditioner.
 
@@ -143,14 +170,14 @@ def gmres_right(opM, matvec, b, *, rtol=1e-12, restart=30, maxiter=200):
     """
     m = restart
     tiny = _tiny(b.dtype)
-    bnorm = _norm(b)
+    bnorm = _norm(b, comm)
     target = rtol * bnorm
     x = torch.zeros_like(b)
     res, iters, go = float("inf"), 0, True
     while res > target and iters < maxiter and go:
         r = b - matvec(x)
-        beta = _norm(r)
-        arn = _Arnoldi(r, beta, m, tiny)
+        beta = _norm(r, comm)
+        arn = _Arnoldi(r, beta, m, tiny, comm)
         Z = b.new_zeros((m, b.shape[0]))
         j, res_c = 0, beta
         while j < m and res_c > target and np.isfinite(res_c):
@@ -160,18 +187,19 @@ def gmres_right(opM, matvec, b, *, rtol=1e-12, restart=30, maxiter=200):
             j += 1
         n_ok = j if np.isfinite(res_c) else max(j - 1, 0)
         x_new = x + Z[:n_ok].T @ arn.solve(n_ok, x) if n_ok else x
-        if bool(torch.isfinite(x_new).all()):
+        if _all_finite(x_new, comm):
             x = x_new
         else:
             res_c = float("inf")
         go = j > 0 and res_c < 0.95 * res
         res = res_c
         iters += j
-    relres = _norm(b - matvec(x)) / max(bnorm, tiny)
+    relres = _norm(b - matvec(x), comm) / max(bnorm, tiny)
     return x, iters, relres
 
 
-def fgmres(matvec, b, *, M=None, x0=None, rtol=1e-12, restart=30, maxiter=200, project=None):
+def fgmres(matvec, b, *, M=None, x0=None, rtol=1e-12, restart=30, maxiter=200, project=None,
+           comm=None):
     """Flexible right-preconditioned restarted GMRES from ``x0`` (default 0).
 
     ``M`` may itself be an inner iteration (a projection cycle with nested
@@ -189,14 +217,14 @@ def fgmres(matvec, b, *, M=None, x0=None, rtol=1e-12, restart=30, maxiter=200, p
     m = restart
     tiny = _tiny(b.dtype)
     b = project(b)
-    bnorm = _norm(b)
+    bnorm = _norm(b, comm)
     target = rtol * bnorm
     x = torch.zeros_like(b) if x0 is None else x0
     res, iters, go = float("inf"), 0, True
     while res > target and iters < maxiter and go:
         r = project(b - matvec(x))
-        beta = _norm(r)
-        arn = _Arnoldi(r, beta, m, tiny)
+        beta = _norm(r, comm)
+        arn = _Arnoldi(r, beta, m, tiny, comm)
         Z = b.new_zeros((m, b.shape[0]))
         j, res_c = 0, beta
         while j < m and res_c > target:

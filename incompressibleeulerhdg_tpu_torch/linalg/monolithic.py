@@ -20,7 +20,8 @@ import torch
 
 from ..ops import fields as F
 from ..ops.forms import f_impl_apply, gamma_apply, pressure_gradient_apply, weak_divergence_apply
-from .krylov import fgmres
+from ..ops.structured import dist_axis
+from .krylov import fgmres, pdot, pnorm
 from .preconditioners import build_tentative_operator, tentative_operator_matvec
 from .pressure import pressure_solve
 from .tentative import tentative_solve
@@ -66,6 +67,7 @@ def monolithic_stage_solve(geom, cs, star, b_u, c, *, precond, alpha=1.0, upwind
                 v[nu + np_:].reshape(nt, nf))
 
     t_op = build_tentative_operator(geom, star, c, alpha, upwind)
+    comm = dist_axis(geom)
 
     def matvec(v):
         u, p, lam = unflat(v)
@@ -73,6 +75,13 @@ def monolithic_stage_solve(geom, cs, star, b_u, c, *, precond, alpha=1.0, upwind
         # form, far cheaper per Krylov iteration)
         r_u = tentative_operator_matvec(geom, t_op, u) - c * pressure_gradient_apply(geom, p, lam)
         r_p, r_lam = gamma_apply(geom, u, p, lam, cs.tau)
+        # slab-local layouts: gamma_apply's mu-rows treat the dummy facet
+        # positions as boundary facets; keep every dummy entry zero, or it
+        # enters the summed inner products
+        if geom.fvalid is not None:
+            r_lam = r_lam * geom.fvalid
+        if geom.cvalid is not None:
+            r_u, r_p = r_u * geom.cvalid, r_p * geom.cvalid
         return flat(r_u, r_p, r_lam)
 
     def M(v):
@@ -83,16 +92,22 @@ def monolithic_stage_solve(geom, cs, star, b_u, c, *, precond, alpha=1.0, upwind
                                             rtol=inner_rtol, maxiter=60, precond=precond)
         return flat(dQt + c * du, dp, dlam)
 
-    nullv = flat(torch.zeros((2, d1, nc), dtype=dtype, device=dev),
-                 torch.ones((d0, nc), dtype=dtype, device=dev),
-                 torch.ones((nt, nf), dtype=dtype, device=dev))
-    nullv = nullv / torch.linalg.vector_norm(nullv)
+    # the (0, 1_p, 1_lam) null vector, without the dummy slots of a
+    # slab-local layout, unit in the global norm
+    ones_p = torch.ones((d0, nc), dtype=dtype, device=dev)
+    ones_lam = torch.ones((nt, nf), dtype=dtype, device=dev)
+    if geom.cvalid is not None:
+        ones_p = ones_p * geom.cvalid
+    if geom.fvalid is not None:
+        ones_lam = ones_lam * geom.fvalid
+    nullv = flat(torch.zeros((2, d1, nc), dtype=dtype, device=dev), ones_p, ones_lam)
+    nullv = nullv / pnorm(nullv, comm)
 
     def project(v):
-        return v - nullv * torch.dot(nullv, v)
+        return v - nullv * pdot(nullv, v, comm)
 
     b = flat(b_u, b_u.new_zeros((d0, nc)), b_u.new_zeros((nt, nf)))
     x, iters, _ = fgmres(matvec, b, M=M, x0=None if x0 is None else flat(*x0), rtol=rtol,
-                         restart=restart, maxiter=maxiter, project=project)
+                         restart=restart, maxiter=maxiter, project=project, comm=comm)
     Q, p, lam = unflat(x)
     return Q, p, lam, iters, iters

@@ -425,6 +425,12 @@ def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha):
         Bx_k = _kron2(K01s[:, :, b0:b1]) + Bp[k][:, :, None]
         Cx_k = _kron2(K10s[:, :, b0:b1]) + Cp[k][:, :, None]
         Sc = D1 - _bmm(Cx_k, _bmm(Dinv0_k, Bx_k))
+        if geom.fint is not None:
+            # slab-local layout: the colour rectangles hold boundary and
+            # dummy positions; identity Schur blocks there (the patch solve
+            # masks their corrections)
+            eye = torch.eye(nu, dtype=dtype, device=dev)[:, :, None]
+            Sc = torch.where(geom.fint[b0:b1][None, None, :] > 0, Sc, eye)
         Sinv_parts.append(gauss_jordan_inv_bl(Sc))
     nbnd = nf - geom.n_int
     if nbnd:
@@ -518,8 +524,13 @@ def _patch_color_structured(geom, op, k, rb):
     lo, up = st.grid_halves(geom, rb)
     r0 = st.rect_flat(lo, rect)
     r1 = st.rect_flat(st.roll2(geom, up, off), rect)
+    b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
     y0, y1 = patch_solve(op.Dinv0, op.Sinv, op.Ks01, op.Ks10, op.Bp[k], op.Cp[k],
-                         r0, r1, geom.fcol_bounds[k])
+                         r0, r1, b0)
+    if geom.fint is not None:
+        # slab-local layout: no correction at the boundary and dummy
+        # positions inside the colour rectangle
+        y0, y1 = y0 * geom.fint[b0:b1], y1 * geom.fint[b0:b1]
     z_lo = st.rect_pad(geom, y0, rect)
     z_up = st.roll2(geom, st.rect_pad(geom, y1, rect), (-off[0], -off[1]))
     return st.grid_join(geom, z_lo, z_up)
@@ -563,8 +574,9 @@ def _color_cov(geom, k):
     """(nc,) mask of the cells colour k's patches cover."""
     l, lu, i0, j0, ni, nj, off = geom.shift[4][k]
     b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
-    lo = st.rect_pad(geom, torch.ones(b1 - b0, dtype=geom.dtype, device=geom.device),
-                     (i0, j0, ni, nj))
+    fk = geom.fint[b0:b1] if geom.fint is not None else \
+        torch.ones(b1 - b0, dtype=geom.dtype, device=geom.device)
+    lo = st.rect_pad(geom, fk, (i0, j0, ni, nj))
     return st.grid_join(geom, lo, st.roll2(geom, lo, (-off[0], -off[1])))
 
 
@@ -580,6 +592,9 @@ def _cross_offcolor(geom, op, k, dz):
         z0 = st.rect_flat(lo_dz, rect)
         z1 = st.rect_flat(st.roll2(geom, up_dz, off), rect)
         y0, y1 = _cross_pair_color(geom, op, j, z0, z1)
+        if geom.fint is not None:
+            b0, b1 = geom.fcol_bounds[j], geom.fcol_bounds[j + 1]
+            y0, y1 = y0 * geom.fint[b0:b1], y1 * geom.fint[b0:b1]
         acc_lo = acc_lo + st.rect_pad(geom, y0, rect)
         acc_up = acc_up + st.roll2(geom, st.rect_pad(geom, y1, rect), (-off[0], -off[1]))
     return st.grid_join(geom, acc_lo, acc_up)
@@ -597,8 +612,8 @@ def _colored_apply_fused_bl(geom, op, vb):
     """
     if geom.fcol_orphans:
         raise ValueError("the fused sweep needs every cell to carry an interior facet")
-    ncol = len(geom.fcol_bounds) - 1
-    order = list(range(ncol)) + list(range(ncol - 2, -1, -1))
+    first = list(st.sweep_order(geom))
+    order = first + first[-2::-1]
     z = None
     r = vb
     for i, k in enumerate(order):

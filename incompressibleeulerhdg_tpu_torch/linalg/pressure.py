@@ -3,9 +3,11 @@
 Counterpart of incompressibleeulerhdg_tpu/linalg/pressure.py: static
 condensation (linalg/condense.py), deflated left-preconditioned GMRES
 (restart 30, at most 500 iterations by default) on the trace system, back
-substitution.
+substitution.  On a slab-local geometry the GMRES sums its inner products
+over the ranks.
 """
 
+from ..ops.structured import dist_axis
 from .condense import trace_matvec, condense_rhs, back_substitute
 from .krylov import gmres, deflate_constant
 
@@ -28,9 +30,10 @@ def pressure_solve(geom, cs, f_u, f_p, f_lam, *, precond, rtol=1.0e-12, restart=
     def matvec(v):
         return trace_matvec(geom, cs, v.reshape(nt, -1)).reshape(-1)
 
+    comm = dist_axis(geom)
     lam_flat, iters, relres = gmres(
         matvec, g, M=precond, rtol=rtol, restart=restart, maxiter=maxiter,
-        project=deflate_constant(cs.nullvec.reshape(-1)),
+        project=deflate_constant(cs.nullvec.reshape(-1), comm), comm=comm,
     )
     lam = lam_flat.reshape(nt, -1)
     u, p = back_substitute(geom, cs, f_u, f_p, lam)

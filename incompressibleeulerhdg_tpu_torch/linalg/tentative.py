@@ -17,6 +17,7 @@ mesh the port builds but the 1x1 square; they raise otherwise.
 
 from ..ops.fields import mass_apply
 from ..ops.forms import f_impl_apply
+from ..ops.structured import dist_axis
 from .krylov import gmres, gmres_right
 from .preconditioners import _colored_apply_bl, _colored_apply_fused_bl, _matvec_bl
 
@@ -44,7 +45,7 @@ def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200):
             return z.reshape(-1), Az.reshape(-1)
 
         u, iters, relres = gmres_right(opM, matvec, rhs.reshape(-1), rtol=rtol,
-                                       restart=restart, maxiter=maxiter)
+                                       restart=restart, maxiter=maxiter, comm=dist_axis(geom))
         return u.reshape(shape), iters, relres
 
     def M(v):

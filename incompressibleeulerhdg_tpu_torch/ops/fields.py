@@ -9,12 +9,13 @@ tables are the 6 reference tables indexed by each facet's orientation code
 Facet<->cell moves take one of two branches: on a structured mesh
 (``geom.shift``) the slices and rolls of ``ops/structured.py``; on any other
 mesh (the unit disk) index gathers through ``fcells`` and ``cfassemble``,
-as the JAX package's gather branches.
+as the JAX package's gather branches.  On a slab-local geometry
+(parallel/slab.py) the domain integrals are sums over all ranks.
 """
 
 import torch
 
-from .structured import gather_plus, gather_minus, scatter_sides_sum, slot_gather
+from .structured import dist_axis, gather_plus, gather_minus, scatter_sides_sum, slot_gather
 
 __all__ = [
     "gather_side",
@@ -112,8 +113,13 @@ def trace_values(geom, lam):
 
 
 def interior_mask(geom, ndim=2):
-    """(..., nf) float mask (1 on interior facets) with ndim-1 leading axes."""
-    m = (torch.arange(geom.n_facets, device=geom.device) < geom.n_int).to(geom.dtype)
+    """(..., nf) float mask (1 on interior facets) with ndim-1 leading axes:
+    the stored ``geom.fint`` on slab-local layouts (their colour rectangles
+    hold boundary facets), else the interior-first facet order."""
+    if geom.fint is not None:
+        m = geom.fint
+    else:
+        m = (torch.arange(geom.n_facets, device=geom.device) < geom.n_int).to(geom.dtype)
     return m.reshape((1,) * (ndim - 1) + (-1,))
 
 
@@ -144,11 +150,17 @@ def cell_integrate(geom, phi, integrand):
     return geom.det_jac * torch.einsum("qi,...qc->...ic", geom.wq[:, None] * phi, integrand)
 
 
+def _sum_ranks(geom, x):
+    """A rank's partial sum summed over all ranks on a slab-local geometry."""
+    comm = dist_axis(geom)
+    return x if comm is None else comm.allreduce(x)
+
+
 def integral(geom, phi, u):
     """Integral of a DG field over the domain (summed over components), as a
     0-d tensor."""
     vals = cell_values(phi, u)
-    return torch.einsum("c,q,...qc->", geom.det_jac, geom.wq, vals)
+    return _sum_ranks(geom, torch.einsum("c,q,...qc->", geom.det_jac, geom.wq, vals))
 
 
 def mass_apply(geom, mref, u):
@@ -165,4 +177,4 @@ def l2_norm_sq(geom, phi, u):
     """Squared L2 norm of a scalar (d, nc) or vector (2, d, nc) DG field."""
     vals = cell_values(phi, u)
     sq = vals**2 if vals.ndim == 2 else torch.sum(vals**2, dim=0)
-    return torch.einsum("c,q,qc->", geom.det_jac, geom.wq, sq)
+    return _sum_ranks(geom, torch.einsum("c,q,qc->", geom.det_jac, geom.wq, sq))

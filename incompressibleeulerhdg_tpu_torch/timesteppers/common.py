@@ -1,4 +1,4 @@
-"""Timestepper base: shared FEM operations of the schemes (single device).
+"""Timestepper base: shared FEM operations of the schemes.
 
 Counterpart of incompressibleeulerhdg_tpu/timesteppers/common.py, with the
 checkpoint of the plain (Q, p, tracer) state through the port's copy of the
@@ -7,6 +7,12 @@ interchangeable between the two packages), the lazily built CG space of the
 tracer's velocity projection, and the timestepping loop of the schemes
 without stage state (HDG implicit, DG, conforming): each supplies its
 initial fields, its forcing and ``advance``; IMEX has its own loop.
+
+:meth:`IncompressibleEuler.distribute` makes a stepper one rank of a
+slab-decomposed run (parallel/slab.py, the JAX package's
+``slab_context``): its tables become its slab's, its fields are the slab's
+parts, and the state is gathered to rank 0 only for a checkpoint, the
+callbacks and the result of :meth:`solve`.
 """
 
 import numpy as np
@@ -40,6 +46,7 @@ class IncompressibleEuler:
         self.domain_volume = disc.domain_volume
         self._proj = build_bdm_projection(disc)
         self._cg_space = None
+        self.dec = None  # the slab decomposition of a distributed run
 
     @property
     def label(self):
@@ -62,17 +69,62 @@ class IncompressibleEuler:
         return F.integral(self.geom, self.geom.phi0, p) / self.domain_volume
 
     def shift_pressure(self, p):
-        """Shift pressure to zero mean."""
-        return p - self.pressure_mean(p)
+        """Shift pressure to zero mean (dummy cells of an uneven slab split
+        stay zero)."""
+        m = self.pressure_mean(p)
+        return p - (m if self.geom.cvalid is None else m * self.geom.cvalid)
 
     def tracer_cg_space(self):
         """Vector CG(k+1) space of the tracer's advecting-velocity projection,
-        built on first use (most runs carry no tracer)."""
+        built on first use (most runs carry no tracer); a slab's view of the
+        global space when distributed."""
         if self._cg_space is None:
             from ..fem.cg import build_cg_space
 
-            self._cg_space = build_cg_space(self.disc, self.degree + 1)
+            if self.dec is None:
+                self._cg_space = build_cg_space(self.disc, self.degree + 1)
+            else:
+                self._cg_space = self.dec.local_cg(
+                    build_cg_space(self.dec.global_disc, self.degree + 1))
         return self._cg_space
+
+    # ------------------------------------------------------------------
+    # slab-decomposed runs
+    # ------------------------------------------------------------------
+
+    def distribute(self, comm, device):
+        """Make this stepper rank ``comm.rank`` of a slab-decomposed run over
+        ``comm.size`` ranks: its geometry, condensed system, BDM projection
+        and GTMG become its slab's tables on ``device`` (built from the
+        global ones, which it drops).  Raises NotImplementedError, naming
+        ROADMAP M14b, where the slab layout does not apply."""
+        from ..parallel.slab import SlabDecomposition
+
+        dec = SlabDecomposition(self.disc, self, comm.size, comm.rank, comm=comm,
+                                device=device)
+        self.dec = dec
+        self.disc, self.geom = dec.disc, dec.geom
+        self._proj, self._cs, self._gtmg = dec.proj, dec.cs, dec.pc
+        self._cg_space = None
+
+    @property
+    def output_disc(self):
+        """The discretisation of :meth:`solve`'s result: the global one."""
+        return self.disc if self.dec is None else self.dec.global_disc
+
+    @property
+    def is_root(self):
+        """Whether this process writes outputs (rank 0, or the only one)."""
+        return self.dec is None or self.dec.rank == 0
+
+    def gather(self, field, facets=False):
+        """The global field from every slab's part, on rank 0 (None on the
+        other ranks; a collective); ``field`` itself when not distributed."""
+        if self.dec is None or field is None:
+            return field
+        if facets:
+            return self.dec.gather_facet_field(field)
+        return self.dec.gather_cell_field(field)
 
     def initial_tracer(self, q_initial):
         """The tracer interpolated into V_p, or None without a tracer."""
@@ -80,7 +132,12 @@ class IncompressibleEuler:
 
     def notify(self, Q, p, t, q_tracer, reset=False):
         """Hand the fields at time ``t`` to every callback (``reset`` first at
-        the start of a run)."""
+        the start of a run); gathered to rank 0 when distributed."""
+        if not self.callbacks:
+            return
+        Q, p, q_tracer = self.gather(Q), self.gather(p), self.gather(q_tracer)
+        if not self.is_root:
+            return
         for callback in self.callbacks:
             if reset:
                 callback.reset()
@@ -90,17 +147,24 @@ class IncompressibleEuler:
         """Run-defining config validated on resume (mesh/scheme/dt guard)."""
         return {
             "scheme": type(self).__name__,
-            "n_cells": int(self.geom.n_cells),
+            "n_cells": int(self.output_disc.geom.n_cells),
             "degree": int(self.degree),
             "dt": float(self._dt),
         }
 
     def save_state(self, checkpoint_path, k, state):
         """Atomically save ``state`` (name -> tensor, list of tensors or None,
-        which is left out) after step ``k``."""
-        host = {name: [to_host(a) for a in v] if isinstance(v, list) else to_host(v)
-                for name, v in state.items() if v is not None}
-        save_checkpoint(checkpoint_path, host, t=k * self._dt, config=self._checkpoint_config())
+        which is left out) after step ``k``; gathered to rank 0, which
+        writes it, when distributed (``stage_lam`` is the facet field)."""
+        def host(name, a):
+            a = self.gather(a, facets=name == "stage_lam")
+            return None if a is None else to_host(a)
+
+        state = {name: [host(name, a) for a in v] if isinstance(v, list) else host(name, v)
+                 for name, v in state.items() if v is not None}
+        if self.is_root:
+            save_checkpoint(checkpoint_path, state, t=k * self._dt,
+                            config=self._checkpoint_config())
 
     def resume_state(self, checkpoint_path):
         """Load a state saved by :meth:`save_state`; the stored config must
@@ -110,18 +174,26 @@ class IncompressibleEuler:
                                          expect_config=self._checkpoint_config())
         k_start = int(round(t_ck / self._dt))
         print(f"resumed from {checkpoint_path} at t = {t_ck} (step {k_start})")
-        dev = lambda a: torch.as_tensor(np.asarray(a), dtype=self.disc.dtype,
-                                        device=self.disc.device)
-        return {name: [dev(a) for a in v] if isinstance(v, list) else dev(v)
+
+        def dev(name, a):
+            if self.dec is not None:  # every rank reads its slab's part
+                if name == "stage_lam":
+                    return self.dec.scatter_facet_field(a)
+                return self.dec.scatter_cell_field(a)
+            return torch.as_tensor(np.asarray(a), dtype=self.disc.dtype, device=self.disc.device)
+
+        return {name: [dev(name, a) for a in v] if isinstance(v, list) else dev(name, v)
                 for name, v in state.items()}, k_start
 
     def velocity_error_norm(self, Q, Q_exact):
-        """L2 norm of the velocity error."""
-        return float(torch.sqrt(F.l2_norm_sq(self.geom, self.geom.phi1, Q - Q_exact)))
+        """L2 norm of the velocity error (of :meth:`solve`'s global result)."""
+        geom = self.output_disc.geom
+        return float(torch.sqrt(F.l2_norm_sq(geom, geom.phi1, Q - Q_exact)))
 
     def pressure_error_norm(self, p, p_exact):
-        """L2 norm of the pressure error."""
-        return float(torch.sqrt(F.l2_norm_sq(self.geom, self.geom.phi0, p - p_exact)))
+        """L2 norm of the pressure error (of :meth:`solve`'s global result)."""
+        geom = self.output_disc.geom
+        return float(torch.sqrt(F.l2_norm_sq(geom, geom.phi0, p - p_exact)))
 
     @property
     def rtol_pressure(self):
@@ -167,10 +239,15 @@ class IncompressibleEuler:
         :arg checkpoint_every: save (Q, p, tracer) every N steps (0 = off)
         :arg resume: load ``checkpoint_path`` (validated against this run's
             mesh/scheme/dt) and continue from its step
-        :returns: :meth:`output_fields` of the final state
+        :returns: :meth:`output_fields` of the final state (gathered to rank
+            0 when distributed; (None, None) on the other ranks)
         """
         dt = self._dt
         nt = self.get_timesteps(T_final, warmup)
+        if self.dec is not None and q_initial is not None:
+            raise NotImplementedError(
+                f"the tracer under {self.label} on --n_devices > 1: the JAX package runs it "
+                "on its GSPMD sharding, not ported (ROADMAP Queue 1, M14b)")
         Q, p = self.initial_fields(Q_initial, p_initial)
         q_tracer = self.initial_tracer(q_initial)
         k_start = 0
@@ -192,7 +269,8 @@ class IncompressibleEuler:
             if checkpoint_every and (k + 1) % checkpoint_every == 0:
                 self.save_state(checkpoint_path, k + 1, {"Q": Q, "p": p, "q_tracer": q_tracer})
             self.notify(*self.output_fields(Q, p), (k + 1) * dt, q_tracer)
-        return self.output_fields(Q, p)
+        Q, p = self.output_fields(Q, p)
+        return self.gather(Q), self.gather(p)
 
 
 def to_host(t):

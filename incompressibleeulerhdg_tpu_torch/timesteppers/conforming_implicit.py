@@ -54,6 +54,14 @@ class IncompressibleEulerConformingImplicit(IncompressibleEuler):
         self.use_projection_method = use_projection_method
         self._rt = RT.build_rt_tables(disc)
 
+    def distribute(self, comm, device):
+        """Not ported: the JAX package runs the conforming scheme's
+        ``--n_devices`` on its GSPMD sharding (its RT assembly gathers
+        through index tables the slab layout does not carry)."""
+        raise NotImplementedError(
+            "the conforming scheme on --n_devices > 1: the JAX package runs it on its GSPMD "
+            "sharding, not ported (ROADMAP Queue 1, M14b)")
+
     # ------------------------------------------------------------------
     # the pieces of a step
     # ------------------------------------------------------------------

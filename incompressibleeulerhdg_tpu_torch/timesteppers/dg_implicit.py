@@ -1,8 +1,8 @@
 """DG implicit solver: the [DG(k+1)]^2 x DG(k) coupled velocity-pressure system.
 
 Counterpart of incompressibleeulerhdg_tpu/timesteppers/dg_implicit.py
-(without the multi-device paths; the loop, the tracer and the checkpoint are
-the base class's).  Per timestep:
+(the loop, the tracer, the checkpoint and the slab-decomposed run are the
+base class's).  Per timestep:
 
   1. Q* = project_bdm(Q); star fields; the tentative operator's blocks
      (M - dt f_impl(., Q*), built with the Gauss-Jordan kernel);
@@ -31,7 +31,8 @@ from ..ops.forms import pressure_gradient_dg_apply, star_fields, weak_divergence
 from ..ops.projection import project_bdm
 from ..linalg.condense import build_condensed_system
 from ..linalg.gtmg import build_gtmg, gtmg_apply
-from ..linalg.krylov import fgmres
+from ..linalg.krylov import fgmres, pdot, pnorm
+from ..ops.structured import dist_axis
 from ..linalg.pressure import pressure_solve
 from ..linalg.preconditioners import build_tentative_operator, tentative_operator_matvec
 from ..linalg.tentative import tentative_solve
@@ -89,15 +90,19 @@ class IncompressibleEulerDGImplicit(IncompressibleEuler):
                 precond=self._precond)
             return flat(dQt + dt * du, dp)
 
-        nullv = flat(b_u.new_zeros((2, d1, nc)), b_u.new_ones((d0, nc)))
-        nullv = nullv / torch.linalg.vector_norm(nullv)
+        comm = dist_axis(geom)
+        ones_p = b_u.new_ones((d0, nc))
+        if geom.cvalid is not None:  # not the dummy cells of an uneven slab split
+            ones_p = ones_p * geom.cvalid
+        nullv = flat(b_u.new_zeros((2, d1, nc)), ones_p)
+        nullv = nullv / pnorm(nullv, comm)
 
         def project(v):
-            return v - nullv * torch.dot(nullv, v)
+            return v - nullv * pdot(nullv, v, comm)
 
         x, iters, _ = fgmres(matvec, flat(b_u, b_u.new_zeros((d0, nc))), M=M, x0=flat(Q0, p0),
                              rtol=10 * self.rtol_pressure, restart=20, maxiter=100,
-                             project=project)
+                             project=project, comm=comm)
         return (*unflat(x), iters)
 
     def advance(self, Q, p, f_nodal):

@@ -17,6 +17,10 @@ With a tracer, each stage advects the tableau-combined tracer stages with
 that stage's own CG-projected velocity, and the final tracer sums every
 stage's flux, each with its own stage velocity, as the JAX package does.
 
+After :meth:`distribute` the same step runs on a slab's tables, one rank
+per slab (parallel/slab.py); :meth:`solve` then gathers the state to rank 0
+at a checkpoint, for the callbacks and at the end.
+
 The stage loop is a Python loop on eager tensors.  Iteration counts of every
 solve are returned by :meth:`step` and averaged by :meth:`solve`, which also
 checkpoints and resumes the full stage state (and the tracer), hands each
@@ -113,9 +117,19 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
     # phases of one step
     # ------------------------------------------------------------------
 
+    def distribute(self, comm, device):
+        super().distribute(comm, device)
+        for name in ("_alpha", "_beta", "_alpha_f", "_beta_f"):
+            setattr(self, name, getattr(self, name).to(device))
+
     def _shift(self, p, lam):
-        m = F.integral(self.geom, self.geom.phi0, p) / self.domain_volume
-        return p - m, lam - m
+        """Shift (p, lambda) by the pressure mean; the dummy positions of a
+        slab-local layout stay zero."""
+        geom = self.geom
+        m = F.integral(geom, geom.phi0, p) / self.domain_volume
+        mp = m if geom.cvalid is None else m * geom.cvalid
+        ml = m if geom.fvalid is None else m * geom.fvalid
+        return p - mp, lam - ml
 
     def _precond(self, v):
         return gtmg_apply(self.geom, self._cs, self._gtmg, v)
@@ -262,8 +276,11 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         Returns (seconds, iterations)."""
         geom = self.geom
         rng = np.random.default_rng(seed)
-        f_Q = torch.as_tensor(rng.standard_normal((2, geom.d1, geom.n_cells)),
-                              dtype=self.disc.dtype, device=self.disc.device)
+        f_Q = rng.standard_normal((2, geom.d1, self.output_disc.geom.n_cells))
+        if self.dec is None:
+            f_Q = torch.as_tensor(f_Q, dtype=self.disc.dtype, device=self.disc.device)
+        else:
+            f_Q = self.dec.scatter_cell_field(f_Q)
         f_u = F.mass_apply(geom, geom.m1, f_Q)
         zp = f_u.new_zeros((geom.d0, geom.n_cells))
         zl = f_u.new_zeros((self._cs.nt, geom.n_facets))
@@ -282,7 +299,7 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
     def _checkpoint_config(self):
         return {
             "scheme": self.tableau_name,
-            "n_cells": int(self.geom.n_cells),
+            "n_cells": int(self.output_disc.geom.n_cells),
             "degree": int(self.degree),
             "dt": float(self._dt),
             "n_richardson": int(self.n_richardson),
@@ -301,7 +318,8 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         :arg checkpoint_every: save the full stage state every N steps (0 = off)
         :arg resume: load ``checkpoint_path`` (validated against this run's
             mesh/scheme/dt) and continue from its step
-        :returns: (Q, p) final coefficient tensors
+        :returns: (Q, p) final coefficient tensors (gathered to rank 0 when
+            distributed; (None, None) on the other ranks)
         """
         n_steps = self.get_timesteps(T_final, warmup)
         stage_Q, stage_p, stage_lam = self.initial_state(Q_initial, p_initial)
@@ -364,7 +382,7 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
                 warnings.warn(f"Krylov solver stalled above tolerance: max relative residual "
                               f"{self.max_relres:.2e} > {stall_tol:.2e}", RuntimeWarning)
         print()
-        return stage_Q[0], stage_p[0]
+        return self.gather(stage_Q[0]), self.gather(stage_p[0])
 
 
 class IncompressibleEulerHDGIMEXImplicit(IncompressibleEulerHDGIMEX):

@@ -1,8 +1,8 @@
 """First-order HDG solver: Chorin projection method (and monolithic variant).
 
 Counterpart of incompressibleeulerhdg_tpu/timesteppers/hdg_implicit.py
-(without the multi-device paths; the loop, the tracer and the checkpoint are
-the base class's).  Per timestep:
+(the loop, the tracer, the checkpoint and the slab-decomposed run are the
+base class's).  Per timestep:
 
   1. Q* = project_bdm(Q)
   projection:

@@ -7,7 +7,7 @@
   the projection run);
 - ``--test_pressure_solver``: the same iteration count;
 - checkpoint every step, then resume: the final state equals a straight run;
-- ``--n_devices > 1``, the one flag outside the port, raises
+- the ``--n_devices`` cases outside the slab path raise
   NotImplementedError before any work, and the JAX driver's checks of
   invalid combinations keep their exceptions;
 - ``--device cuda`` without a card exits non-zero;
@@ -115,11 +115,21 @@ def test_warmup_takes_one_step(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--n_devices", "2"],
+    ["--n_devices", "2", "--problem", "kelvinhelmholtz"],
+    ["--n_devices", "2", "--discretisation", "conforming", "--timestepper", "implicit"],
+    ["--n_devices", "3", "--problem", "shear", "--nx", "8"],
+    ["--n_devices", "2", "--timestepper", "implicit", "--tracer_advection"],
+    ["--n_devices", "2", "--discretisation", "dg", "--timestepper", "implicit",
+     "--tracer_advection"],
+    ["--n_devices", "8", "--nx", "7"],
 ], ids=lambda f: "_".join(a.strip("-") for a in f))
 def test_out_of_slice_flags_raise(tmp_path, monkeypatch, flags):
+    """The ``--n_devices`` cases the JAX package runs on its GSPMD sharding
+    (the disk, the conforming scheme, a periodic split that does not divide
+    nx, the tracer under the implicit schemes) and a split with an empty
+    slab raise before any work, naming ROADMAP M14b."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, M14b"):
         tdriver.main(flags + ["--device", "cpu"])
     assert not list(tmp_path.iterdir())
 

@@ -47,6 +47,10 @@ PORT_MODULES = [
     "incompressibleeulerhdg_tpu_torch.timesteppers.dg_implicit",
     "incompressibleeulerhdg_tpu_torch.timesteppers.conforming_implicit",
     "incompressibleeulerhdg_tpu_torch.linalg.monolithic",
+    "incompressibleeulerhdg_tpu_torch.parallel",
+    "incompressibleeulerhdg_tpu_torch.parallel.comm",
+    "incompressibleeulerhdg_tpu_torch.parallel.slab",
+    "incompressibleeulerhdg_tpu_torch.parallel.launch",
     "incompressibleeulerhdg_tpu_torch.cli.driver",
     "incompressibleeulerhdg_tpu_torch.tools.microbench_gj",
     "incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch",
