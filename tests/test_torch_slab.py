@@ -172,3 +172,13 @@ def test_cli_n_devices_prints_the_driver_lines(tmp_path, monkeypatch, capfd):
     for key in ("velocity_error", "pressure_error"):
         assert abs(res[key] - single[key]) <= 1e-10 * single[key], key
     assert float((res["Q"] - single["Q"]).abs().max()) <= 1e-10
+
+
+def test_cli_n_devices_pressure_solver_benchmark(tmp_path, monkeypatch):
+    """``--test_pressure_solver`` over 2 ranks solves the single-rank run's
+    seeded system in as many iterations."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--nx", "8", "--degree", "1", "--device", "cpu", "--test_pressure_solver"]
+    single = tdriver.main(argv)
+    res = tdriver.main(argv + ["--n_devices", "2"])
+    assert res["iterations"] == single["iterations"] > 0
