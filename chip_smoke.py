@@ -70,15 +70,37 @@ Phases, each printing its own lines:
    steps, no gather inside a step, every kernel of the path launched; each
    rank then holds K1-K3 on its slab-local colour layout and K4 on its
    stage build's own-cell and Schur batches against their plain versions,
-   with times, bytes and bounds; prints both runs' counts, each rank's peak
+   with times, bytes and bounds (K4 also ``torch.linalg.inv`` on its
+   own-cell batch); prints both runs' counts, each rank's peak
    memory, halo exchanges and all-reduces a step and s/step;
+6d. (l) run (f)'s flags on the refinement-6 disk (cut from 7 to keep the
+   script's time; k=2, float32, projection SSP2, two steps: one warm-up,
+   one timed), on one rank and then with ``--n_devices 2`` on the
+   cell/facet partition, each rank through the CLI's ``driver.run`` as
+   ``driver.main`` runs it, sharing cuda:0 through gloo (with two or more
+   cards also NCCL, one rank per card).  Validates the tentative counts
+   (equal to the single rank's step for step; the float32 pressure solves
+   end at the float32 floor, so their counts, printed beside the single
+   rank's, count rounding), the state (within 1e-4 of the single rank's
+   largest entry), the
+   energy and divergence gates, no gather in a step, K4 and no other
+   kernel launched; each rank then holds K4 on the own-cell and Schur
+   batches of its first stage build against its plain version in float32
+   and float64, with times, bytes, bound and ``torch.linalg.inv`` on the
+   same blocks; prints s/step against the single rank's, ghost exchanges and
+   all-reduces a step a rank, owned and ghost counts a rank.  (l64): the
+   same flags in float64 on the refinement-4 disk, over 2 ranks and on one
+   rank in the same call: every count equal, step for step, and the state
+   within 1e-10;
 7. the launch check: every kernel K1-K5 launched on some path.
 
 The JSON line before the card's name and power limit has one entry per
 kernel (route, source, the TPU kernel it replaces, launches by path and per
 timed main-path step, errors, ms, plain_ms, bytes, bound_ms, bound_by,
 pct_bound, library_ms, timers; K1-K4 also ``*_slab``: phase (k)'s slab
-shape, error, times, bound and launches a step over the ranks); the last
+shape, error, times, bound and launches a step over the ranks; K4 also
+``*_partition_own`` / ``*_partition_schur``: phase (l)'s partition-local
+batches, and its launches a step over the ranks); the last
 line is ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it.
 """
@@ -168,6 +190,25 @@ SLAB_TIMEOUT = 900
 # entry on the H100 (PR 7), against 1.1e-5 on the disk's blocks; the bound
 # leaves room for the Schur blocks' conditioning (float64 is held to 1e-11)
 SLAB_GJ_F32_RTOL = 2.0e-4
+# phase (l): run (f)'s flags (Kelvin-Helmholtz on the unit disk, k=2,
+# float32, projection SSP2, two steps: one warm-up, one timed) over 2 ranks
+# of the cell/facet partition, against one rank in the same call; the state
+# is held to the single rank's to 1e-4 of its largest entry, as phase
+# (k)'s.  Refinement 6, cut from run (f)'s 7: at 7 the partitioned run
+# took 93-120 s of the script and the script 632 s (PERF.md section 4)
+PART_REFINEMENT = 6
+PART_RANKS = 2
+PART_STATE_RTOL = 1.0e-4
+PART_TIMEOUT = 600
+# In float32 the disk's pressure solves end at the float32 floor (run (f):
+# relres 2e-6 against its 2e-6 tolerance; the JAX package takes 78 final
+# pressure iterations where the port takes 79), so their counts count
+# rounding and another order of the sums moves them: phase (l) holds the
+# tentative counts of its float32 run to the single rank's, and every count
+# of a float64 run at PART_F64_REFINEMENT to the single rank's, with the
+# state to PART_F64_RTOL
+PART_F64_REFINEMENT = 4
+PART_F64_RTOL = 1.0e-10
 # the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
 # 700 W): its bytes (each input read once, each output written once) over
 # the 3.35 TB/s of HBM, or its floating-point operations (an FMA is two)
@@ -932,6 +973,7 @@ def slab_kernel_checks(geom, op, k4, rank):
     cells)."""
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
 
     dtype, dev = geom.dtype, geom.device
     d1, nc, nf, b = geom.d1, geom.n_cells, geom.n_facets, geom.fcol_bounds
@@ -981,6 +1023,8 @@ def slab_kernel_checks(geom, op, k4, rank):
             holds.check(name, dtype, kern(), plain())
         holds.timed(name, dtype, kern, plain, nbytes, flops)
         holds.results[name]["shape"] = shape
+    holds.results["gauss_jordan"]["library_ms"] = device_time(
+        lambda: torch.linalg.inv(G.permute(2, 0, 1)))[0]
     return holds.results
 
 
@@ -1095,9 +1139,246 @@ def slab_phase(card, Q_single, counts_single):
                   f" | kernel {e['ms']:.4f} ms plain {e['plain_ms']:.4f} ms | {e['bytes'] / 1e6:.1f} MB, "
                   f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
                   f"{pct_bound(e['bound_ms'], e['ms'], name):.1f}% of bound | launches a step "
-                  f"{launches[name] / SLAB_STEPS:.1f} over the ranks (timer {'/'.join(e['timers'])})",
+                  f"{launches[name] / SLAB_STEPS:.1f} over the ranks (timer {'/'.join(e['timers'])})"
+                  + (f" | torch.linalg.inv {e['library_ms']:.4f} ms" if "library_ms" in e else ""),
                   flush=True)
         first = first or (launches, r0["kernels"])
+    return first
+
+
+def partition_rank(comm, device, argv, check_kernels):
+    """Phase (l), one rank: the CLI's run (``driver.run``, as ``driver.main``
+    runs each rank of ``--n_devices``) with every timestep timed and its
+    collectives counted, and the first two batches the rank's stage build
+    handed K4 recorded; then (``check_kernels``), one rank at a time, K4 on
+    those batches against its plain version.  Returns the rank's steps,
+    counts, launches, ownership and ghost counts; rank 0 also the gathered
+    state, its energy ratio and divergence, and the driver's printed
+    lines."""
+    from incompressibleeulerhdg_tpu_torch import kernels
+    from incompressibleeulerhdg_tpu_torch.cli import driver
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+    from incompressibleeulerhdg_tpu_torch.models.problems import KelvinHelmholtz
+    from incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex import IncompressibleEulerHDGIMEX
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
+    from incompressibleeulerhdg_tpu_torch.utils.diagnostics import flow_diagnostics
+    from incompressibleeulerhdg_tpu_torch.utils.logging import PerformanceLog
+
+    args = driver.build_parser().parse_args(argv)
+    step = IncompressibleEulerHDGIMEX.step
+    steps = []
+
+    def timed_step(self, *a, **k):
+        torch.cuda.synchronize(device)
+        before, t0 = dict(comm.counts), time.perf_counter()
+        out = step(self, *a, **k)
+        torch.cuda.synchronize(device)
+        steps.append((time.perf_counter() - t0,
+                      {n: comm.counts[n] - before[n] for n in comm.counts}))
+        return out
+
+    k4, text = [], io.StringIO()
+    PerformanceLog.reset()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    IncompressibleEulerHDGIMEX.step = timed_step
+    try:
+        with contextlib.redirect_stdout(text), recording_k4_inputs(k4):
+            res = driver.run(args, device, comm)
+    finally:
+        IncompressibleEulerHDGIMEX.step = step
+    torch.cuda.synchronize(device)
+    launches = dict(kernels.LAUNCHES)
+    dec = res["timestepper"].dec
+    star = dec.pc.part.star_plan
+    out = dict(rank=comm.rank, setup_s=sum(PerformanceLog.data["setup"]), steps=steps,
+               counts=strip_relres(res["step_counts"]), launches=launches,
+               owned=(dec.nc_loc, dec.nf_loc),
+               ghosts=(dec.cell_plan.n_ghost, dec.facet_plan.n_ghost,
+                       0 if star is None else star.n_ghost),
+               table_mib=dec.table_bytes() / 2**20,
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    if comm.rank == 0:
+        disc = res["timestepper"].output_disc
+        ratio, div = flow_diagnostics(disc, KelvinHelmholtz(disc), res["Q"])
+        out.update(Q=res["Q"], ratio=ratio, div=div, text=text.getvalue(),
+                   finite=bool(torch.isfinite(res["Q"]).all() and torch.isfinite(res["p"]).all()))
+    for r in range(comm.size if check_kernels else 0):  # one rank at a time on the card
+        if r == comm.rank and len(k4) == 2:
+            holds = Holds(f"partition rank {r}")
+            for G in k4:
+                holds.check("gauss_jordan", G.dtype, smallinv.gauss_jordan_inv_bl(G),
+                            smallinv.gauss_jordan_inv_plain(G), per_block=True,
+                            rel_tol=SLAB_GJ_F32_RTOL)
+                G64 = G.to(torch.float64)
+                holds.check("gauss_jordan", torch.float64, smallinv.gauss_jordan_inv_bl(G64),
+                            smallinv.gauss_jordan_inv_plain(G64), per_block=True)
+            e = holds.results["gauss_jordan"]
+            for sfx, G in (("_partition_own", k4[0]), ("_partition_schur", k4[1])):
+                holds.timed("gauss_jordan", G.dtype, lambda G=G: smallinv.gauss_jordan_inv_bl(G),
+                            lambda G=G: smallinv.gauss_jordan_inv_plain(G),
+                            *work("gauss_jordan", G.dtype, G.shape[0] // 2, G.shape[2],
+                                  n=G.shape[0]), suffix=sfx)
+                e[f"library_ms{sfx}"] = device_time(
+                    lambda G=G: torch.linalg.inv(G.permute(2, 0, 1)))[0]
+                e[f"shape{sfx}"] = tuple(G.shape)
+            out["kernels"] = e
+        comm.barrier()
+    return out
+
+
+def partition_ranks(comm, device, runs):
+    """:func:`partition_rank` of every (argv, check_kernels) of ``runs``, in
+    one launch of the ranks."""
+    return [partition_rank(comm, device, argv, check) for argv, check in runs]
+
+
+def strip_relres(counts):
+    """Each step's iteration counts without the residual estimate."""
+    return [{k: v for k, v in c.items() if k != "max_relres"} for c in counts]
+
+
+def disk_argv(refinement, dtype):
+    """Run (f)'s flags at ``refinement`` and ``dtype``: two steps."""
+    dt = 1.0 / NX
+    return ["--dt", str(dt), "--dtype", dtype, "--problem", "kelvinhelmholtz", "--refinement",
+            str(refinement), "--degree", str(DEGREE), "--tfinal", str(2 * dt),
+            "--use_projection_method"]
+
+
+def partition_runs(card, runs):
+    """Each (tag, argv, check_kernels) of ``runs`` with ``--n_devices 2`` on
+    the partition, all in one launch of the ranks: once with the ranks
+    sharing cuda:0 (gloo) and, with enough cards, once one rank per card
+    (NCCL), in a temporary directory (rank 0 writes solution.vtu); prints
+    each rank's lines.  Yields (label, {tag: the ranks' results}, wall)."""
+    from incompressibleeulerhdg_tpu_torch.parallel.launch import run_ranks
+
+    nd = ["--n_devices", str(PART_RANKS)]
+    modes = [True] + ([False] if torch.cuda.device_count() >= PART_RANKS else [])
+    for shared in modes:
+        label = (f"{PART_RANKS} ranks sharing one card (cuda:0, gloo through host memory; "
+                 f"no scaling measured)" if shared else f"{PART_RANKS} ranks, one card each (NCCL)")
+        for tag, argv, _ in runs:
+            print(f"# phase ({tag}): {' '.join(argv + nd)}, 1 warm-up + 1 timed step, {label}",
+                  flush=True)
+        cwd = os.getcwd()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                res = run_ranks(partition_ranks, PART_RANKS,
+                                args=(tuple((argv + nd, check) for _, argv, check in runs),),
+                                device="cuda", share_device=shared, timeout=PART_TIMEOUT)
+            finally:
+                os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        outs = {}
+        for i, (tag, _, _) in enumerate(runs):
+            out = outs[tag] = [r[i] for r in res]
+            for line in out[0]["text"].splitlines():
+                if line.strip():
+                    print(f"# driver ({tag}) | {line}", flush=True)
+            for r in out:
+                print(f"# phase ({tag}) rank {r['rank']}: setup {r['setup_s']:.2f} s | steps "
+                      f"{[round(t, 4) for t, _ in r['steps']]} s | collectives a step "
+                      f"{[c for _, c in r['steps']]} | owned cells, facets {r['owned']} | ghost "
+                      f"cells, facets, star facets {r['ghosts']} | peak {r['peak_gib']:.3f} GiB, "
+                      f"partition tables {r['table_mib']:.1f} MiB | launches {r['launches']} | "
+                      f"{label} | card {card}", flush=True)
+            if any(len(r["steps"]) != 2 or any(c["gather"] or not c["ghosts"]
+                                               for _, c in r["steps"]) for r in out):
+                fail(f"phase ({tag}): a step gathered, or exchanged no ghosts")
+            if not out[0]["finite"]:
+                fail(f"phase ({tag}): non-finite state")
+        yield label, outs, wall
+
+
+def single_rank(card, argv, tag):
+    """``argv`` through ``driver.main`` on cuda:0 alone, in a temporary
+    directory: (state, counts, step times)."""
+    from incompressibleeulerhdg_tpu_torch.cli import driver
+    from incompressibleeulerhdg_tpu_torch.utils.logging import PerformanceLog
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            PerformanceLog.reset()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = driver.main(argv + ["--device", "cuda"])
+        finally:
+            os.chdir(cwd)
+    ref = dict(Q=res["Q"].cpu(), counts=strip_relres(res["step_counts"]),
+               steps=list(PerformanceLog.data["timestep"]))
+    print(f"# phase ({tag}) one rank: {' '.join(argv)} | steps "
+          f"{[round(t, 4) for t in ref['steps']]} s | iters {ref['counts']} | card {card}",
+          flush=True)
+    return ref
+
+
+def partition_phase(card):
+    """Phase (l): run (f)'s flags at PART_REFINEMENT with ``--n_devices 2``
+    on the cell/facet partition (a check of the distributed numbers and of
+    K4 on partition-local batches, not of scaling), then the same flags in
+    float64 at PART_F64_REFINEMENT, each against one rank in the same call.
+    Fails on a rank's failure, counts other than the single rank's (the
+    tentative ones in float32), a state that leaves the single rank's, the
+    energy or divergence gate, a gather inside a step, or a kernel other
+    than K4 (or K4 never) launched.  Returns the launches summed over the
+    ranks of the (first) float32 run and rank 0's K4 entry."""
+    argv32 = disk_argv(PART_REFINEMENT, "float32")
+    argv64 = disk_argv(PART_F64_REFINEMENT, "float64")
+    ref, ref64 = single_rank(card, argv32, "l"), single_rank(card, argv64, "l64")
+    first = None
+    for label, outs, wall in partition_runs(card, (("l", argv32, True), ("l64", argv64, False))):
+        out = outs["l"]
+        r0 = out[0]
+        diff = float((r0["Q"] - ref["Q"]).abs().max()) / float(ref["Q"].abs().max())
+        print(f"# phase (l) disk refinement {PART_REFINEMENT} k={DEGREE} float32 SSP2 over "
+              f"{PART_RANKS} ranks: wall {wall:.1f} s with (l64) | timed step "
+              f"{max(r['steps'][-1][0] for r in out):.4f} s/step (warm-up "
+              f"{max(r['steps'][0][0] for r in out):.4f}) against one rank's "
+              f"{ref['steps'][-1]:.4f} | iters {r0['counts']} (one rank {ref['counts']}) | "
+              f"energy ratio {r0['ratio']:.6f} | divergence {r0['div']:.3e} | "
+              f"max|Q_dist - Q_single| / max|Q_single| {diff:.3e} (bound {PART_STATE_RTOL:.0e}) "
+              f"| {label}", flush=True)
+        if [c["tentative"] for c in r0["counts"]] != [c["tentative"] for c in ref["counts"]]:
+            fail("phase (l): tentative counts differ from the single rank's")
+        if not diff <= PART_STATE_RTOL:
+            fail(f"phase (l): the distributed state differs from the single rank's by {diff:.3e}")
+        lo, hi = ENERGY_RANGE["f"]
+        if not (lo <= r0["ratio"] <= hi and r0["div"] < DIVERGENCE_MAX_KH):
+            fail(f"phase (l): energy ratio {r0['ratio']:.6f} or divergence {r0['div']:.3e} "
+                 "outside the gates")
+        launches = {n: sum(r["launches"][n] for r in out) for n in out[0]["launches"]}
+        if any(launches[n] == 0 for n in DENSE_PATH_KERNELS) or \
+                any(launches[n] for n in MAIN_PATH_KERNELS if n not in DENSE_PATH_KERNELS):
+            fail(f"phase (l) must launch K4 only: {launches}")
+        e = r0["kernels"]
+        for sfx in ("_partition_own", "_partition_schur"):
+            print(f"# kernel gauss_jordan on rank 0's partition ({e[f'shape{sfx}']}, "
+                  f"{sfx[11:]}): rel err f32 {e['rel']['float32']:.3e} f64 "
+                  f"{e['rel']['float64']:.3e} (rank 1 {out[1]['kernels']['rel']['float32']:.3e}) "
+                  f"| kernel {e[f'ms{sfx}']:.4f} ms plain {e[f'plain_ms{sfx}']:.4f} ms | "
+                  f"{e[f'bytes{sfx}'] / 1e6:.1f} MB, bound {e[f'bound_ms{sfx}']:.4f} ms "
+                  f"({e[f'bound_by{sfx}']}), "
+                  f"{pct_bound(e[f'bound_ms{sfx}'], e[f'ms{sfx}'], 'gauss_jordan'):.1f}% of bound "
+                  f"| torch.linalg.inv {e[f'library_ms{sfx}']:.4f} ms | launches a step "
+                  f"{launches['gauss_jordan'] / 2:.1f} over the ranks (timer "
+                  f"{'/'.join(e['timers'])})", flush=True)
+        first = first or (launches, e)
+        r0 = outs["l64"][0]
+        diff = float((r0["Q"] - ref64["Q"]).abs().max()) / float(ref64["Q"].abs().max())
+        print(f"# phase (l64) disk refinement {PART_F64_REFINEMENT} k={DEGREE} float64 over "
+              f"{PART_RANKS} ranks: iters {r0['counts']} (one rank {ref64['counts']}) | "
+              f"max|Q_dist - Q_single| / max|Q_single| {diff:.3e} (bound {PART_F64_RTOL:.0e}) | "
+              f"{label}", flush=True)
+        if r0["counts"] != ref64["counts"]:
+            fail(f"phase (l64): counts {r0['counts']} differ from the single rank's "
+                 f"{ref64['counts']}")
+        if not diff <= PART_F64_RTOL:
+            fail(f"phase (l64): the distributed state differs from the single rank's by {diff:.3e}")
     return first
 
 
@@ -1128,6 +1409,8 @@ def main():
     del disk_k4
     slab_launches, slab_cmp = slab_phase(card, *slab_ref)
     launches["k"] = slab_launches
+    part_launches, part_cmp = partition_phase(card)
+    launches["l"] = part_launches
 
     rows = []
     for name in kernels.KERNELS:
@@ -1172,7 +1455,17 @@ def main():
                        ms_slab=e["ms"], plain_ms_slab=e["plain_ms"], bytes_slab=e["bytes"],
                        bound_ms_slab=e["bound_ms"], bound_by_slab=e["bound_by"],
                        pct_bound_slab=pct_bound(e["bound_ms"], e["ms"], name),
+                       library_ms_slab=e.get("library_ms"),
                        launches_slab_per_step=slab_launches[name] / SLAB_STEPS)
+        if name == "gauss_jordan":
+            e = part_cmp
+            for sfx in ("_partition_own", "_partition_schur"):
+                row.update({f"{key}{sfx}": e[f"{key}{sfx}"] for key in (
+                    "shape", "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "library_ms")})
+                row[f"pct_bound{sfx}"] = pct_bound(e[f"bound_ms{sfx}"], e[f"ms{sfx}"], name)
+            row.update(max_abs_err_partition=e["abs"]["float32"],
+                       max_rel_err_f64_partition=e["rel"]["float64"],
+                       launches_partition_per_step=part_launches[name] / 2)
         rows.append(row)
     missing = [row["name"] for row in rows if row["launches"] == 0]
     if missing:

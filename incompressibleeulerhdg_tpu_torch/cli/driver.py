@@ -11,12 +11,14 @@ schemes (projection or monolithic), DG implicit and conforming RT1 x DG0
 implicit (projection or monolithic), optionally advecting a tracer and
 writing the ``evolution.pvd`` animation; ``--device`` picks the device
 (default ``cuda``; no card is an error, never a silent CPU run).
-``--n_devices N`` runs the slab decomposition of the structured meshes
-(parallel/slab.py) on N ranks, one process each (rank r on ``cuda:r``, or
-on the CPU with ``--device cpu``), wherever the JAX package takes its slab
-path; rank 0 prints and writes the outputs from the state gathered at the
-end.  The cases the JAX package runs on its GSPMD sharding instead raise
-NotImplementedError, naming ROADMAP M14b, before any work.
+``--n_devices N`` runs on N ranks, one process each (rank r on ``cuda:r``,
+or on the CPU with ``--device cpu``), on the JAX package's route: the slab
+decomposition of the structured meshes (parallel/slab.py) where it takes
+its slab path, the cell/facet partition (parallel/partition.py) where it
+takes its GSPMD sharding (the disk, the conforming scheme, a periodic nx
+that N does not divide, a split with an empty slab, the tracer under HDG
+or DG implicit); rank 0 prints and writes the outputs from the state
+gathered at the end.
 
 Run:  python -m incompressibleeulerhdg_tpu_torch.cli.driver --help
 """
@@ -30,7 +32,6 @@ from ..fem.discretisation import HDGDiscretisation
 from ..mesh import periodic_square_mesh, unit_disk_mesh, unit_square_mesh
 from ..models.problems import DoubleLayerShearFlow, KelvinHelmholtz, TaylorGreen
 from ..ops import fields as F
-from ..parallel.slab import check_split
 from ..timesteppers.common import to_host
 from ..timesteppers.conforming_implicit import IncompressibleEulerConformingImplicit
 from ..timesteppers.dg_implicit import IncompressibleEulerDGImplicit
@@ -103,8 +104,8 @@ def build_parser():
 
 
 def check_args(args):
-    """The JAX driver's checks of invalid combinations, then refusal of the
-    ``--n_devices`` cases the port does not run."""
+    """The JAX driver's checks of invalid combinations and of the device
+    count."""
     if args.discretisation == "conforming" and args.timestepper != "implicit":
         raise RuntimeError(
             f"Invalid timestepping method for conforming discretisation: '{args.timestepper}'")
@@ -119,21 +120,12 @@ def check_args(args):
 
 
 def check_distributed_args(args):
-    """``--n_devices`` where the JAX package takes its slab path; its GSPMD
-    cases raise NotImplementedError naming M14b."""
+    """``--n_devices`` beyond the visible cards raises, as the JAX driver's
+    device check does (before any work; every scheme and mesh runs)."""
     n = args.n_devices
-    gspmd = None
-    if args.problem == "kelvinhelmholtz":
-        gspmd = "the unstructured unit disk"
-    elif args.discretisation == "conforming":
-        gspmd = "the conforming scheme"
-    elif args.tracer_advection and args.timestepper == "implicit":
-        gspmd = "the tracer under HDG or DG implicit"
-    if gspmd:
-        raise NotImplementedError(
-            f"--n_devices {n} with {gspmd}: the JAX package runs it on its GSPMD sharding, "
-            f"not ported (ROADMAP Queue 1, M14b)")
-    check_split(args.nx, n, args.problem == "shear")
+    if args.device == "cuda" and torch.cuda.is_available() and torch.cuda.device_count() < n:
+        raise RuntimeError(
+            f"n_devices={n} but only {torch.cuda.device_count()} CUDA devices are visible")
 
 
 def select_device(name):
@@ -211,8 +203,9 @@ def _run_rank(comm, device, args):
 
 def run(args, device, comm=None):
     """The driver's work on ``device``; with ``comm``, as one rank of a
-    slab-decomposed run (the global tables are built on the host, then each
-    rank keeps its slab's on its device; rank 0 prints and writes)."""
+    distributed run (the global tables are built on the host, then each
+    rank keeps its slab's or partition's on its device; rank 0 prints and
+    writes)."""
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     root = comm is None or comm.rank == 0
     with PerformanceLog("setup"):
@@ -226,7 +219,7 @@ def run(args, device, comm=None):
         callbacks = [AnimationCallback(disc, "evolution.pvd")] if args.animation else None
         timestepper = make_timestepper(args, disc, callbacks)
         if comm is not None:
-            timestepper.distribute(comm, device)
+            timestepper.distribute(comm, device, tracer=args.tracer_advection)
 
     print("+-------------------------------------------------+")
     print("! timesteppers for incompressible Euler equations !")

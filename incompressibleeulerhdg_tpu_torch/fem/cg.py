@@ -12,9 +12,10 @@ A CG field is a flat tensor over global dofs; cell-local views are gathers
 through the (nloc, n_cells) dof map, operators are batched dense element
 kernels followed by a scatter-add (``index_add_``), and the mass solve is a
 Jacobi-preconditioned CG iteration.  The numbering is host numpy, built once.
-On a slab-local geometry (parallel/slab.py) the dof vector stays replicated:
-each rank accumulates its own cells into it and a sum over the ranks
-resolves the slab-interface dofs, as the GTMG coarse residual.
+On a slab- or partition-local geometry (parallel/slab.py, partition.py) the
+dof vector stays replicated: each rank accumulates its own cells into it and
+a sum over the ranks resolves the interface dofs, as the GTMG coarse
+residual.
 """
 
 from dataclasses import dataclass
@@ -142,7 +143,7 @@ def cg_scatter(space, local):
 
 def _assemble(geom, space, local):
     """:func:`cg_scatter` of a geometry's cells: the dummy cells of an uneven
-    slab split left out, summed over the ranks of a slab-local geometry."""
+    slab split left out, summed over the ranks of a distributed geometry."""
     if geom.cvalid is not None:
         local = local * geom.cvalid
     out = cg_scatter(space, local)

@@ -92,6 +92,11 @@ class Geom:
     fcol_orphans: bool = False
     shift: tuple = None
     uniform: tuple = None
+    # not a field: set on partition-local geometries only
+    # (parallel/partition.py), the communicator, the ghost plans of the
+    # gather tables and the static tables with their ghost entries (a
+    # ``PartitionTables``)
+    part = None
 
     @property
     def n_cells(self):

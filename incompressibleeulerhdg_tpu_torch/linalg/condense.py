@@ -9,7 +9,8 @@ are constant in time and formed once on the host (numpy) per cell geometry
 class; the per-cell trace Schur blocks S_c = D_c - C_c A_c^{-1} B_c are
 stored batch-last (3nt, 3nt, nc) on the device, and the trace operator is
 their facet-scatter sum.  Cell<->facet moves are slot slices on structured
-meshes and index gathers on the others (the JAX package's two branches).
+meshes and index gathers on the others (the JAX package's two branches),
+with the ghost entries of a partition-local geometry appended first.
 """
 
 from dataclasses import dataclass
@@ -17,7 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.fields import interior_mask, slot_values
+from ..ops.fields import cells_ext, interior_mask, slot_values
 from ..ops.projection import cell_geometry_classes, amajor_perm, apply_class_blocks
 from ..ops.structured import slot_scatter
 
@@ -138,11 +139,12 @@ def build_condensed_system(disc, tau=1.0):
 def _facets_from_cells(geom, y_c):
     """Facet assembly of per-cell (3nt, nc) contributions -> (nt, nf)."""
     nt = y_c.shape[0] // 3
-    blocks = [y_c[l * nt : (l + 1) * nt] for l in range(3)]
     if geom.shift is not None:
-        return slot_scatter(geom, blocks)
+        return slot_scatter(geom, [y_c[l * nt : (l + 1) * nt] for l in range(3)])
     # each facet reads its plus and (interior) minus cell's slot of the
     # facet's local index on that side
+    y_c = cells_ext(geom, y_c)
+    blocks = [y_c[l * nt : (l + 1) * nt] for l in range(3)]
     fl = geom.ftab // 2
     msk = interior_mask(geom, 2)
     out = 0.0

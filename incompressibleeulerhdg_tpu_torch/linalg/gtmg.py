@@ -18,7 +18,16 @@ coarse Laplacian, and linear interpolation along facets between them.
   nxl`` of the global grid and sums it over the ranks (neighbouring slabs
   share one vertex row, which the sum resolves): the coarse residual is
   the one replicated object of the distributed solve, and the coarse solve
-  runs replicated on every rank.
+  runs replicated on every rank.  On a partition-local layout (``part``,
+  parallel/partition.py) the restriction sums each vertex's own facets'
+  ends in the single device's order (one rank holds every facet of an
+  interior vertex, so its sum is the single device's), places them in a
+  vector of every vertex and sums that over the ranks, the
+  coarse solve (FFT, dense or Chebyshev, its vertex tables replicated)
+  runs on every rank, and the prolongation reads the replicated result at
+  the own facets' ends; the vertex-star smoother solves the stars of the
+  own facets' ends, reading the facets of those stars that other ranks own
+  as ghosts (one exchange per application).
 
 The set-up (spectral bounds by power iteration, the star inverses, the
 coarse spectrum) is host numpy with the same seeded generator as the JAX
@@ -65,6 +74,10 @@ class TwoLevelTracePC:
     vshift: tuple = None  # (Mx, My, wrap, groups): facet endpoint vertex offsets
     # slab-local transfers: (comm, n_slabs, Mx, My, canvas rows, local groups, wrap)
     dist: tuple = None
+    # partition-local transfers (parallel/partition.py ``PartitionTransfers``);
+    # vf, vf_mask and star_inv then hold the stars of the vertices the own
+    # facets end at only, vf indexing [own | ghost] facets
+    part: object = None
     n_vertices: int = 0
     coarse_kind: str = "cheb"  # "cheb" | "fft_neumann" | "fft_periodic"
     grid_shape: tuple = None
@@ -433,6 +446,12 @@ def restrict(pc, lam):
     a_hi = torch.sum(lam * s, dim=0)
     if pc.dist is not None:
         return _dist_restrict(pc, a_lo, a_hi)
+    if pc.part is not None:
+        t = pc.part
+        acat = torch.cat([a_lo, a_hi])
+        out = lam.new_zeros(pc.n_vertices)
+        out[t.verts] = sum(t.vf_mask[:, d] * acat[t.vf[:, d]] for d in range(t.vf.shape[1]))
+        return t.comm.allreduce(out)
     if pc.vshift is None:
         acat = torch.cat([a_lo, a_hi])
         nf = a_lo.shape[0]
@@ -453,6 +472,10 @@ def _star_apply(pc, r):
     patch solves per vertex, summed back with weight 1/2 (each facet lies
     in exactly its two endpoint stars)."""
     nt = r.shape[0]
+    ends = pc.facet_verts
+    if pc.part is not None:
+        r = pc.part.comm.ghosts(pc.part.star_plan, r)
+        ends = pc.part.ends
     rg = r[:, pc.vf] * pc.vf_mask[None]  # (nt, nv, Dv)
     rv = rg.permute(2, 0, 1).reshape(pc.star_inv.shape[0], -1)
     y = torch.einsum("ijv,jv->iv", pc.star_inv, rv)
@@ -460,7 +483,7 @@ def _star_apply(pc, r):
     rows = torch.arange(nt, device=r.device)[:, None]
     for e in range(2):
         idx = pc.star_pos[e][None, :] * nt + rows  # (nt, nf)
-        z = z + 0.5 * torch.gather(y[:, pc.facet_verts[e]], 0, idx)
+        z = z + 0.5 * torch.gather(y[:, ends[e]], 0, idx)
     return z
 
 

@@ -12,7 +12,7 @@ vector work stay on the device, and each Arnoldi step makes ONE host read
 Givens rotations in float64 and decides whether to continue.
 
 Vectors are flat 1-D tensors; callers flatten their field layouts.  With a
-``comm`` (parallel/comm.py) the vectors are one rank's slab of a
+``comm`` (parallel/comm.py) the vectors are one rank's part of a
 distributed vector: every inner product and norm is summed over the ranks,
 so each stopping test reads the same all-reduced value on every rank and
 all ranks take the same iterations (the JAX package's ``axis_name``).
@@ -240,7 +240,8 @@ def fgmres(matvec, b, *, M=None, x0=None, rtol=1e-12, restart=30, maxiter=200, p
     return x, iters, res / max(bnorm, tiny)
 
 
-def cg(matvec, b, *, M=None, x0=None, rtol=1e-12, atol=0.0, maxiter=500, project=None):
+def cg(matvec, b, *, M=None, x0=None, rtol=1e-12, atol=0.0, maxiter=500, project=None,
+       comm=None):
     """Preconditioned conjugate gradients from ``x0`` (default 0).
 
     Runs while the unpreconditioned residual norm exceeds
@@ -255,23 +256,23 @@ def cg(matvec, b, *, M=None, x0=None, rtol=1e-12, atol=0.0, maxiter=500, project
     M = M or _identity
     project = project or _identity
     b = project(b)
-    bnorm = _norm(b)
+    bnorm = _norm(b, comm)
     target = max(rtol * bnorm, atol)
     x = torch.zeros_like(b) if x0 is None else x0
     r = project(b - matvec(x))
     z = project(M(r))
     p = z
-    rz = torch.dot(r, z)
-    res, iters = _norm(r), 0
+    rz = pdot(r, z, comm)
+    res, iters = _norm(r, comm), 0
     while res > target and iters < maxiter:
         Ap = project(matvec(p))
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / pdot(p, Ap, comm)
         x = x + alpha * p
         r = r - alpha * Ap
         z = project(M(r))
-        rz_new = torch.dot(r, z)
+        rz_new = pdot(r, z, comm)
         p = z + (rz_new / rz) * p
         rz = rz_new
         iters += 1
-        res = _norm(r)
+        res = _norm(r, comm)
     return x, iters, res / max(bnorm, 1e-300)

@@ -16,7 +16,10 @@ Schwarz sweep: the own-cell inverses Dinv (nu, nu, nc), their plus-cell
 copies Dinv0 (nu, nu, nf) and the per-facet Schur inverses Sinv (nu, nu, nf).
 On any other mesh (the unit disk, preconditioners.py:602-625) D, Bx and Cx
 are dense (nu, nu, n) tables applied by ``einsum`` and reached by index
-gathers; only the Gauss-Jordan inverses (K4) are kernels there.
+gathers; only the Gauss-Jordan inverses (K4) are kernels there.  A
+partition-local geometry (parallel/partition.py) takes the dense branch on
+every mesh, with the ghost entries of each gathered source appended first:
+each rank inverts its own cells' and its own facets' blocks.
 
 The three kernels of the TPU package that apply these tables are hand-written
 CUDA here, each beside its plain PyTorch version (the JAX fallback):
@@ -39,7 +42,8 @@ import torch
 
 from .. import kernels
 from ..ops import structured as st
-from ..ops.fields import gather_facet_contribs, interior_mask, slot_values
+from ..ops.fields import (cells_ext, gather_facet_contribs, gather_sides, interior_mask,
+                          slot_values, table_ext)
 from .smallinv import gauss_jordan_inv_bl
 
 __all__ = [
@@ -325,10 +329,10 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
     Ct = star_bl.new_zeros((6, geom.wqf.shape[0], geom.n_cells))
     NNt = star_bl.new_zeros((6, 2, 2, geom.n_cells))  # dense tables' penalty
     sn_slots = slot_values(geom, snq)
-    flen_slots = slot_values(geom, geom.flen)
+    flen_slots = slot_values(geom, table_ext(geom, "flen"), ext=True)
     if not factored:
-        hfi_slots = slot_values(geom, geom.hF_inv)
-        nrm_slots = slot_values(geom, geom.normal)
+        hfi_slots = slot_values(geom, table_ext(geom, "hF_inv"), ext=True)
+        nrm_slots = slot_values(geom, table_ext(geom, "normal"), ext=True)
     for l in range(3):
         sn_l, flen_l = sn_slots[l], flen_slots[l]
         int_l = 1.0 - geom.cf_bnd[l].to(dtype)
@@ -367,8 +371,12 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
     Bx = _kron2(K01s) + torch.einsum("abf,ijf->aibjf", nnf, K01p).reshape(nu, nu, -1)
     Cx = _kron2(K10s) + torch.einsum("abf,ijf->aibjf", nnf, K10p).reshape(nu, nu, -1)
     # patch Schur factors of every facet; identity blocks on the boundary
-    Dinv0 = Dinv_bl[:, :, geom.fcells[0]]
-    Sc = D_bl[:, :, geom.fcells[1]] - _bmm(Cx, _bmm(Dinv0, Bx))
+    if geom.part is None:
+        Dinv0, D1 = Dinv_bl[:, :, geom.fcells[0]], D_bl[:, :, geom.fcells[1]]
+    else:  # the ghost cells' blocks, one exchange
+        both = cells_ext(geom, torch.stack([Dinv_bl, D_bl]))
+        Dinv0, D1 = both[0][:, :, geom.fcells[0]], both[1][:, :, geom.fcells[1]]
+    Sc = D1 - _bmm(Cx, _bmm(Dinv0, Bx))
     eye = torch.eye(nu, dtype=dtype, device=dev)[:, :, None]
     Sc = torch.where(msk[None, None, :] > 0, Sc, eye)
     return TentativeOperator(Dinv=Dinv_bl, Sinv=gauss_jordan_inv_bl(Sc), Dinv0=Dinv0,
@@ -493,9 +501,8 @@ def _cross_pair_color(geom, op, k, x0, x1):
 def _gather_sides_bl(geom, ub):
     """Plus and minus cell columns of a (nu, nc) field at every facet, the
     minus side zero on boundary facets: two (nu, nf) moves."""
-    if geom.shift is not None:
-        return st.gather_plus(geom, ub), st.gather_minus(geom, ub)
-    return ub[:, geom.fcells[0]], ub[:, geom.fcells[1]] * interior_mask(geom, 2)
+    u0, u1 = gather_sides(geom, ub)
+    return u0, u1 if geom.shift is not None else u1 * interior_mask(geom, 2)
 
 
 def _matvec_bl(geom, op, ub):
@@ -539,14 +546,22 @@ def _patch_color_structured(geom, op, k, rb):
 def _patch_color(geom, op, k, rb):
     """Exact solves of colour k's facet-pair patches on dense tables, moved
     by index gathers: (nu, nc) residual -> (nu, nc), zero on cells without
-    a colour-k facet."""
+    a colour-k facet.  On a partition the corrections go back to the cells
+    through the facet-to-cell gather of every facet, zero off colour k
+    (each cell has at most one colour-k facet, so the sum of its three
+    slots is the one correction)."""
     b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
+    rb = cells_ext(geom, rb)
     r0 = rb[:, geom.fcells[0, b0:b1]]
     r1 = rb[:, geom.fcells[1, b0:b1]]
     Dinv0 = op.Dinv0[:, :, b0:b1]
     t = r1 - _bm(op.Cx[:, :, b0:b1], _bm(Dinv0, r0))
     y1 = _bm(op.Sinv[:, :, b0:b1], t)
     y0 = _bm(Dinv0, r0 - _bm(op.Bx[:, :, b0:b1], y1))
+    if geom.part is not None:
+        y = y0.new_zeros((2, y0.shape[0], geom.n_facets))
+        y[0, :, b0:b1], y[1, :, b0:b1] = y0, y1
+        return gather_facet_contribs(geom, y[0], y[1])
     ycat = torch.cat([y0, y1], dim=1)
     idx = geom.fcol_pos[k] + geom.fcol_side[k] * (b1 - b0)
     return ycat[:, idx] * geom.fcol_mask[k][None, :]

@@ -3,7 +3,7 @@
 Counterpart of incompressibleeulerhdg_tpu/linalg/pressure.py: static
 condensation (linalg/condense.py), deflated left-preconditioned GMRES
 (restart 30, at most 500 iterations by default) on the trace system, back
-substitution.  On a slab-local geometry the GMRES sums its inner products
+substitution.  On a distributed geometry the GMRES sums its inner products
 over the ranks.
 """
 

@@ -13,6 +13,14 @@ preconditioned GMRES with one symmetric colored sweep, a full matvec
 between colours (the JAX package's selection, tentative.py:94-101).  Both
 sweeps need every cell to carry an interior facet, which holds on every
 mesh the port builds but the 1x1 square; they raise otherwise.
+
+A partition-local geometry (parallel/partition.py) of a structured mesh
+keeps the single device's method, right-preconditioned GMRES, with the
+symmetric sweep of the dense tables (the same patches in the same colour
+order; the fused sweep's incremental residuals are its exact ones) and one
+explicit matvec for ``A M v``: the distributed solve is the single-device
+solve up to the order of the sums, and takes its iterations.  (The JAX
+package's GSPMD run takes the left-preconditioned branch there.)
 """
 
 from ..ops.fields import mass_apply
@@ -39,18 +47,22 @@ def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200):
     def matvec(v):
         return _matvec_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
 
-    if geom.shift is not None:
+    comm = dist_axis(geom)
+    if geom.shift is not None or (geom.part is not None and geom.part.structured):
         def opM(v):
+            if geom.shift is None:
+                z = _colored_apply_bl(geom, op, v.reshape(nu, nc), symmetric=True)
+                return z.reshape(-1), _matvec_bl(geom, op, z).reshape(-1)
             z, Az = _colored_apply_fused_bl(geom, op, v.reshape(nu, nc))
             return z.reshape(-1), Az.reshape(-1)
 
         u, iters, relres = gmres_right(opM, matvec, rhs.reshape(-1), rtol=rtol,
-                                       restart=restart, maxiter=maxiter, comm=dist_axis(geom))
+                                       restart=restart, maxiter=maxiter, comm=comm)
         return u.reshape(shape), iters, relres
 
     def M(v):
         return _colored_apply_bl(geom, op, v.reshape(nu, nc), symmetric=True).reshape(-1)
 
     u, iters, relres = gmres(matvec, rhs.reshape(-1), M=M, rtol=rtol, restart=restart,
-                             maxiter=maxiter)
+                             maxiter=maxiter, comm=comm)
     return u.reshape(shape), iters, relres

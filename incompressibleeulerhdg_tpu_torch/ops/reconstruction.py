@@ -20,9 +20,9 @@ def facet_grad_traces(geom, u):
     (g_plus, g_minus), each (..., 2, nqf, nf) with the derivative direction
     before nqf."""
     out = []
-    for side in (0, 1):
-        ug = F.gather_side(geom, u, side)  # (..., d1, nf)
-        jinv = F.gather_side(geom, geom.jac_inv, side)  # (2=b, 2=a, nf)
+    ugs = F.gather_sides(geom, u)  # (..., d1, nf) each
+    jinvs = F.gather_sides(geom, F.table_ext(geom, "jac_inv"), ext=True)  # (2=b, 2=a, nf)
+    for side, ug, jinv in zip((0, 1), ugs, jinvs):
         U = geom.tgphi1[geom.ftab[side]]  # (nf, nqf, d1, 2)
         gref = torch.einsum("fqib,...if->...bqf", U, ug)
         out.append(torch.stack(

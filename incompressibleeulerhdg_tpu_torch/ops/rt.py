@@ -17,6 +17,9 @@ fields (2, nq, nc) / (2, nqf, nf).  Cell -> facet accumulation is a gather
 of each facet's two cell slots (``RTTables.fslot``), facet -> cell
 accumulation goes through ``ops.fields.gather_facet_contribs``: both are
 sums over a fixed number of sources, so the card adds them in a fixed order.
+On a partition-local geometry (parallel/partition.py) a rank holds the dofs
+of its own facets; both moves read the ghost entries of their source first
+(``ops.fields.cells_ext`` / ``facets_ext``).
 """
 
 from dataclasses import dataclass
@@ -31,6 +34,7 @@ __all__ = [
     "RTTables",
     "build_rt_tables",
     "facet_slots",
+    "cell_dofs",
     "rt_cell_coeffs",
     "rt_eval",
     "rt_eval_cellq",
@@ -60,8 +64,10 @@ class RTTables:
 def facet_slots(geom):
     """(2, nf) flat indices into a (3, nc) cell-local array of each facet's
     plus and minus cell slot (the minus slot of a boundary facet is not
-    data)."""
-    return geom.ftab.clamp(min=0) // 2 * geom.n_cells + geom.fcells
+    data).  On a partition-local geometry the array holds the ghost cells
+    too (``ops.fields.cells_ext``)."""
+    nc = geom.n_cells if geom.part is None else geom.part.cells.n_ext
+    return geom.ftab.clamp(min=0) // 2 * nc + geom.fcells
 
 
 def build_rt_tables(disc):
@@ -118,15 +124,20 @@ def build_rt_tables(disc):
     )
 
 
+def cell_dofs(geom, gdofs):
+    """The dofs of each cell's facets: (nf,) -> (3, nc), unsigned."""
+    return F.facets_ext(geom, gdofs)[geom.cell_facets]
+
+
 def _signed_local(geom, gdofs):
     """Signed local dofs per cell: (3, nc)."""
-    return gdofs[geom.cell_facets] * geom.cfsign
+    return cell_dofs(geom, gdofs) * geom.cfsign
 
 
-def _scatter_cell_dofs(rt, coeff):
+def _scatter_cell_dofs(geom, rt, coeff):
     """Accumulate per-cell local-facet coefficients (3, nc) into (nf,): each
     facet's plus slot plus, on interior facets, its minus slot."""
-    flat = coeff.reshape(-1)
+    flat = F.cells_ext(geom, coeff).reshape(-1)
     return flat[rt.fslot[0]] + rt.int_dof_mask * flat[rt.fslot[1]]
 
 
@@ -153,8 +164,9 @@ def rt_facet_values(geom, rt, gdofs):
     """Both-side values at facet quadrature: (v_plus, v_minus), each (2, nqf,
     nf); the minus values of boundary facets are not data."""
     a, b = rt_cell_coeffs(geom, rt, gdofs)
-    return tuple(F.gather_side(geom, a, side)[None, None, :] * rt.xqf[side]
-                 - F.gather_side(geom, b, side)[:, None, :] for side in (0, 1))
+    sides = F.gather_sides(geom, torch.cat([a[None], b]))
+    return tuple(ab[0][None, None, :] * rt.xqf[side] - ab[1:][:, None, :]
+                 for side, ab in enumerate(sides))
 
 
 def rt_divergence(geom, rt, gdofs):
@@ -165,13 +177,13 @@ def rt_divergence(geom, rt, gdofs):
 def rt_div_adjoint(geom, rt, q):
     """Adjoint of (cell values q) -> int q div(w): dof coefficients (nf,);
     int_K q div W_l = q_c (unit flux), so coeff(c, l) = s_l q_c."""
-    return _scatter_cell_dofs(rt, geom.cfsign * q[None, :])
+    return _scatter_cell_dofs(geom, rt, geom.cfsign * q[None, :])
 
 
 def rt_mass_apply(geom, rt, gdofs):
     """Global RT mass matrix action (nf,) -> (nf,)."""
-    y = torch.einsum("lmc,mc->lc", rt.mass_elem, gdofs[geom.cell_facets])
-    return _scatter_cell_dofs(rt, y)
+    y = torch.einsum("lmc,mc->lc", rt.mass_elem, cell_dofs(geom, gdofs))
+    return _scatter_cell_dofs(geom, rt, y)
 
 
 def rt_volume_adjoint(geom, rt, G):
@@ -181,7 +193,7 @@ def rt_volume_adjoint(geom, rt, G):
     S1 = torch.einsum("qc,dqc,dqc->c", wdet, G, geom.xq)  # int G.x
     S0 = torch.einsum("qc,dqc->dc", wdet, G)  # int G
     coeff = (S1[None, :] - torch.einsum("ldc,dc->lc", rt.P_opp, S0)) * geom.cfsign
-    return _scatter_cell_dofs(rt, coeff / (2.0 * rt.area)[None, :])
+    return _scatter_cell_dofs(geom, rt, coeff / (2.0 * rt.area)[None, :])
 
 
 def rt_facet_adjoint(geom, rt, G0, G1):
@@ -196,7 +208,7 @@ def rt_facet_adjoint(geom, rt, G0, G1):
     Scell1 = F.gather_facet_contribs(geom, *A1)
     Scell0 = F.gather_facet_contribs(geom, *A0)
     coeff = (Scell1[None, :] - torch.einsum("ldc,dc->lc", rt.P_opp, Scell0)) * geom.cfsign
-    return _scatter_cell_dofs(rt, coeff / (2.0 * rt.area)[None, :])
+    return _scatter_cell_dofs(geom, rt, coeff / (2.0 * rt.area)[None, :])
 
 
 def rt_to_dg1(geom, rt, gdofs):

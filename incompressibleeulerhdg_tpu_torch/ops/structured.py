@@ -72,7 +72,10 @@ def shift2(a, off, wrap):
 
 
 def dist_axis(geom):
-    """The communicator of a slab-local geometry (parallel/slab.py), or None."""
+    """The communicator of a slab-local (parallel/slab.py) or partition-local
+    (parallel/partition.py) geometry, or None."""
+    if geom.part is not None:
+        return geom.part.comm
     s = geom.shift
     if s is not None and len(s) > 6 and s[6] is not None:
         return s[6][0]

@@ -1,19 +1,23 @@
-"""The communicator of the slab-decomposed solve: one grid row to a
-neighbour, sums over all ranks, and the gather of a result.
+"""The communicator of a distributed solve: one grid row to a neighbour,
+the ghost entries of a partition, sums over all ranks, and the gather of a
+result.
 
 Counterpart of the collectives of incompressibleeulerhdg_tpu's ``shard_map``
-step: ``lax.ppermute`` of one grid row (:meth:`Comm.halo`) and ``lax.psum``
-(:meth:`Comm.allreduce`).  Every distributed op of the port receives the
-:class:`Comm` through the slab-local geometry (``geom.shift[6]``,
-``ops.structured.dist_axis``).  Under NCCL the row is a
+step, ``lax.ppermute`` of one grid row (:meth:`Comm.halo`) and ``lax.psum``
+(:meth:`Comm.allreduce`), and of the halo exchanges GSPMD inserts for the
+facet<->cell gathers of its cell/facet sharding (:meth:`Comm.ghosts`).
+Every distributed op of the port receives the :class:`Comm` through the
+local geometry (``ops.structured.dist_axis``: ``geom.shift[6]`` on a slab,
+``geom.part.comm`` on a partition).  Under NCCL the rows and ghosts are
 ``batch_isend_irecv`` and the sum an ``all_reduce`` on the card; gloo sends
-host buffers, so a CUDA tensor's row or sum passes through host memory.
-No op of a step gathers: :meth:`Comm.gather` brings a state to rank 0 at a
-checkpoint, for an output, and at the end of a run.
+host buffers, so a CUDA tensor's row, ghosts or sum pass through host
+memory.  No op of a step gathers: :meth:`Comm.gather` brings a state to
+rank 0 at a checkpoint, for an output, and at the end of a run.
 
-``counts`` holds the halo exchanges, all-reduces and gathers since the last
-:meth:`reset_counts`, the observables of the decomposition's contract (one
-row per shift, sums for every inner product, no gather inside a step).
+``counts`` holds the halo exchanges, ghost exchanges, all-reduces and
+gathers since the last :meth:`reset_counts`, the observables of the
+decomposition's contract (one row per shift, one exchange per gather of a
+changed source, sums for every inner product, no gather inside a step).
 """
 
 import torch
@@ -35,7 +39,7 @@ class Comm:
         self.size = int(size)
         self.group = group
         self.backend = dist.get_backend(group)
-        self.counts = {"halo": 0, "allreduce": 0, "gather": 0}
+        self.counts = {"halo": 0, "ghosts": 0, "allreduce": 0, "gather": 0}
 
     def reset_counts(self):
         """Set every collective's count to zero."""
@@ -77,6 +81,30 @@ class Comm:
         if recv is None:
             return torch.zeros_like(row)
         return recv.to(row.device) if host else recv
+
+    def ghosts(self, plan, x):
+        """``x`` (..., n_owned), this rank's entries, followed by its ghost
+        entries from their owners: (..., n_owned + n_ghost), in the order of
+        ``plan`` (a ``parallel.partition.GhostPlan``).  Every rank sends the
+        entries the others hold as ghosts; a rank with nothing to move
+        makes no call."""
+        self.counts["ghosts"] += 1
+        host = self._host(x)
+        dev = torch.device("cpu") if host else x.device
+        ops, recvs = [], []
+        for peer, idx in plan.send:
+            buf = x[..., idx].contiguous()
+            ops.append(dist.P2POp(dist.isend, buf.cpu() if host else buf, peer, self.group))
+        for peer, n in plan.recv:
+            recvs.append(torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=dev))
+            ops.append(dist.P2POp(dist.irecv, recvs[-1], peer, self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if not recvs:
+            return x
+        ghost = torch.cat(recvs, dim=-1)
+        return torch.cat([x, ghost.to(x.device) if host else ghost], dim=-1)
 
     def gather(self, t):
         """Every rank's ``t`` (one shape on all ranks) at rank 0, as a list

@@ -31,8 +31,8 @@ decoupled by the masks of every move.
 Numerical contract: the distributed solve is the single-device solve, up to
 the order of the sums.  The cases the slab layout cannot represent (an
 unstructured mesh, a periodic mesh with nx % N != 0, a split that leaves a
-slab empty) raise NotImplementedError: the JAX package runs them on its
-GSPMD sharding, which the port does not have (ROADMAP Queue 1, M14b).
+slab empty) run on the cell/facet partition (parallel/partition.py), as the
+JAX package runs them on its GSPMD sharding (:func:`slab_supported`).
 """
 
 import numpy as np
@@ -44,34 +44,22 @@ from ..linalg.condense import CondensedSystem
 from ..linalg.gtmg import TwoLevelTracePC, _facet_endpoints
 from ..ops.projection import BDMProjection
 
-__all__ = ["SlabDecomposition", "LocalDiscretisation", "check_slab_supported", "check_split"]
-
-M14B = "ROADMAP Queue 1, M14b"
+__all__ = ["SlabDecomposition", "RankTables", "LocalDiscretisation", "slab_supported"]
 
 
-def check_slab_supported(mesh, n_slabs):
-    """Raise NotImplementedError, naming M14b, when the slab layout cannot
-    represent ``mesh`` split ``n_slabs`` ways (the JAX package's
-    ``slab_supported`` cases, which it runs on its GSPMD fallback)."""
+def slab_supported(mesh, n_slabs):
+    """Whether the slab layout represents ``mesh`` split ``n_slabs`` ways (the
+    JAX package's ``slab_supported``): a structured mesh, nx divisible by
+    ``n_slabs`` on a periodic one (the wrap halo needs a physical last row),
+    and no empty slab."""
     spec = getattr(mesh, "shift_spec", None)
-    if spec is None:
-        raise NotImplementedError(
-            f"--n_devices {n_slabs} on an unstructured mesh: the JAX package runs it on "
-            f"its GSPMD sharding, not ported ({M14B})")
-    check_split(spec[0], n_slabs, spec[2])
-
-
-def check_split(nx, n_slabs, periodic):
-    """The split of a structured mesh of nx columns into ``n_slabs`` slabs:
-    raise NotImplementedError, naming M14b, where the layout does not apply."""
+    if spec is None or n_slabs < 1:
+        return False
+    nx, periodic = spec[0], spec[2]
     nxl = -(-nx // n_slabs)
     if periodic and n_slabs * nxl != nx:
-        raise NotImplementedError(
-            f"--n_devices {n_slabs} must divide nx = {nx} on a periodic mesh (the wrap "
-            f"halo needs a physical last row); other splits are not ported ({M14B})")
-    if nxl * (n_slabs - 1) >= nx:
-        raise NotImplementedError(
-            f"--n_devices {n_slabs} leaves an empty slab at nx = {nx} ({M14B})")
+        return False
+    return nxl * (n_slabs - 1) < nx
 
 
 class LocalDiscretisation:
@@ -103,7 +91,43 @@ class LocalDiscretisation:
         return self._mask(v)
 
 
-class SlabDecomposition:
+class RankTables:
+    """A rank's tables on its device, as the slab decomposition and the
+    partition (parallel/partition.py) both hold them: ``device``, ``dtype``,
+    ``rank``, ``cell_maps``, ``nc_loc``, ``nf_loc``, ``geom``, ``cs`` and
+    ``proj``, set by the subclass."""
+
+    def _dev(self, a):
+        """A host or CPU array on the rank's device: floats in the run's
+        dtype, integers as int64."""
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        if a.dtype.kind in "iu":
+            return torch.as_tensor(a.astype(np.int64), device=self.device)
+        return torch.as_tensor(a.astype(np.float64), dtype=self.dtype, device=self.device)
+
+    def local_cg(self, space):
+        """The rank's view of a global CGSpace: the dof map of its own cells
+        (the dof vector stays replicated, the dofs its cells share with
+        other ranks' summed over the ranks, fem/cg.py)."""
+        return CGSpace(dofmap=self._dev(space.dofmap.cpu().numpy()[:, self.cell_maps[self.rank]]),
+                       phi_at_q1=self._dev(space.phi_at_q1), mass_diag=self._dev(space.mass_diag),
+                       node_coords=self._dev(space.node_coords), degree=space.degree,
+                       n_dofs=space.n_dofs)
+
+    def table_bytes(self):
+        """Bytes of the rank's cell and facet tables on its device (geometry,
+        condensed system, projection): the per-rank memory that scales as
+        1/N."""
+        tensors = [getattr(self.geom, f) for f in vars(self.geom)]
+        if self.cs is not None:
+            tensors += [self.cs.S, self.cs.class_id, self.cs.Sdiag_inv, self.cs.nullvec]
+        tensors.append(self.proj.class_id)
+        return sum(t.numel() * t.element_size() for t in tensors
+                   if isinstance(t, torch.Tensor) and t.dim() and t.shape[-1] in
+                   (self.nc_loc, self.nf_loc))
+
+
+class SlabDecomposition(RankTables):
     """Slab ``rank`` of a structured mesh split ``n_slabs`` ways: the index
     maps and masks of every slab (host numpy), and this slab's tables on
     ``device``.
@@ -117,7 +141,8 @@ class SlabDecomposition:
 
     def __init__(self, disc, stepper, n_slabs, rank, comm=None, device="cpu"):
         mesh = disc.mesh
-        check_slab_supported(mesh, n_slabs)
+        if not slab_supported(mesh, n_slabs):
+            raise ValueError(f"the slab layout does not split this mesh {n_slabs} ways")
         spec = mesh.shift_spec
         nx, ny, periodic = spec[0], spec[1], spec[2]
         nxl = -(-nx // n_slabs)
@@ -191,14 +216,6 @@ class SlabDecomposition:
     # ------------------------------------------------------------------
     # tables
     # ------------------------------------------------------------------
-
-    def _dev(self, a):
-        """A host or CPU array on the slab's device: floats in the run's
-        dtype, integers as int64."""
-        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-        if a.dtype.kind in "iu":
-            return torch.as_tensor(a.astype(np.int64), device=self.device)
-        return torch.as_tensor(a.astype(np.float64), dtype=self.dtype, device=self.device)
 
     def take_facets(self, arr, d, fill=0.0):
         """Slab d's values of a global per-facet array (last axis); ``fill``
@@ -294,7 +311,7 @@ class SlabDecomposition:
         coarse spectrum is the global one (the coarse solve runs
         replicated).  Tables only the host set-up reads are placeholders."""
         if pc.coarse_kind not in ("fft_neumann", "fft_periodic"):
-            raise NotImplementedError(f"distributed GTMG needs the FFT coarse solve ({M14B})")
+            raise ValueError("the slab-local GTMG needs the FFT coarse solve")
         groups = self.vertex_groups(mesh, d)
         owner = self.vertex_groups(mesh, 0) if d else groups  # the L family's offsets
         groups = tuple(g[:6] + (g[6] or o[6], g[7] or o[7]) for g, o in zip(groups, owner))
@@ -312,26 +329,6 @@ class SlabDecomposition:
             lmax_coarse=pc.lmax_coarse,
             dist=(self.comm, self.n_slabs, int(Mx), int(My), self.nxl + 1, groups,
                   self.periodic))
-
-    def local_cg(self, space):
-        """The slab's view of a global CGSpace: the dof map keeps global dof
-        ids restricted to the slab's cells (the dof vector stays replicated,
-        its slab-interface dofs summed over the ranks, fem/cg.py)."""
-        return CGSpace(dofmap=self._dev(space.dofmap.cpu().numpy()[:, self.cell_maps[self.rank]]),
-                       phi_at_q1=self._dev(space.phi_at_q1), mass_diag=self._dev(space.mass_diag),
-                       node_coords=self._dev(space.node_coords), degree=space.degree,
-                       n_dofs=space.n_dofs)
-
-    def table_bytes(self):
-        """Bytes of the slab's cell and facet tables on its device (geometry,
-        condensed system, projection): the per-rank memory that scales as
-        1/N."""
-        tensors = [getattr(self.geom, f) for f in vars(self.geom)]
-        tensors += [self.cs.S, self.cs.class_id, self.cs.Sdiag_inv, self.cs.nullvec,
-                    self.proj.class_id]
-        return sum(t.numel() * t.element_size() for t in tensors
-                   if isinstance(t, torch.Tensor) and t.dim() and t.shape[-1] in
-                   (self.nc_loc, self.nf_loc))
 
     # ------------------------------------------------------------------
     # state movement

@@ -9,9 +9,12 @@ without stage state (HDG implicit, DG, conforming): each supplies its
 initial fields, its forcing and ``advance``; IMEX has its own loop.
 
 :meth:`IncompressibleEuler.distribute` makes a stepper one rank of a
-slab-decomposed run (parallel/slab.py, the JAX package's
-``slab_context``): its tables become its slab's, its fields are the slab's
-parts, and the state is gathered to rank 0 only for a checkpoint, the
+distributed run, on the route the JAX package takes: the slab
+decomposition (parallel/slab.py, its ``slab_context``) where the slab
+layout splits the mesh and no tracer rides on a scheme without stage
+state, else the cell/facet partition (parallel/partition.py, its GSPMD
+sharding).  Its tables become its part's, its fields are the part's
+entries, and the state is gathered to rank 0 only for a checkpoint, the
 callbacks and the result of :meth:`solve`.
 """
 
@@ -46,7 +49,7 @@ class IncompressibleEuler:
         self.domain_volume = disc.domain_volume
         self._proj = build_bdm_projection(disc)
         self._cg_space = None
-        self.dec = None  # the slab decomposition of a distributed run
+        self.dec = None  # the slab decomposition or partition of a distributed run
 
     @property
     def label(self):
@@ -76,8 +79,8 @@ class IncompressibleEuler:
 
     def tracer_cg_space(self):
         """Vector CG(k+1) space of the tracer's advecting-velocity projection,
-        built on first use (most runs carry no tracer); a slab's view of the
-        global space when distributed."""
+        built on first use (most runs carry no tracer); a slab's or a
+        partition's view of the global space when distributed."""
         if self._cg_space is None:
             from ..fem.cg import build_cg_space
 
@@ -89,22 +92,40 @@ class IncompressibleEuler:
         return self._cg_space
 
     # ------------------------------------------------------------------
-    # slab-decomposed runs
+    # distributed runs
     # ------------------------------------------------------------------
 
-    def distribute(self, comm, device):
-        """Make this stepper rank ``comm.rank`` of a slab-decomposed run over
-        ``comm.size`` ranks: its geometry, condensed system, BDM projection
-        and GTMG become its slab's tables on ``device`` (built from the
-        global ones, which it drops).  Raises NotImplementedError, naming
-        ROADMAP M14b, where the slab layout does not apply."""
+    slab = True  # whether the scheme can take the slab decomposition
+    slab_tracer = False  # whether it carries a tracer on a slab (IMEX only)
+    facet_state = ("stage_lam",)  # state entries that are facet fields
+
+    def takes_slab(self, n, tracer=False):
+        """Whether a run over ``n`` ranks takes the slab decomposition (the
+        JAX package's choice): the scheme allows it, the slab layout splits
+        the mesh ``n`` ways, and a tracer only rides on a scheme that
+        carries one there."""
+        from ..parallel.slab import slab_supported
+
+        return (self.slab and slab_supported(self.disc.mesh, n)
+                and not (tracer and not self.slab_tracer))
+
+    def distribute(self, comm, device, tracer=False):
+        """Make this stepper rank ``comm.rank`` of a run over ``comm.size``
+        ranks: its geometry, condensed system, BDM projection, GTMG and RT
+        tables become its part's tables on ``device`` (built from the
+        global ones, which it drops), on the slab decomposition where
+        :meth:`takes_slab` holds (``tracer``: the run advects one), else on
+        the cell/facet partition."""
+        from ..parallel.partition import Partition
         from ..parallel.slab import SlabDecomposition
 
-        dec = SlabDecomposition(self.disc, self, comm.size, comm.rank, comm=comm,
-                                device=device)
+        route = SlabDecomposition if self.takes_slab(comm.size, tracer) else Partition
+        dec = route(self.disc, self, comm.size, comm.rank, comm=comm, device=device)
         self.dec = dec
         self.disc, self.geom = dec.disc, dec.geom
         self._proj, self._cs, self._gtmg = dec.proj, dec.cs, dec.pc
+        if getattr(dec, "rt", None) is not None:
+            self._rt = dec.rt
         self._cg_space = None
 
     @property
@@ -118,7 +139,7 @@ class IncompressibleEuler:
         return self.dec is None or self.dec.rank == 0
 
     def gather(self, field, facets=False):
-        """The global field from every slab's part, on rank 0 (None on the
+        """The global field from every rank's part, on rank 0 (None on the
         other ranks; a collective); ``field`` itself when not distributed."""
         if self.dec is None or field is None:
             return field
@@ -157,7 +178,7 @@ class IncompressibleEuler:
         which is left out) after step ``k``; gathered to rank 0, which
         writes it, when distributed (``stage_lam`` is the facet field)."""
         def host(name, a):
-            a = self.gather(a, facets=name == "stage_lam")
+            a = self.gather(a, facets=name in self.facet_state)
             return None if a is None else to_host(a)
 
         state = {name: [host(name, a) for a in v] if isinstance(v, list) else host(name, v)
@@ -176,8 +197,8 @@ class IncompressibleEuler:
         print(f"resumed from {checkpoint_path} at t = {t_ck} (step {k_start})")
 
         def dev(name, a):
-            if self.dec is not None:  # every rank reads its slab's part
-                if name == "stage_lam":
+            if self.dec is not None:  # every rank reads its part
+                if name in self.facet_state:
                     return self.dec.scatter_facet_field(a)
                 return self.dec.scatter_cell_field(a)
             return torch.as_tensor(np.asarray(a), dtype=self.disc.dtype, device=self.disc.device)
@@ -244,10 +265,12 @@ class IncompressibleEuler:
         """
         dt = self._dt
         nt = self.get_timesteps(T_final, warmup)
-        if self.dec is not None and q_initial is not None:
-            raise NotImplementedError(
-                f"the tracer under {self.label} on --n_devices > 1: the JAX package runs it "
-                "on its GSPMD sharding, not ported (ROADMAP Queue 1, M14b)")
+        if q_initial is not None and self.dec is not None and not self.slab_tracer:
+            from ..parallel.slab import SlabDecomposition
+
+            if isinstance(self.dec, SlabDecomposition):
+                raise ValueError(f"the tracer under {self.label} runs on the partition: "
+                                 "distribute(comm, device, tracer=True)")
         Q, p = self.initial_fields(Q_initial, p_initial)
         q_tracer = self.initial_tracer(q_initial)
         k_start = 0

@@ -1,8 +1,10 @@
 """Conforming RT1 x DG0 implicit solver.
 
 Counterpart of incompressibleeulerhdg_tpu/timesteppers/conforming_implicit.py
-(without the multi-device paths; the loop, the tracer and the checkpoint are
-the base class's).  Velocity: global H(div)-conforming RT dofs, one normal
+(the loop, the tracer, the checkpoint and the distributed run are the base
+class's; ``--n_devices`` takes the cell/facet partition on every mesh, as
+the JAX package takes its GSPMD sharding: the RT assembly gathers through
+index tables the slab layout does not carry).  Velocity: global H(div)-conforming RT dofs, one normal
 flux per facet (``ops/rt.py``); pressure: DG0, one value per cell.  Per
 timestep, projection branch:
 
@@ -28,7 +30,8 @@ import torch
 from .common import IncompressibleEuler
 from ..ops import fields as F
 from ..ops import rt as RT
-from ..linalg.krylov import cg, fgmres
+from ..linalg.krylov import cg, fgmres, pdot, pnorm
+from ..ops.structured import dist_axis
 
 __all__ = ["IncompressibleEulerConformingImplicit"]
 
@@ -54,13 +57,17 @@ class IncompressibleEulerConformingImplicit(IncompressibleEuler):
         self.use_projection_method = use_projection_method
         self._rt = RT.build_rt_tables(disc)
 
-    def distribute(self, comm, device):
-        """Not ported: the JAX package runs the conforming scheme's
-        ``--n_devices`` on its GSPMD sharding (its RT assembly gathers
-        through index tables the slab layout does not carry)."""
-        raise NotImplementedError(
-            "the conforming scheme on --n_devices > 1: the JAX package runs it on its GSPMD "
-            "sharding, not ported (ROADMAP Queue 1, M14b)")
+    slab = False  # the partition on every mesh
+    facet_state = ("Q",)  # the RT dofs
+
+    def _mean(self, q):
+        """Mean of a cell vector (nc,) over every cell of the mesh."""
+        n = self.output_disc.geom.n_cells
+        return F.sum_ranks(self.geom, torch.sum(q)) / n
+
+    def _area_mean(self, p):
+        """Area-weighted mean of a DG0 pressure (nc,)."""
+        return F.sum_ranks(self.geom, torch.sum(p * self._rt.area)) / self.domain_volume
 
     # ------------------------------------------------------------------
     # the pieces of a step
@@ -75,7 +82,8 @@ class IncompressibleEulerConformingImplicit(IncompressibleEuler):
         def mv(v):
             return Z * RT.rt_mass_apply(geom, rt, Z * v) + rt.bnd_mask * v
 
-        x, iters, _ = cg(mv, Z * b, M=lambda v: rt.mass_diag_inv * v, rtol=1e-14, maxiter=200)
+        x, iters, _ = cg(mv, Z * b, M=lambda v: rt.mass_diag_inv * v, rtol=1e-14, maxiter=200,
+                         comm=dist_axis(geom))
         return x, iters
 
     def apply_BT(self, phi):
@@ -85,7 +93,7 @@ class IncompressibleEulerConformingImplicit(IncompressibleEuler):
     def apply_B(self, g):
         """B g: cell values int div(v) psi = sum_l s_l g_l."""
         geom = self.geom
-        return torch.sum((self._rt.int_dof_mask * g)[geom.cell_facets] * geom.cfsign, dim=0)
+        return torch.sum(RT.cell_dofs(geom, self._rt.int_dof_mask * g) * geom.cfsign, dim=0)
 
     def mixed_solve(self, b_p):
         """Schur-complement solve of the Darcy system with rhs (0, b_p).
@@ -93,13 +101,14 @@ class IncompressibleEulerConformingImplicit(IncompressibleEuler):
         rt = self._rt
 
         def project(q):
-            return q - torch.mean(q)
+            return q - self._mean(q)
 
         def schur(phi):
             return self.apply_B(self.mass_solve(self.apply_BT(phi))[0])
 
         phi, iters, _ = cg(schur, project(-b_p), M=lambda v: v * rt.area,
-                           rtol=self.rtol_pressure, maxiter=300, project=project)
+                           rtol=self.rtol_pressure, maxiter=300, project=project,
+                           comm=dist_axis(self.geom))
         y, _ = self.mass_solve(self.apply_BT(phi))
         return -y, phi, iters
 
@@ -169,15 +178,16 @@ class IncompressibleEulerConformingImplicit(IncompressibleEuler):
             dv, dphi, _ = self.mixed_solve((1.0 / dt) * (self.apply_B(vt) - r_p))
             return torch.cat([vt - dt * dv, dphi])
 
+        comm = dist_axis(self.geom)
         nullv = torch.cat([b_v.new_zeros(nf), b_v.new_ones(self.geom.n_cells)])
-        nullv = nullv / torch.linalg.vector_norm(nullv)
+        nullv = nullv / pnorm(nullv, comm)
 
         def project(x):
-            return x - nullv * torch.dot(nullv, x)
+            return x - nullv * pdot(nullv, x, comm)
 
         x, iters, _ = fgmres(matvec, torch.cat([b_v, b_v.new_zeros(self.geom.n_cells)]), M=M,
                              x0=torch.cat([Q, p]), rtol=10 * self.rtol_pressure, restart=20,
-                             maxiter=100, project=project)
+                             maxiter=100, project=project, comm=comm)
         return (*unflat(x), iters)
 
     # ------------------------------------------------------------------
@@ -201,7 +211,7 @@ class IncompressibleEulerConformingImplicit(IncompressibleEuler):
             Q_new, p_new, iters = self.monolithic_solve(Q, p, MQ_f)
             counts = {"fgmres": [iters]}
         # zero-mean pressure (DG0: area-weighted mean)
-        return Q_new, p_new - torch.sum(p_new * rt.area) / self.domain_volume, counts
+        return Q_new, p_new - self._area_mean(p_new), counts
 
     def initial_fields(self, Q_initial, p_initial):
         """RT dofs of the initial velocity (zero on the boundary) and the
@@ -211,7 +221,7 @@ class IncompressibleEulerConformingImplicit(IncompressibleEuler):
         xc = torch.mean(self.geom.xnodes1, dim=1)  # (2, nc)
         p = torch.as_tensor(p_initial(xc[0], xc[1])).broadcast_to(xc.shape[1:]).to(
             self.disc.dtype)
-        return Q, p - torch.sum(p * rt.area) / self.domain_volume
+        return Q, p - self._area_mean(p)
 
     def forcing(self, fn):
         return RT.rt_interpolate(self.disc, self._rt, fn)

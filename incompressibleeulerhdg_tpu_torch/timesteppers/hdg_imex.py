@@ -17,9 +17,10 @@ With a tracer, each stage advects the tableau-combined tracer stages with
 that stage's own CG-projected velocity, and the final tracer sums every
 stage's flux, each with its own stage velocity, as the JAX package does.
 
-After :meth:`distribute` the same step runs on a slab's tables, one rank
-per slab (parallel/slab.py); :meth:`solve` then gathers the state to rank 0
-at a checkpoint, for the callbacks and at the end.
+After :meth:`distribute` the same step runs on a slab's tables
+(parallel/slab.py) or a partition's (parallel/partition.py), one rank per
+part; :meth:`solve` then gathers the state to rank 0 at a checkpoint, for
+the callbacks and at the end.
 
 The stage loop is a Python loop on eager tensors.  Iteration counts of every
 solve are returned by :meth:`step` and averaged by :meth:`solve`, which also
@@ -117,8 +118,10 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
     # phases of one step
     # ------------------------------------------------------------------
 
-    def distribute(self, comm, device):
-        super().distribute(comm, device)
+    slab_tracer = True
+
+    def distribute(self, comm, device, tracer=False):
+        super().distribute(comm, device, tracer)
         for name in ("_alpha", "_beta", "_alpha_f", "_beta_f"):
             setattr(self, name, getattr(self, name).to(device))
 

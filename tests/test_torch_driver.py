@@ -7,9 +7,9 @@
   the projection run);
 - ``--test_pressure_solver``: the same iteration count;
 - checkpoint every step, then resume: the final state equals a straight run;
-- the ``--n_devices`` cases outside the slab path raise
-  NotImplementedError before any work, and the JAX driver's checks of
-  invalid combinations keep their exceptions;
+- the ``--n_devices`` cases outside the slab path run on the cell/facet
+  partition and give the single rank's counts and state, and the JAX
+  driver's checks of invalid combinations keep their exceptions;
 - ``--device cuda`` without a card exits non-zero;
 - the constant forcing of the Taylor-Green problem matches the JAX package.
 """
@@ -127,11 +127,29 @@ def test_out_of_slice_flags_raise(tmp_path, monkeypatch, flags):
     """The ``--n_devices`` cases the JAX package runs on its GSPMD sharding
     (the disk, the conforming scheme, a periodic split that does not divide
     nx, the tracer under the implicit schemes) and a split with an empty
-    slab raise before any work, naming ROADMAP M14b."""
+    slab, which raised before the partition existed: each runs on the
+    cell/facet partition through ``driver.main`` and gives the single
+    rank's iteration counts and final state (<= 1e-10).  One step
+    (``--warmup``), with projection where the flags leave the monolithic
+    default (its FGMRES makes tens of thousands of gloo round trips a
+    step; tests/test_torch_partition_*.py run it at a cap), the DG cases
+    at nx = 4, dt = 0.01."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, M14b"):
-        tdriver.main(flags + ["--device", "cpu"])
-    assert not list(tmp_path.iterdir())
+    extra = ["--warmup", "--device", "cpu"]
+    if "dg" in flags:
+        extra += ["--nx", "4", "--dt", "0.01"]
+    else:
+        extra += ["--use_projection_method"]
+    single = tdriver.main([a if a != flags[1] else "1" for a in flags] + extra)
+    dist = tdriver.main(flags + extra)
+    def counts(res):  # the iteration counts, without the residual estimate
+        return [{k: v for k, v in c.items() if k != "max_relres"} for c in res["step_counts"]]
+
+    assert "timestepper" not in dist and counts(dist) == counts(single)
+    for name in ("Q", "p"):
+        ref = single[name]
+        err = float(torch.max(torch.abs(dist[name] - ref)))
+        assert err <= 1e-10 * float(torch.max(torch.abs(ref))), (name, err)
 
 
 @pytest.mark.parametrize("flags, exc", [

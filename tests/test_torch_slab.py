@@ -120,7 +120,7 @@ def test_step_moves_only_halos_and_sums(tmp_path):
                     rendezvous_dir=tmp_path)
     for step, gather, _ in out:
         assert step["gather"] == 0 and step["halo"] > 0 and step["allreduce"] > 0, step
-        assert gather == {"halo": 0, "allreduce": 0, "gather": 1}
+        assert gather == {"halo": 0, "ghosts": 0, "allreduce": 0, "gather": 1}
     assert out[0][0] == out[1][0]  # the ranks took the same path
 
 
