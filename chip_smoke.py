@@ -92,6 +92,22 @@ Phases, each printing its own lines:
    same flags in float64 on the refinement-4 disk, over 2 ranks and on one
    rank in the same call: every count equal, step for step, and the state
    within 1e-10;
+6e. (m) the JAX package's knobs through the CLI at the main path's
+   configuration (256^2, k=2, float32, projection SSP2), one step each:
+   ``IEHDG_TENT_SWEEPS=2``, ``IEHDG_TENT_SYM=0``, ``IEHDG_TENT_FUSED=0``
+   (each must launch K1-K4) and ``IEHDG_FACT=0`` (dense tables: K4 alone),
+   each held to the bench bounds, finite, every solve > 0 iterations; then
+   ARS3(4,4,3) with ``IEHDG_LAG_PC=1`` against ``=0``: the state within
+   1e-4 of its largest entry and K4 launches a step 4 against 16 (one
+   stage build a step instead of four); prints each run's counts, s/step
+   and launches;
+6f. (n) k = 5 and k = 6 (d1 = 28, 36; Gauss-Jordan n = 56, 72): projection
+   SSP2 at 64^2, float32, two steps each, held to the velocity bound; K1-K3
+   and K5 must launch, and each is held to its plain version on the run's
+   own tables (K1-K3, random fields) and own-cell and Schur blocks (K5) in
+   float32 and float64, with K5's float32 inverse also read against the
+   float64 plain one; then phase 5's kernel comparison at 128^2 for k = 5
+   and k = 6 (timing rows);
 7. the launch check: every kernel K1-K5 launched on some path.
 
 The JSON line before the card's name and power limit has one entry per
@@ -100,7 +116,11 @@ timed main-path step, errors, ms, plain_ms, bytes, bound_ms, bound_by,
 pct_bound, library_ms, timers; K1-K4 also ``*_slab``: phase (k)'s slab
 shape, error, times, bound and launches a step over the ranks; K4 also
 ``*_partition_own`` / ``*_partition_schur``: phase (l)'s partition-local
-batches, and its launches a step over the ranks); the last
+batches, and its launches a step over the ranks; K1-K3 ``*_d1_28``,
+``*_d1_36`` and K5 ``*_n56``, ``*_n72``: phase (n)'s widths at 128^2, the
+errors on the run's own tables and the launches a step of runs (n5), (n6);
+K3 also ``*_additive``: one additive patch application, every colour and
+the boundary tail, at 256^2); the last
 line is ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it.
 """
@@ -209,6 +229,45 @@ PART_TIMEOUT = 600
 # state to PART_F64_RTOL
 PART_F64_REFINEMENT = 4
 PART_F64_RTOL = 1.0e-10
+# phase (m): the IEHDG_* knobs through the CLI at the main path's
+# configuration, one step each, held to bench.py's bounds; each run's path
+# must launch its kernels (IEHDG_FACT=0: dense tables, the Gauss-Jordan
+# kernel alone).  Then ARS3(4,4,3), whose four implicit stages share a_ii =
+# 1/2, with IEHDG_LAG_PC=1 against =0: the state within LAG_STATE_RTOL of
+# its largest entry (float32 Krylov tolerances, as phases (k), (l)) and K4
+# launches a step falling from four builds' 16 (own cells and one Schur
+# batch a colour) to one build's 4
+KNOB_RUNS = (
+    ("m1", {"IEHDG_TENT_SWEEPS": "2"}, MAIN_PATH_KERNELS),
+    ("m2", {"IEHDG_TENT_SYM": "0"}, MAIN_PATH_KERNELS),
+    ("m3", {"IEHDG_TENT_FUSED": "0"}, MAIN_PATH_KERNELS),
+    ("m4", {"IEHDG_FACT": "0"}, DENSE_PATH_KERNELS),
+)
+LAG_SCHEME = "imex_ars3_443"
+# the two runs precondition with other factors, and each tentative solve
+# stops at its float32 tolerance (1e-6) inside two fixed Richardson sweeps,
+# so their states differ by the tolerance times the operator's conditioning
+# (about alpha nx): 1.083e-4 of the largest entry on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md section 6), where phases (k) and (l), the same
+# preconditioner over ranks, differ by 2-3e-5.
+# Both runs are held to the bench bounds; in float64 the two packages'
+# lagged steps agree to 1e-10 (tests/test_torch_knobs.py)
+LAG_STATE_RTOL = 2.0e-4
+LAG_K4_PER_STEP = {"0": 16, "1": 4}
+# phase (n): k = 5 and 6 (d1 = 28, 36; Gauss-Jordan n = 56, 72) through the
+# CLI, projection SSP2 at WIDE_K_NX^2, float32, two steps each, held to the
+# velocity bound; K1-K3 and K5 must launch, and are held to their plain
+# versions on the run's own tables and blocks in float32 and float64; the
+# timing rows come from compare_kernels(WIDE_NX, k)
+WIDE_K = (5, 6)
+WIDE_K_NX = 64
+# K5 on a k = 5, 6 run's own-cell and Schur blocks in float32, per block
+# relative to the block's largest entry, against its float32 plain version
+# and against the float64 plain inverse: 1.75e-5, 2.92e-5 and 2.84e-5,
+# 5.33e-5 at k = 5, 6 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+# 6; an unpivoted elimination of blocks whose inverses reach 1e6); the
+# float64 kernel is held to TOL[float64]
+WIDE_GJ_F32_RTOL = 1.0e-4
 # the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
 # 700 W): its bytes (each input read once, each output written once) over
 # the 3.35 TB/s of HBM, or its floating-point operations (an FMA is two)
@@ -260,7 +319,7 @@ def work(name, dtype, d1, m, nseg=1, n=None):
         return (size * (2 * d1 * d1 * m + 2 * nseg * nu * nu + 4 * nu * m),
                 4 * (2 * d1 * d1 + nu * nu) * m)
     if name == "patch_solve":  # Dinv0, Sinv, K01, K10, Bp, Cp, r0, r1 -> y0, y1
-        return (size * (2 * nu * nu * m + 2 * d1 * d1 * m + 2 * nu * nu + 4 * nu * m),
+        return (size * (2 * nu * nu * m + 2 * d1 * d1 * m + 2 * nseg * nu * nu + 4 * nu * m),
                 2 * (5 * nu * nu + 4 * d1 * d1) * m)
     return size * 2 * n * n * m, 2 * n ** 3 * m  # Gauss-Jordan: A -> A^-1
 
@@ -310,9 +369,10 @@ class Holds:
         if not ok:
             fail(f"{name} ({self.label}) {key}: max abs err {abs_err:.3e}, max rel err {rel:.3e}")
 
-    def timed(self, name, dtype, kern, plain, nbytes, flops, suffix=""):
+    def timed(self, name, dtype, kern, plain, nbytes, flops, suffix="", launches=1):
         """Device time (torch.profiler, else CUDA events), in turns: plain,
-        kernel, kernel, plain."""
+        kernel, kernel, plain; ``kern`` launches the kernel ``launches``
+        times a call, and its time is a call's."""
         from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
 
         sym = f"{name}_kernel"
@@ -320,7 +380,7 @@ class Holds:
             device_time(plain), device_time(kern, match=sym), device_time(kern, match=sym),
             device_time(plain))
         t_b, by = bound(dtype, nbytes, flops)
-        self.results[name].update({f"ms{suffix}": min(t_k1, t_k2),
+        self.results[name].update({f"ms{suffix}": launches * min(t_k1, t_k2),
                                    f"plain_ms{suffix}": min(t_p1, t_p2),
                                    f"bytes{suffix}": nbytes, f"bound_ms{suffix}": t_b,
                                    f"bound_by{suffix}": by})
@@ -354,14 +414,14 @@ def compare_kernels(nx, degree):
     k = 1  # a colour with a nonzero offset
     b0, m_col = b[k], b[k + 1] - b[k]
     m_odd = m_col - 37  # odd: no multiple of a thread block or a tile
-    rng = np.random.default_rng(2024)
     dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(2024)
     gj = "gauss_jordan" if nu <= smallinv.K4_MAX_N else "gauss_jordan_select"
     holds = Holds(f"d1={d1}")
     results = holds.results
 
     def rnd(*shape, dtype):
-        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
 
     def check(name, dtype, got, ref):
         holds.check(name, dtype, got, ref,
@@ -454,6 +514,20 @@ def compare_kernels(nx, degree):
                 timed(name, dtype, *pairs[0], *work(name, dtype, d1, m, nseg, n=nu))
                 if name == "cross_pair":  # one colour, as in the sweep
                     timed(name, dtype, *pairs[1], *work(name, dtype, d1, m_col), suffix="_color")
+                if name == "patch_solve" and degree == DEGREE and nf > b[-1]:
+                    # the additive patch preconditioner: every colour and the
+                    # boundary tail (zero penalty blocks), one launch each
+                    bb, zero = (*b, nf), torch.zeros_like(Bk)
+                    sides = [(x0[:, bb[j]:bb[j + 1]].contiguous(),
+                              x1[:, bb[j]:bb[j + 1]].contiguous()) for j in range(4)]
+
+                    def additive(fn):
+                        return [fn(Di, Si, K01, K10, *((Bp[j], Cp[j]) if j < 3 else (zero, zero)),
+                                   *sides[j], bb[j]) for j in range(4)]
+
+                    timed(name, dtype, lambda: additive(P.patch_solve),
+                          lambda: additive(P.patch_solve_plain),
+                          *work(name, dtype, d1, nf, 4), suffix="_additive", launches=4)
                 if name == gj:  # one colour's Schur inverses, as in the build
                     timed(name, dtype, lambda: smallinv.gauss_jordan_inv_bl(Gc),
                           lambda: smallinv.gauss_jordan_inv_plain(Gc),
@@ -477,6 +551,9 @@ def compare_kernels(nx, degree):
                f"{e['library_ms_contiguous']:.4f} ms)" if "library_ms" in e else "")
         color = (f" | one colour {e['ms_color']:.4f} ms plain {e['plain_ms_color']:.4f} ms "
                  f"bound {e['bound_ms_color']:.4f} ms" if "ms_color" in e else "")
+        if "ms_additive" in e:
+            color += (f" | additive, 4 launches over {nf} facets {e['ms_additive']:.4f} ms plain "
+                      f"{e['plain_ms_additive']:.4f} ms bound {e['bound_ms_additive']:.4f} ms")
         if "library_ms_color" in e:
             color += f" torch.linalg.inv {e['library_ms_color']:.4f} ms"
         plan = f" | plan {e['plan']}" if "plan" in e else ""
@@ -521,12 +598,12 @@ def compare_periodic_shapes():
     nc, nf, b = 2 * m, 3 * m, (0, m, 2 * m, 3 * m)
     d1 = (DEGREE + 2) * (DEGREE + 3) // 2
     nu = 2 * d1
-    rng = np.random.default_rng(2025)
     dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(2025)
     holds = Holds("periodic")
 
     def rnd(*shape, dtype):
-        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
 
     for dtype in (torch.float64, torch.float32):
         A = rnd(d1, d1, nc, dtype=dtype)
@@ -766,10 +843,6 @@ def driver_runs():
     the launch counts zeroed just before it and read just after.  Returns
     the launches by run and the first two batches run (f)'s tentative
     operator build handed to K4 (own cells, then Schur blocks)."""
-    from incompressibleeulerhdg_tpu_torch import kernels
-    from incompressibleeulerhdg_tpu_torch.cli import driver
-    from incompressibleeulerhdg_tpu_torch.utils.logging import PerformanceLog
-
     dt = 1.0 / NX
     runs = [
         ("a", f"monolithic SSP2 {NX}^2 k=2", ERROR_VELOCITY_MAX_MONOLITHIC,
@@ -811,24 +884,9 @@ def driver_runs():
         os.chdir(tmp)  # the driver writes solution.vtu (and run (j) its animation)
         try:
             for key, label, vel_max, argv in runs:
-                # the run's own flags last: argparse keeps the last value
-                argv = ["--dt", str(dt), "--dtype", "float32", "--device", "cuda",
-                        *(str(a) for a in argv)]
-                PerformanceLog.reset()
-                out = io.StringIO()
-                kernels.reset_launches()
-                t0 = time.perf_counter()
-                record = recording_k4_inputs(disk_k4) if key == "f" else contextlib.nullcontext()
-                with contextlib.redirect_stdout(out), record:
-                    res = driver.main(argv)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                launches[key] = dict(kernels.LAUNCHES)
-                for line in out.getvalue().splitlines():
-                    if line.strip():
-                        print(f"# driver ({key}) | {line}", flush=True)
-                check_driver_run(key, label, vel_max, res, wall, PerformanceLog.data,
-                                 launches[key])
+                record = recording_k4_inputs(disk_k4) if key == "f" else None
+                res, wall, launches[key], timers = run_cli(key, argv, record=record)
+                check_driver_run(key, label, vel_max, res, wall, timers, launches[key])
                 if key == "j":
                     check_tracer_run(res)
         finally:
@@ -1382,11 +1440,218 @@ def partition_phase(card):
     return first
 
 
+@contextlib.contextmanager
+def environment(env):
+    """Within the block, the variables of ``env`` set (then restored)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_cli(key, argv, env=None, record=None):
+    """``driver.main`` in-process (float32 on the card, dt = 1/NX unless
+    ``argv`` says otherwise: argparse keeps the last value) with ``env`` set,
+    within the context manager ``record`` if given, its output printed as
+    ``# driver (key)`` lines; the launch counts zeroed just before and read
+    just after.  Returns (result, wall s, launches, PerformanceLog timers)."""
+    from incompressibleeulerhdg_tpu_torch import kernels
+    from incompressibleeulerhdg_tpu_torch.cli import driver
+    from incompressibleeulerhdg_tpu_torch.utils.logging import PerformanceLog
+
+    argv = ["--dt", str(1.0 / NX), "--dtype", "float32", "--device", "cuda",
+            *(str(a) for a in argv)]
+    PerformanceLog.reset()
+    out = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), environment(env or {}), \
+            record or contextlib.nullcontext():
+        res = driver.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            print(f"# driver ({key}) | {line}", flush=True)
+    return res, wall, launches, PerformanceLog.data
+
+
+def check_path_kernels(key, launches, kernels_of_path):
+    """Fail unless each kernel of the path launched and no other of K1-K4."""
+    missing = [n for n in kernels_of_path if launches[n] == 0]
+    extra = [n for n in MAIN_PATH_KERNELS if n not in kernels_of_path and launches[n]]
+    if missing or extra:
+        fail(f"run ({key}) must launch {list(kernels_of_path)} and no other of K1-K4: "
+             f"{launches}")
+
+
+def knob_phase():
+    """Phase (m): the IEHDG_* knobs through the CLI at the main path's
+    configuration (NX^2, k = DEGREE, float32, projection SSP2), one step
+    each, then ARS3(4,4,3) with and without the lagged preconditioner.
+    Returns the launches by run."""
+    dt = 1.0 / NX
+    base = ["--nx", NX, "--degree", DEGREE, "--tfinal", dt, "--use_projection_method"]
+    launches = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for key, env, path in KNOB_RUNS:
+                res, wall, launches[key], timers = run_cli(key, base, env)
+                label = " ".join(f"{k}={v}" for k, v in env.items())
+                check_driver_run(key, f"{label}, {NX}^2 k={DEGREE}", ERROR_VELOCITY_MAX, res,
+                                 wall, timers, launches[key])
+                check_path_kernels(key, launches[key], path)
+            lag = {}
+            for flag in ("0", "1"):
+                key = f"m5_lag{flag}"
+                res, wall, launches[key], timers = run_cli(
+                    key, base + ["--timestepper", LAG_SCHEME], {"IEHDG_LAG_PC": flag})
+                check_driver_run(key, f"{LAG_SCHEME} IEHDG_LAG_PC={flag}, {NX}^2 k={DEGREE}",
+                                 ERROR_VELOCITY_MAX, res, wall, timers, launches[key])
+                check_path_kernels(key, launches[key], MAIN_PATH_KERNELS)
+                lag[flag] = res["Q"], launches[key]["gauss_jordan"] / len(timers["timestep"])
+        finally:
+            os.chdir(cwd)
+    (Q0, k4_0), (Q1, k4_1) = lag["0"], lag["1"]
+    diff = float((Q1 - Q0).abs().max()) / float(Q0.abs().max())
+    print(f"# phase (m) {LAG_SCHEME}: IEHDG_LAG_PC=1 against =0: max|Q_lag - Q| / max|Q| "
+          f"{diff:.3e} (bound {LAG_STATE_RTOL:.0e}) | K4 launches a step {k4_1:g} against "
+          f"{k4_0:g} (expected {LAG_K4_PER_STEP['1']} against {LAG_K4_PER_STEP['0']})",
+          flush=True)
+    if not diff <= LAG_STATE_RTOL:
+        fail(f"phase (m): the lagged preconditioner moved the state by {diff:.3e}")
+    if (k4_0, k4_1) != (LAG_K4_PER_STEP["0"], LAG_K4_PER_STEP["1"]):
+        fail(f"phase (m): K4 launches a step {k4_0:g}, {k4_1:g} with IEHDG_LAG_PC=0, 1")
+    return launches
+
+
+@contextlib.contextmanager
+def recording_operator(store):
+    """Within the block, the first tentative operator a stage build of the
+    IMEX stepper returns is kept in ``store``."""
+    from incompressibleeulerhdg_tpu_torch.timesteppers import hdg_imex
+
+    real = hdg_imex.build_tentative_operator
+
+    def record(*a, **k):
+        op = real(*a, **k)
+        if not store:
+            store.append(op)
+        return op
+
+    hdg_imex.build_tentative_operator = record
+    try:
+        yield
+    finally:
+        hdg_imex.build_tentative_operator = real
+
+
+def wide_table_checks(geom, op, blocks, degree):
+    """Phase (n): K1-K3 on a k = 5 or 6 run's own tables (random fields)
+    and K5 on its own-cell and first Schur blocks, each against its plain
+    version in float32 (the run's) and float64 (the tables widened)."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+
+    d1, nc, nf, b = geom.d1, geom.n_cells, geom.n_facets, geom.fcol_bounds
+    nu = 2 * d1
+    gen = torch.Generator(device=geom.device).manual_seed(degree)
+    holds = Holds(f"run (n) k={degree}")
+    for dtype in (torch.float32, torch.float64):
+        t = lambda a: a.to(dtype)
+        tt = lambda a: P.pad_table(a.to(dtype))
+        rnd = lambda *shape: torch.randn(shape, generator=gen, dtype=dtype, device=geom.device)
+        x, u0, u1 = rnd(nu, nc), rnd(nu, nf), rnd(nu, nf)
+        Sown, Pcell, K01, K10, Bp, Cp = (t(op.Sown), t(op.Pcell), tt(op.Ks01), tt(op.Ks10),
+                                         t(op.Bp), t(op.Cp))
+        Dinv0, Sinv = tt(op.Dinv0), tt(op.Sinv)
+        halves = (0, nc // 2, nc)
+        holds.check("fact_apply", dtype, P.fact_apply(Sown, Pcell, halves, x),
+                    P.fact_apply_plain(Sown, Pcell, halves, x))
+        holds.check("cross_pair", dtype, P.cross_pair(K01, K10, Bp, Cp, b, u0, u1),
+                    P.cross_pair_plain(K01, K10, Bp, Cp, b, u0, u1))
+        for k in range(len(b) - 1):
+            m = b[k + 1] - b[k]
+            args = (Dinv0, Sinv, K01, K10, Bp[k], Cp[k], u0[:, :m], u1[:, :m], b[k])
+            holds.check("patch_solve", dtype, P.patch_solve(*args), P.patch_solve_plain(*args))
+        for G in blocks:
+            G = G.to(dtype)
+            holds.check("gauss_jordan_select", dtype, smallinv.gauss_jordan_inv_bl(G),
+                        smallinv.gauss_jordan_inv_plain(G), per_block=True,
+                        rel_tol=WIDE_GJ_F32_RTOL if dtype == torch.float32 else None)
+    # the float32 inversion itself, against the float64 plain version
+    f32_vs_f64 = max(float(((smallinv.gauss_jordan_inv_bl(G) -
+                              smallinv.gauss_jordan_inv_plain(G.double())).abs().amax(dim=(0, 1))
+                             / smallinv.gauss_jordan_inv_plain(G.double()).abs().amax(dim=(0, 1))
+                             ).max()) for G in blocks)
+    if not f32_vs_f64 <= WIDE_GJ_F32_RTOL:
+        fail(f"run (n{degree}): K5's float32 inverse differs from the float64 one by "
+             f"{f32_vs_f64:.3e} of a block's largest entry")
+    r = holds.results
+    print(f"# phase (n) k={degree} kernels on the run's tables ({geom.n_cells} cells, d1={d1}, "
+          f"blocks {[tuple(G.shape) for G in blocks]}): rel err f32/f64 "
+          + " | ".join(f"{n} {e['rel']['float32']:.3e}/{e['rel']['float64']:.3e}"
+                       for n, e in r.items())
+          + f" | K5 float32 against the float64 plain inverse, per block {f32_vs_f64:.3e} "
+          f"(bound {WIDE_GJ_F32_RTOL:.0e})",
+          flush=True)
+    r["gauss_jordan_select"]["f32_vs_f64"] = f32_vs_f64
+    return r
+
+
+def wide_phase():
+    """Phase (n): projection SSP2 at k = 5 and 6 through the CLI, with the
+    run's own tables and blocks held to the plain versions.  Returns the
+    launches and the table checks by degree."""
+    dt = 1.0 / NX
+    launches, checks = {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for degree in WIDE_K:
+                key = f"n{degree}"
+                ops, blocks = [], []
+                record = contextlib.ExitStack()
+                record.enter_context(recording_operator(ops))
+                record.enter_context(recording_k4_inputs(blocks))
+                res, wall, launches[key], timers = run_cli(
+                    key, ["--nx", WIDE_K_NX, "--degree", degree, "--tfinal", 2 * dt,
+                          "--use_projection_method"], record=record)
+                check_driver_run(key, f"projection SSP2 {WIDE_K_NX}^2 k={degree}",
+                                 ERROR_VELOCITY_MAX, res, wall, timers, launches[key])
+                check_path_kernels(key, launches[key],
+                                   ("fact_apply", "cross_pair", "patch_solve"))
+                if launches[key]["gauss_jordan_select"] == 0:
+                    fail(f"run ({key}) never launched the Gauss-Jordan kernel (K5)")
+                checks[degree] = wide_table_checks(res["timestepper"].geom, ops[0], blocks,
+                                                   degree)
+                del ops, blocks, res
+                torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    return launches, checks
+
+
 def main():
     root = Path(__file__).resolve().parent
     if not (root / "incompressibleeulerhdg_tpu_torch" / "csrc").is_dir():
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, str(root))
+    t_start = time.perf_counter()
+
+    def stamp(label):
+        print(f"# elapsed {time.perf_counter() - t_start:.1f} s after {label}", flush=True)
+
     card = device_check()
 
     from incompressibleeulerhdg_tpu_torch import kernels
@@ -1395,22 +1660,34 @@ def main():
     print(f"# kernel build: {build_s:.2f} s ({', '.join(kernels.KERNELS)})", flush=True)
     main_cmp = compare_kernels(NX, DEGREE)
     new_cmp = compare_periodic_shapes()
+    stamp("phases 2, 3, 3b")
     main_launches, launches_step, slab_ref = main_path(card)
     launches = {"main": main_launches}
+    stamp("phase 4")
     wide_cmp = compare_kernels(WIDE_NX, WIDE_DEGREE)
     spill = ptxas_summary()
     print(f"# ptxas: {spill} bytes of spill stores and loads over all instantiations", flush=True)
     ab = gauss_jordan_ab()
+    stamp("phase 5")
     runs, disk_k4 = driver_runs()
     launches.update(runs)
     if len(disk_k4) != 2:
         fail(f"run (f) handed K4 {len(disk_k4)} batches to record, not 2")
     new_cmp.update(compare_disk_blocks(disk_k4))
     del disk_k4
+    stamp("phases 6, 6b")
     slab_launches, slab_cmp = slab_phase(card, *slab_ref)
     launches["k"] = slab_launches
+    stamp("phase (k)")
     part_launches, part_cmp = partition_phase(card)
     launches["l"] = part_launches
+    stamp("phase (l)")
+    launches.update(knob_phase())
+    stamp("phase (m)")
+    wide_launches, wide_checks = wide_phase()
+    launches.update(wide_launches)
+    wide_k = {k: compare_kernels(WIDE_NX, k) for k in WIDE_K}
+    stamp("phase (n)")
 
     rows = []
     for name in kernels.KERNELS:
@@ -1428,11 +1705,32 @@ def main():
             library_ms=e.get("library_ms"), timers=e["timers"],
         )
         for key in ("library_ms_contiguous", "ms_color", "plain_ms_color", "bytes_color",
-                    "bound_ms_color", "bound_by_color", "library_ms_color", "plan"):
+                    "bound_ms_color", "bound_by_color", "library_ms_color", "plan",
+                    "ms_additive", "plain_ms_additive", "bytes_additive", "bound_ms_additive",
+                    "bound_by_additive"):
             if key in e:
                 row[key] = e[key]
-        if "ms_color" in e:
-            row["pct_bound_color"] = pct_bound(e["bound_ms_color"], e["ms_color"], name)
+        for sfx in ("_color", "_additive"):
+            if f"ms{sfx}" in e:
+                row[f"pct_bound{sfx}"] = pct_bound(e[f"bound_ms{sfx}"], e[f"ms{sfx}"], name)
+        for k in WIDE_K:  # k = 5, 6: the 128^2 shapes, the run's tables, launches a step
+            w = wide_k[k].get(name)
+            if w is None:
+                continue
+            d1 = (k + 2) * (k + 3) // 2
+            tag = f"_n{2 * d1}" if name.startswith("gauss_jordan") else f"_d1_{d1}"
+            row.update({f"{key}{tag}": w[key] for key in (
+                "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "library_ms", "plan")
+                if key in w})
+            row.update({f"max_abs_err{tag}": w["abs"]["float32"],
+                        f"max_rel_err_f64{tag}": w["rel"]["float64"],
+                        f"pct_bound{tag}": pct_bound(w["bound_ms"], w["ms"], name),
+                        f"launches_per_step{tag}": launches[f"n{k}"][name] / 2})
+            c = wide_checks[k].get(name)
+            if c is not None:
+                row[f"max_rel_err_run_tables{tag}"] = c["rel"]
+                if "f32_vs_f64" in c:
+                    row[f"f32_vs_f64{tag}"] = c["f32_vs_f64"]
         if name in main_cmp and name in wide_cmp:
             w = wide_cmp[name]
             row.update(max_abs_err_d1_21=w["abs"]["float32"], max_rel_err_f64_d1_21=w["rel"]["float64"],

@@ -64,7 +64,9 @@ def bdm_from_jax(proj, dtype=torch.float64, device="cpu"):
 def tentative_operator_from_jax(op, dtype=torch.float64, device="cpu"):
     """A TentativeOperator from the JAX package's flat branches (the ones
     JAX builds off the TPU): factored (3-D ``Ks01``, uniform structured
-    meshes) or dense (``D``, ``Bx``, ``Cx``; unstructured meshes)."""
+    meshes) or dense (``D``, ``Bx``, ``Cx``; unstructured meshes, and
+    structured ones under ``IEHDG_FACT=0``), lagged builds
+    (``reuse_factors``) included."""
     names = ("Dinv", "Sinv", "Dinv0")
     if op.Sown is not None and np.ndim(op.Ks01) == 3:
         names += ("Sown", "Pcell", "Ks01", "Ks10", "Bp", "Cp")

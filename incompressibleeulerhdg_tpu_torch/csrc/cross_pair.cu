@@ -31,10 +31,18 @@
 //   latency each);
 // - the tile's segments are found once per block; a tile that straddles a
 //   segment edge applies each segment's block to its own columns;
-// - a thread holds 2 VEC sums, so no width spills.
+// - a thread holds 2 VEC sums, so no width spills; its sums over j unroll
+//   whole up to 42 terms and 8 at a time above (d1 = 28, 36), where the
+//   whole sums' hoisted loads would crowd the register file;
+// - at d1 = 36 the two tables of a tile take 166 KB of shared memory, so a
+//   block runs alone on its SM.
 // No tensor cores: in float32 they would round the inputs to TF32.
 #include "common.cuh"
 #include "tma.cuh"
+
+// unroll factor of a sum over n terms
+template <int n>
+constexpr int CROSS_UNROLL = n > 42 ? 8 : n;
 
 template <typename T, int D1>
 struct CrossTile {
@@ -107,7 +115,7 @@ __global__ void __launch_bounds__(CrossTile<T, D1>::THREADS) cross_pair_kernel(
     T pen[2][VEC];
 #pragma unroll
     for (int v = 0; v < VEC; ++v) pen[0][v] = pen[1][v] = T(0);
-#pragma unroll
+#pragma unroll(CROSS_UNROLL<NU>)
     for (int jj = 0; jj < NU; ++jj) {
       int j = jj + i;
       j = j >= NU ? j - NU : j;
@@ -133,7 +141,7 @@ __global__ void __launch_bounds__(CrossTile<T, D1>::THREADS) cross_pair_kernel(
   // scalar table of the side, both components
   mbar_wait(bar + side, 0);
   const T* K = sm + (side == 0 ? P::OFF_K01 : P::OFF_K10);
-#pragma unroll
+#pragma unroll(CROSS_UNROLL<D1>)
   for (int jj = 0; jj < D1; ++jj) {
     int j = jj + i;
     j = j >= D1 ? j - D1 : j;
@@ -195,6 +203,8 @@ static int dispatch_d1(int d1, const void* K01, const void* K10, long long ldk,
     case 10: return launch<T, 10>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
     case 15: return launch<T, 15>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
     case 21: return launch<T, 21>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
+    case 28: return launch<T, 28>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
+    case 36: return launch<T, 36>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

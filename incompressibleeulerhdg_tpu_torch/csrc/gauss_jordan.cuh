@@ -45,18 +45,24 @@ struct GjShared {  // one pivot's row, column and 1/p, two buffers
 };
 
 // Launch plans of the instantiated block sizes: tile R x C, BB batch entries
-// a thread block (float32, float64), chosen by device time on the H100
+// a thread block, for float32 and float64, chosen by device time on the H100
 // (tools/tune_gj.py).  A double tile takes twice the registers, so the
-// float64 plans hold fewer batch entries a thread block.
+// float64 plans hold fewer batch entries a thread block, and from N = 56 on
+// they may take another tile.
 template <typename T, int N>
 struct GjPlan;
 
-#define IEHDG_GJ_PLAN(N_, R_, C_, BB32_, BB64_)                                     \
-  template <typename T>                                                             \
-  struct GjPlan<T, N_> : GjShape<N_, R_, C_, sizeof(T) == 4 ? BB32_ : BB64_> {      \
-    static constexpr int R = R_, C = C_, BB = sizeof(T) == 4 ? BB32_ : BB64_;       \
-    static_assert(sizeof(GjShared<T, N_, R_, C_, BB>) <= 48 * 1024, "static smem"); \
+#define IEHDG_GJ_PLAN2(N_, R32_, C32_, BB32_, R64_, C64_, BB64_)                   \
+  template <typename T>                                                            \
+  struct GjPlan<T, N_> : GjShape<N_, sizeof(T) == 4 ? R32_ : R64_,                 \
+                                 sizeof(T) == 4 ? C32_ : C64_,                     \
+                                 sizeof(T) == 4 ? BB32_ : BB64_> {                 \
+    static constexpr int R = sizeof(T) == 4 ? R32_ : R64_;                         \
+    static constexpr int C = sizeof(T) == 4 ? C32_ : C64_;                         \
+    static constexpr int BB = sizeof(T) == 4 ? BB32_ : BB64_;                      \
+    static_assert(sizeof(GjShared<T, N_, R, C, BB>) <= 48 * 1024, "static smem"); \
   };
+#define IEHDG_GJ_PLAN(N_, R_, C_, BB32_, BB64_) IEHDG_GJ_PLAN2(N_, R_, C_, BB32_, R_, C_, BB64_)
 
 IEHDG_GJ_PLAN(12, 6, 6, 32, 32)
 IEHDG_GJ_PLAN(20, 10, 5, 32, 16)
@@ -64,7 +70,10 @@ IEHDG_GJ_PLAN(30, 8, 8, 16, 8)
 IEHDG_GJ_PLAN(32, 8, 8, 16, 16)
 IEHDG_GJ_PLAN(42, 7, 7, 8, 4)
 IEHDG_GJ_PLAN(48, 8, 8, 8, 4)
+IEHDG_GJ_PLAN2(56, 7, 7, 8, 7, 7, 4)
+IEHDG_GJ_PLAN2(72, 6, 6, 4, 9, 9, 2)
 #undef IEHDG_GJ_PLAN
+#undef IEHDG_GJ_PLAN2
 
 // Publish pivot k's row, column and 1/p into buffer k & 1 (k is a constant
 // once the pivot loop is unrolled).

@@ -1,5 +1,5 @@
 // K5: unpivoted in-place Gauss-Jordan inverse of a batch of (n, n) blocks
-// stored batch-last as (n, n, B), n <= 48.
+// stored batch-last as (n, n, B), n <= 72.
 //
 // Replaces the Pallas kernel tools/microbench_gj.py `_gj_old` (kernel body
 // `_gj_old_kernel_factory`), the masked-select formulation: at each pivot k
@@ -11,9 +11,9 @@
 //     A[:, k] = -f/p;  A[k, :] = row_k            (by selects)
 //
 // which gives, entry by entry, the same values as K4's indexed fix-ups.
-// Callers: `gauss_jordan_inv_bl` for 32 < n <= 48 -- the own-cell and patch
-// Schur inverses of the tentative-operator build at k = 4 (n = 42) -- and
-// `gauss_jordan_inv_select` for any n <= 48.
+// Callers: `gauss_jordan_inv_bl` for 32 < n <= 72 -- the own-cell and patch
+// Schur inverses of the tentative-operator build at k = 4, 5, 6 (n = 42,
+// 56, 72) -- and `gauss_jordan_inv_select` for any n <= 72.
 //
 // What bounds it on the card: a 42x42 block is 74 KFMA against
 // 2 * 42*42*4 B = 14 KB of traffic in float32 (10.5 FLOP a byte), so at
@@ -33,8 +33,13 @@
 // table entry is then a run of 8 blocks (32 bytes), which sets the time of
 // the loads and stores (a copy with this access pattern alone takes about
 // twice the bytes bound, tools/tune_gj.py).  Instantiated for N = 20, 42
-// (k = 4) and 48; a block of n <= N runs in the smallest such N, its
-// entries past n held as the identity.
+// (k = 4), 48, 56 (k = 5) and 72 (k = 6); a block of n <= N runs in the
+// smallest such N, its entries past n held as the identity.  At N = 56 a
+// thread holds a 7x7 tile (8 blocks a thread block in float32, 4 in
+// float64), at N = 72 a 6x6 tile in float32 (4 blocks) and a 9x9 tile in
+// float64 (2 blocks), the fastest of tools/tune_gj.py's plans without a
+// spill on the H100; the pivot loop is unrolled over N, which sets nvcc's
+// time for this library.
 #include "gauss_jordan.cuh"
 
 template <typename T, int N>
@@ -53,13 +58,15 @@ template <typename T>
 static int dispatch(int n, const void* A, void* out, long long B, cudaStream_t st, int* plan) {
   if (n <= 20) return run<T, 20>(A, out, n, B, st, plan);
   if (n <= 42) return run<T, 42>(A, out, n, B, st, plan);
-  return run<T, 48>(A, out, n, B, st, plan);
+  if (n <= 48) return run<T, 48>(A, out, n, B, st, plan);
+  if (n <= 56) return run<T, 56>(A, out, n, B, st, plan);
+  return run<T, 72>(A, out, n, B, st, plan);
 }
 
-// dtype: 0 float32, 1 float64.  A and out (n, n, B) contiguous, n <= 48.
+// dtype: 0 float32, 1 float64.  A and out (n, n, B) contiguous, n <= 72.
 IEHDG_EXPORT int iehdg_gauss_jordan_select(int device, int dtype, int n, const void* A,
                                            void* out, long long B, void* stream) {
-  if (n < 1 || n > 48 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > 72 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -69,7 +76,7 @@ IEHDG_EXPORT int iehdg_gauss_jordan_select(int device, int dtype, int n, const v
 
 // The launch plan of block size n: {N, R, C, BB, threads, shared bytes}.
 IEHDG_EXPORT int iehdg_gauss_jordan_select_plan(int dtype, int n, int* plan) {
-  if (n < 1 || n > 48 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > 72 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   return dtype == 0 ? dispatch<float>(n, nullptr, nullptr, 0, nullptr, plan)
                     : dispatch<double>(n, nullptr, nullptr, 0, nullptr, plan);
 }

@@ -35,6 +35,15 @@
 //   flight together (a block otherwise waits out one global latency per
 //   loop trip); Cp and Bp are read through L1.
 // No tensor cores: every facet has its own matrices (no reuse).
+//
+// Widths: above d1 = 15 a tile is one 16-byte row of facets (TC = VEC, the
+// TMA minimum).  The four tables of that tile take 2 nu^2 + 2 d1^2 rows of
+// 16 bytes: 128,768 B at d1 = 28 and 208,128 B at d1 = 36 (rows rounded to
+// whole boxes), so from k = 5 a block runs alone on its SM with nu threads,
+// and k = 7 (d1 = 45: 259,200 B of Dinv0 and Sinv alone) exceeds the
+// 232,448 B a block may use.  Staging K10, Sinv and K01 through one buffer
+// would not lift that limit, since Dinv0 and Sinv each take 129,600 B at
+// d1 = 45: the shared memory of one tile sets the widest degree, k = 6.
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -86,9 +95,11 @@ struct PatchTile {
 
 // unroll factor of a sum over n terms: whole up to n = 20, 7 above (d1 =
 // 15, 21), where the whole sums' hoisted loads need more than 255
-// registers (ptxas spilled 52 bytes a thread at d1 = 21, float32)
-template <int n>
-constexpr int UNROLL = n > 20 ? 7 : n;
+// registers (ptxas spilled 52 bytes a thread at d1 = 21, float32); in
+// float64 9 where 9 divides n (d1 = 36, where 7 spilled 8 bytes, and 9 in
+// float32 12)
+template <typename T, int n>
+constexpr int UNROLL = n > 20 ? (sizeof(T) == 8 && n % 9 == 0 ? 9 : 7) : n;
 
 // acc[v] = sum_j A[row, j] x[j] over the NU x NU tile table A ([row][TC]) and
 // the tile vector x ([j][TC]) for the thread's facets q * VEC ..
@@ -96,7 +107,7 @@ template <typename T, int NU, int TC>
 __device__ __forceinline__ void row_dot(T* acc, const T* A, const T* x, int row, int q) {
   using V = typename Vec<T>::type;
   constexpr int VEC = Vec<T>::n;
-#pragma unroll(UNROLL<NU>)
+#pragma unroll(UNROLL<T, NU>)
   for (int jj = 0; jj < NU; ++jj) {
     int j = jj + row;
     j = j >= NU ? j - NU : j;
@@ -116,13 +127,13 @@ __device__ __forceinline__ void cross_row(T* acc, const T* K, const T* P, const 
   constexpr int VEC = Vec<T>::n;
   const int a = row >= D1 ? 1 : 0;
   const int i = row - a * D1;
-#pragma unroll(UNROLL<NU>)
+#pragma unroll(UNROLL<T, NU>)
   for (int jj = 0; jj < NU; ++jj) {
     int j = jj + row;
     j = j >= NU ? j - NU : j;
     vfma<T>(acc, __ldg(P + row * NU + j), *reinterpret_cast<const V*>(x + j * TC + q * VEC));
   }
-#pragma unroll(UNROLL<D1>)
+#pragma unroll(UNROLL<T, D1>)
   for (int jj = 0; jj < D1; ++jj) {
     int j = jj + i;
     j = j >= D1 ? j - D1 : j;
@@ -270,6 +281,8 @@ static int dispatch_d1(int d1, const void* Di, const void* Si, const void* K01,
     case 10: return launch<T, 10>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     case 15: return launch<T, 15>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     case 21: return launch<T, 21>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    case 28: return launch<T, 28>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    case 36: return launch<T, 36>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

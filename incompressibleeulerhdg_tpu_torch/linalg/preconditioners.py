@@ -16,7 +16,14 @@ Schwarz sweep: the own-cell inverses Dinv (nu, nu, nc), their plus-cell
 copies Dinv0 (nu, nu, nf) and the per-facet Schur inverses Sinv (nu, nu, nf).
 On any other mesh (the unit disk, preconditioners.py:602-625) D, Bx and Cx
 are dense (nu, nu, n) tables applied by ``einsum`` and reached by index
-gathers; only the Gauss-Jordan inverses (K4) are kernels there.  A
+gathers; only the Gauss-Jordan inverses (K4) are kernels there.
+``IEHDG_FACT=0`` (read at every build, as the JAX package's
+``_fact_wanted``) gives a structured mesh the dense tables too, with its
+patch factors built colour by colour on the rectangle layout and applied
+by the same slices and rolls as the factored ones (K4, or K5 from k = 4,
+are then its only kernels).  ``reuse_factors`` (the lagged preconditioner,
+``IEHDG_LAG_PC``) builds fresh matvec tables and takes the patch factors
+of an earlier build.  A
 partition-local geometry (parallel/partition.py) takes the dense branch on
 every mesh, with the ghost entries of each gathered source appended first:
 each rank inverts its own cells' and its own facets' blocks.
@@ -30,12 +37,13 @@ CUDA here, each beside its plain PyTorch version (the JAX fallback):
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel.
 The kernels are instantiated for the widths d1 = (k + 2)(k + 3)/2 of the
-degrees k = 0 .. 4; a wider table on the card raises.  K2 and K3 stage
+degrees k = 0 .. 6; a wider table on the card raises.  K2 and K3 stage
 their per-facet tables in shared memory with TMA, which needs 16-byte rows:
 the operator's facet tables are allocated with a padded column stride
 (:func:`pad_table`; the plain versions read the same views).
 """
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -59,7 +67,16 @@ __all__ = [
     "patch_solve_plain",
     "pad_table",
     "tile_facets",
+    "tentative_patch_apply",
+    "tentative_colored_apply",
 ]
+
+
+def _fact_wanted():
+    """Whether a uniform structured mesh stores factored tentative tables:
+    ``IEHDG_FACT=1/0`` overrides, on by default (preconditioners.py:28-45)."""
+    flag = os.environ.get("IEHDG_FACT")
+    return True if flag is None else flag == "1"
 
 
 @dataclass
@@ -82,14 +99,15 @@ class TentativeOperator:
     Cx: torch.Tensor = None  # (nu, nu, nf) minus rows, plus columns
 
 
-CUDA_D1 = (3, 6, 10, 15, 21)  # k = 0 .. 4
+CUDA_D1 = (3, 6, 10, 15, 21, 28, 36)  # k = 0 .. 6
 
 
 def _check_width(name, d1):
     if d1 not in CUDA_D1:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is instantiated for d1 in {CUDA_D1} (k <= 4), "
-            f"got d1 = {d1} (ROADMAP Queue 1, 'k >= 5 on the card')")
+            f"{name}: the CUDA kernel is instantiated for d1 in {CUDA_D1} (k <= 6), "
+            f"got d1 = {d1} (ROADMAP Queue 1, 'k >= 7 on the card': one K3 tile of "
+            f"the four tables exceeds a block's shared memory from d1 = 45)")
 
 
 def pad_table(A):
@@ -123,7 +141,7 @@ def tile_facets(kernel, d1, dtype):
     """Facets per block tile of K2 ("cross_pair") or K3 ("patch_solve"): the
     TC of CrossTile / PatchTile in csrc/cross_pair.cu, csrc/patch_solve.cu
     (128-byte table rows for K2, 64 above d1 = 15; 64-byte rows for K3 up to
-    d1 = 10, 32 at d1 = 15, 16 at d1 = 21)."""
+    d1 = 10, 32 at d1 = 15, 16 from d1 = 21 on)."""
     size = torch.empty((), dtype=dtype).element_size()
     if kernel == "cross_pair":
         return (64 if d1 > 15 else 128) // size
@@ -295,25 +313,31 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
 # ----------------------------------------------------------------------
 
 
-def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
+def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True, reuse_factors=None):
     """Assemble the blocks and the Schwarz factors of one stage.
 
     The 2x2 cell patch [[D_plus, Bx], [Cx, D_minus]] of every interior facet
     is factorised in block-Schur form: own-cell inverses (K4) plus the
     per-facet Schur inverse of S = D_minus - Cx Dinv_plus Bx (K4).  A
     uniform structured mesh (square or periodic) gets the factored tables
-    that K1-K3 apply; any other mesh (the unit disk) gets dense (nu, nu, n)
-    tables, the JAX package's branch at preconditioners.py:352-357, 429-448
-    and 602-625.  ``c`` = a_ii * dt is a float.
+    that K1-K3 apply, unless ``IEHDG_FACT=0``; any other mesh (the unit
+    disk) gets dense (nu, nu, n) tables, the JAX package's branch at
+    preconditioners.py:352-357, 429-448 and 602-625.  ``c`` = a_ii * dt is
+    a float.
+
+    ``reuse_factors``: an earlier operator whose patch factors (``Dinv``,
+    ``Dinv0``, ``Sinv``) this one takes instead of inverting its own (the
+    lagged preconditioner, preconditioners.py:450-475); the matvec tables
+    are built fresh, so only the preconditioner lags.
     """
-    if geom.shift is not None and geom.uniform is None:
+    factored = geom.shift is not None and _fact_wanted()
+    if factored and geom.uniform is None:
         raise NotImplementedError("a structured mesh without uniform facet families")
     star_bl, snq = star
     d1 = geom.d1
     dtype, dev = star_bl.dtype, star_bl.device
     c = float(c)
     upw = 1.0 if upwind else 0.0
-    factored = geom.shift is not None
 
     # own-cell scalar blocks: mass + c * volume convection + facet terms
     star_q = torch.einsum("qi,aic->aqc", geom.phi1, star_bl)
@@ -357,19 +381,26 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
     K01s = torch.einsum("fqi,fqj,qf->ijf", U0, U1, s01).contiguous()
     K10s = torch.einsum("fqi,fqj,qf->ijf", U1, U0, s10).contiguous()
     if factored:
-        return _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha)
+        return _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha, reuse_factors)
 
     # dense tables: D = I2 (x) Sown + sum_t Pt (x) NNt, Bx = I2 (x) Ks01 +
     # penalty (n (x) n) (x) K01p, Cx likewise
     nu = 2 * d1
     D_bl = _kron2(S_own) + torch.einsum("tij,tabc->aibjc", Pt, NNt).reshape(nu, nu, -1)
-    Dinv_bl = gauss_jordan_inv_bl(D_bl)
     penf = (-c) * alpha * geom.hF_inv * msk
     nnf = geom.normal[:, None, :] * geom.normal[None, :, :]
     K01p = torch.einsum("fqi,fqj,qf->ijf", U0, U1, wf) * penf
     K10p = torch.einsum("fqi,fqj,qf->ijf", U1, U0, wf) * penf
     Bx = _kron2(K01s) + torch.einsum("abf,ijf->aibjf", nnf, K01p).reshape(nu, nu, -1)
     Cx = _kron2(K10s) + torch.einsum("abf,ijf->aibjf", nnf, K10p).reshape(nu, nu, -1)
+    if reuse_factors is not None:
+        rf = reuse_factors
+        return TentativeOperator(Dinv=rf.Dinv, Sinv=rf.Sinv, Dinv0=rf.Dinv0, D=D_bl, Bx=Bx, Cx=Cx)
+    Dinv_bl = gauss_jordan_inv_bl(D_bl)
+    if geom.shift is not None:  # IEHDG_FACT=0 on a structured mesh
+        Sinv, Dinv0 = _schur_structured(
+            geom, D_bl, Dinv_bl, lambda k, b0, b1: (Bx[:, :, b0:b1], Cx[:, :, b0:b1]))
+        return TentativeOperator(Dinv=Dinv_bl, Sinv=Sinv, Dinv0=Dinv0, D=D_bl, Bx=Bx, Cx=Cx)
     # patch Schur factors of every facet; identity blocks on the boundary
     if geom.part is None:
         Dinv0, D1 = Dinv_bl[:, :, geom.fcells[0]], D_bl[:, :, geom.fcells[1]]
@@ -383,12 +414,12 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True):
                              D=D_bl, Bx=Bx, Cx=Cx)
 
 
-def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha):
+def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha, reuse_factors=None):
     """The factored tables of a uniform structured mesh and their Schwarz
-    factors, colour by colour (K4 on each colour's Schur blocks)."""
+    factors, colour by colour (K4 on each colour's Schur blocks), or the
+    factors of ``reuse_factors``."""
     d1 = geom.d1
     nu = 2 * d1
-    nf = geom.n_facets
     dtype, dev = S_own.dtype, S_own.device
 
     # own-cell penalty: a constant per cell half (congruent facets)
@@ -401,11 +432,6 @@ def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha):
             Ph = Ph + (c * alpha) * nn[:, None, :, None] * Pt[t][None, :, None, :]
         Pcell.append(Ph.reshape(nu, nu))
     Pcell = torch.stack(Pcell)
-    nch = geom.shift[0] * geom.shift[1]
-    D_bl = _kron2(S_own)
-    D_bl[:, :, :nch] += Pcell[0][:, :, None]
-    D_bl[:, :, nch:] += Pcell[1][:, :, None]
-    Dinv_bl = gauss_jordan_inv_bl(D_bl)
 
     # per-colour constant cross penalties
     K01s, K10s = pad_table(K01s), pad_table(K10s)
@@ -419,8 +445,34 @@ def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha):
         Cp.append(coef * (nn[:, None, :, None] * PM.T[None, :, None, :]).reshape(nu, nu))
     Bp = torch.stack(Bp)
     Cp = torch.stack(Cp)
+    tables = dict(Sown=S_own, Pcell=Pcell, Ks01=K01s, Ks10=K10s, Bp=Bp, Cp=Cp)
+    if reuse_factors is not None:
+        rf = reuse_factors
+        return TentativeOperator(Dinv=rf.Dinv, Sinv=rf.Sinv, Dinv0=rf.Dinv0, **tables)
 
-    # patch Schur factors, colour by colour
+    nch = geom.shift[0] * geom.shift[1]
+    D_bl = _kron2(S_own)
+    D_bl[:, :, :nch] += Pcell[0][:, :, None]
+    D_bl[:, :, nch:] += Pcell[1][:, :, None]
+    Dinv_bl = gauss_jordan_inv_bl(D_bl)
+
+    def cross(k, b0, b1):
+        return (_kron2(K01s[:, :, b0:b1]) + Bp[k][:, :, None],
+                _kron2(K10s[:, :, b0:b1]) + Cp[k][:, :, None])
+
+    Sinv, Dinv0 = _schur_structured(geom, D_bl, Dinv_bl, cross)
+    return TentativeOperator(Dinv=Dinv_bl, Sinv=Sinv, Dinv0=Dinv0, **tables)
+
+
+def _schur_structured(geom, D_bl, Dinv_bl, cross):
+    """The patch factors of a structured mesh, colour by colour on the
+    rectangle layout (preconditioners.py:491-611): each colour's plus-cell
+    inverses Dinv0 and Schur inverses Sinv of S = D_minus - Cx Dinv0 Bx
+    (K4), with ``cross(k, b0, b1)`` the colour's dense (Bx, Cx) blocks; on
+    the boundary tail, identity Schur blocks and the plus cells' inverses.
+    Returns padded (Sinv, Dinv0) tables (:func:`pad_table`)."""
+    nu = D_bl.shape[0]
+    dtype, dev = D_bl.dtype, D_bl.device
     Dup = st.grid_halves(geom, D_bl)[1]
     Dinv_lo = st.grid_halves(geom, Dinv_bl)[0]
     Sinv_parts, Dinv0_parts = [], []
@@ -430,8 +482,7 @@ def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha):
         D1 = st.rect_flat(st.roll2(geom, Dup, off), rect)
         Dinv0_k = st.rect_flat(Dinv_lo, rect)
         Dinv0_parts.append(Dinv0_k)
-        Bx_k = _kron2(K01s[:, :, b0:b1]) + Bp[k][:, :, None]
-        Cx_k = _kron2(K10s[:, :, b0:b1]) + Cp[k][:, :, None]
+        Bx_k, Cx_k = cross(k, b0, b1)
         Sc = D1 - _bmm(Cx_k, _bmm(Dinv0_k, Bx_k))
         if geom.fint is not None:
             # slab-local layout: the colour rectangles hold boundary and
@@ -440,22 +491,12 @@ def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha):
             eye = torch.eye(nu, dtype=dtype, device=dev)[:, :, None]
             Sc = torch.where(geom.fint[b0:b1][None, None, :] > 0, Sc, eye)
         Sinv_parts.append(gauss_jordan_inv_bl(Sc))
-    nbnd = nf - geom.n_int
+    nbnd = geom.n_facets - geom.n_int
     if nbnd:
         eye = torch.eye(nu, dtype=dtype, device=dev)
         Sinv_parts.append(eye[:, :, None].expand(nu, nu, nbnd))
         Dinv0_parts.append(Dinv_bl[:, :, geom.fcells[0, geom.n_int :]])
-    return TentativeOperator(
-        Dinv=Dinv_bl,
-        Sinv=_cat_table(Sinv_parts),
-        Dinv0=_cat_table(Dinv0_parts),
-        Sown=S_own,
-        Pcell=Pcell,
-        Ks01=K01s,
-        Ks10=K10s,
-        Bp=Bp,
-        Cp=Cp,
-    )
+    return _cat_table(Sinv_parts), _cat_table(Dinv0_parts)
 
 
 def dense_blocks(geom, op):
@@ -532,8 +573,11 @@ def _patch_color_structured(geom, op, k, rb):
     r0 = st.rect_flat(lo, rect)
     r1 = st.rect_flat(st.roll2(geom, up, off), rect)
     b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
-    y0, y1 = patch_solve(op.Dinv0, op.Sinv, op.Ks01, op.Ks10, op.Bp[k], op.Cp[k],
-                         r0, r1, b0)
+    if op.Sown is not None:
+        y0, y1 = patch_solve(op.Dinv0, op.Sinv, op.Ks01, op.Ks10, op.Bp[k], op.Cp[k],
+                             r0, r1, b0)
+    else:  # dense tables (IEHDG_FACT=0)
+        y0, y1 = _patch_dense(op, b0, b1, r0, r1)
     if geom.fint is not None:
         # slab-local layout: no correction at the boundary and dummy
         # positions inside the colour rectangle
@@ -541,6 +585,15 @@ def _patch_color_structured(geom, op, k, rb):
     z_lo = st.rect_pad(geom, y0, rect)
     z_up = st.roll2(geom, st.rect_pad(geom, y1, rect), (-off[0], -off[1]))
     return st.grid_join(geom, z_lo, z_up)
+
+
+def _patch_dense(op, b0, b1, r0, r1):
+    """The patch solves of facets b0 .. b1 - 1 on dense tables (the JAX
+    ``_bm`` composition, preconditioners.py:1381-1385)."""
+    Dinv0 = op.Dinv0[:, :, b0:b1]
+    t = r1 - _bm(op.Cx[:, :, b0:b1], _bm(Dinv0, r0))
+    y1 = _bm(op.Sinv[:, :, b0:b1], t)
+    return _bm(Dinv0, r0 - _bm(op.Bx[:, :, b0:b1], y1)), y1
 
 
 def _patch_color(geom, op, k, rb):
@@ -554,10 +607,7 @@ def _patch_color(geom, op, k, rb):
     rb = cells_ext(geom, rb)
     r0 = rb[:, geom.fcells[0, b0:b1]]
     r1 = rb[:, geom.fcells[1, b0:b1]]
-    Dinv0 = op.Dinv0[:, :, b0:b1]
-    t = r1 - _bm(op.Cx[:, :, b0:b1], _bm(Dinv0, r0))
-    y1 = _bm(op.Sinv[:, :, b0:b1], t)
-    y0 = _bm(Dinv0, r0 - _bm(op.Bx[:, :, b0:b1], y1))
+    y0, y1 = _patch_dense(op, b0, b1, r0, r1)
     if geom.part is not None:
         y = y0.new_zeros((2, y0.shape[0], geom.n_facets))
         y[0, :, b0:b1], y[1, :, b0:b1] = y0, y1
@@ -567,6 +617,13 @@ def _patch_color(geom, op, k, rb):
     return ycat[:, idx] * geom.fcol_mask[k][None, :]
 
 
+def _sweep_colours(geom, symmetric):
+    """The colours of one multiplicative sweep: the mesh's order
+    (:func:`structured.sweep_order`), then back unless it is the last."""
+    first = list(st.sweep_order(geom))
+    return first + (first[-2::-1] if symmetric else [])
+
+
 def _colored_apply_bl(geom, op, rb, symmetric=False):
     """Multiplicative colored sweep on a (nu, nc) residual, with one full
     matvec between colours; ``symmetric`` sweeps back through the colours.
@@ -574,15 +631,55 @@ def _colored_apply_bl(geom, op, rb, symmetric=False):
     port builds but the 1x1 square)."""
     if geom.fcol_orphans:
         raise ValueError("the colored sweep needs every cell to carry an interior facet")
-    ncol = len(geom.fcol_bounds) - 1
     patch = _patch_color_structured if geom.shift is not None else _patch_color
-    z = patch(geom, op, 0, rb)
-    order = list(range(1, ncol))
-    if symmetric:
-        order += list(range(ncol - 2, -1, -1))
-    for k in order:
+    order = _sweep_colours(geom, symmetric)
+    z = patch(geom, op, order[0], rb)
+    for k in order[1:]:
         z = z + patch(geom, op, k, rb - _matvec_bl(geom, op, z))
     return z
+
+
+def tentative_colored_apply(geom, op, r, symmetric=False):
+    """Multiplicative colored facet-pair Schwarz sweep on a (2, d1, nc)
+    residual (preconditioners.py:1522)."""
+    _, d1, nc = r.shape
+    return _colored_apply_bl(geom, op, r.reshape(2 * d1, nc), symmetric).reshape(r.shape)
+
+
+def _patch_apply_bl(geom, op, rb):
+    """Additive Schwarz on a (nu, nc) residual (preconditioners.py:1274-1306):
+    every facet's patch solve from the same residual, the minus side zero on
+    the boundary, summed into the cells with weight 1/3.  On factored
+    tables the solves are K3, one launch per colour and one for the
+    boundary tail with zero penalty blocks (there the patch solve reduces
+    to the plus cell's inverse, as in the JAX package)."""
+    if geom.fint is not None:
+        raise NotImplementedError("the additive patch preconditioner on a slab-local layout")
+    msk = interior_mask(geom, 1)
+    r0, r1 = _gather_sides_bl(geom, rb)
+    r1 = r1 * msk
+    if op.Sown is None:
+        y0, y1 = _patch_dense(op, 0, geom.n_facets, r0, r1)
+        y1 = y1 * msk
+    else:
+        b = list(geom.fcol_bounds)
+        parts = [patch_solve(op.Dinv0, op.Sinv, op.Ks01, op.Ks10, op.Bp[k], op.Cp[k],
+                             r0[:, b[k]:b[k + 1]], r1[:, b[k]:b[k + 1]], b[k])
+                 for k in range(len(b) - 1)]
+        if geom.n_facets > b[-1]:
+            zero = op.Bp.new_zeros(op.Bp.shape[1:])
+            parts.append(patch_solve(op.Dinv0, op.Sinv, op.Ks01, op.Ks10, zero, zero,
+                                     r0[:, b[-1]:], r1[:, b[-1]:], b[-1]))
+        y0 = torch.cat([y[0] for y in parts], dim=1)
+        y1 = torch.cat([y[1] for y in parts], dim=1)
+    return gather_facet_contribs(geom, y0, y1) / 3.0
+
+
+def tentative_patch_apply(geom, op, r):
+    """Additive facet-patch Schwarz preconditioner on a (2, d1, nc)
+    residual (preconditioners.py:1309-1319)."""
+    _, d1, nc = r.shape
+    return _patch_apply_bl(geom, op, r.reshape(2 * d1, nc)).reshape(r.shape)
 
 
 def _color_cov(geom, k):
@@ -606,29 +703,34 @@ def _cross_offcolor(geom, op, k, dz):
         rect = (i0, j0, ni, nj)
         z0 = st.rect_flat(lo_dz, rect)
         z1 = st.rect_flat(st.roll2(geom, up_dz, off), rect)
-        y0, y1 = _cross_pair_color(geom, op, j, z0, z1)
+        b0, b1 = geom.fcol_bounds[j], geom.fcol_bounds[j + 1]
+        if op.Sown is not None:
+            y0, y1 = _cross_pair_color(geom, op, j, z0, z1)
+        else:  # dense tables (IEHDG_FACT=0)
+            y0, y1 = _bm(op.Bx[:, :, b0:b1], z1), _bm(op.Cx[:, :, b0:b1], z0)
         if geom.fint is not None:
-            b0, b1 = geom.fcol_bounds[j], geom.fcol_bounds[j + 1]
             y0, y1 = y0 * geom.fint[b0:b1], y1 * geom.fint[b0:b1]
         acc_lo = acc_lo + st.rect_pad(geom, y0, rect)
         acc_up = acc_up + st.roll2(geom, st.rect_pad(geom, y1, rect), (-off[0], -off[1]))
     return st.grid_join(geom, acc_lo, acc_up)
 
 
-def _colored_apply_fused_bl(geom, op, vb):
-    """Symmetric multiplicative colored sweep (colours forward, then back)
-    returning ``z = M v`` and the exact ``A z`` (one explicit matvec at the
-    end).
+def _colored_apply_fused_bl(geom, op, vb, symmetric=True):
+    """Multiplicative colored sweep (colours forward, then back unless
+    ``symmetric`` is False) returning ``z = M v`` and the exact ``A z`` (one
+    explicit matvec at the end).
 
     Each colour's pair solves are exact and each cell has at most one facet
     per colour, so the residual after a colour is ``-(off-colour cross)(dz)``
     on its patch cells and ``r - (off-colour cross)(dz)`` elsewhere: no
     matvec between colours.  Needs every cell to carry an interior facet.
+    On factored tables a colour is one K3 launch and each off-colour update
+    one K2 launch per other colour; on dense tables (``IEHDG_FACT=0``) both
+    are ``einsum``s.
     """
     if geom.fcol_orphans:
         raise ValueError("the fused sweep needs every cell to carry an interior facet")
-    first = list(st.sweep_order(geom))
-    order = first + first[-2::-1]
+    order = _sweep_colours(geom, symmetric)
     z = None
     r = vb
     for i, k in enumerate(order):

@@ -3,8 +3,9 @@
 Counterpart of incompressibleeulerhdg_tpu/linalg/smallinv.py
 ``gauss_jordan_inv_bl``.  On a CUDA tensor it launches a kernel chosen by the
 block size: K4 (``csrc/gauss_jordan.cu``) for n <= 32 and K5
-(``csrc/gauss_jordan_select.cu``) for 32 < n <= 48, the JAX Pallas gate;
-larger blocks raise.  Both are instantiations of one register-tiled design
+(``csrc/gauss_jordan_select.cu``) for 32 < n <= 72: the JAX Pallas gate
+(n <= 48), and above it the blocks of k = 5 and 6 (n = 56, 72), which the
+JAX package inverts with its jnp loop; larger blocks raise.  Both are instantiations of one register-tiled design
 (``csrc/gauss_jordan.cuh``; :func:`launch_plan` describes an instantiation).
 On a CPU tensor it runs :func:`gauss_jordan_inv_plain`, the pivot loop of
 the JAX fallback (smallinv.py:119-136).  No pivoting: the callers invert
@@ -30,7 +31,7 @@ __all__ = [
 ]
 
 K4_MAX_N = 32  # K4's largest instantiation (csrc/gauss_jordan.cu)
-SELECT_MAX_N = 48  # K5, and the JAX Pallas gate (smallinv.py:111-117)
+SELECT_MAX_N = 72  # K5: up to k = 6 (the JAX Pallas gate is n <= 48, smallinv.py:111-117)
 PLAN_KEYS = ("N", "R", "C", "BB", "threads", "smem_bytes")
 
 
@@ -74,7 +75,7 @@ def _launch_gj(name, A, max_n):
     if n > max_n:
         raise NotImplementedError(
             f"{name}: the CUDA kernel takes n <= {max_n}, got {n} "
-            "(ROADMAP Queue 1, 'k >= 5 on the card')")
+            "(ROADMAP Queue 1, 'k >= 7 on the card')")
     A = A.contiguous()
     dev, code = kernels.check_cuda(name, A)
     out = torch.empty_like(A)
@@ -100,7 +101,7 @@ def launch_plan(name, dtype, n):
 
 def gauss_jordan_inv_select(A):
     """K5: inverse of every (n, n) block of a batch-last (n, n, B) tensor,
-    n <= 48, by the masked-select Gauss-Jordan."""
+    n <= 72, by the masked-select Gauss-Jordan."""
     if A.device.type == "cpu":
         return gauss_jordan_inv_select_plain(A)
     return _launch_gj("gauss_jordan_select", A, SELECT_MAX_N)

@@ -26,11 +26,46 @@ The stage loop is a Python loop on eager tensors.  Iteration counts of every
 solve are returned by :meth:`step` and averaged by :meth:`solve`, which also
 checkpoints and resumes the full stage state (and the tracer), hands each
 step's fields to the callbacks, and warns of a non-finite Krylov residual
-and of a projection run that stalled above its tolerance.  The tentative
-GMRES keeps the JAX package's defaults (restart 28, one symmetric colored
-sweep per application); its ``IEHDG_*`` knobs are not ported.
+and of a projection run that stalled above its tolerance.
+
+The JAX package's environment knobs, each read where the JAX package reads
+it, so that one environment means one computation in both packages:
+
+- ``IEHDG_TENT_RESTART`` (default 28), ``IEHDG_TENT_SWEEPS`` (1) and
+  ``IEHDG_TENT_SYM`` (1): read in ``__init__`` into ``tentative_restart``,
+  ``tentative_sweeps`` and ``tentative_symmetric`` (hdg_imex.py:118-125)
+  and passed to every tentative solve of the Richardson sweep; a forward
+  sweep (``SYM=0``) visits each colour once (K3 ``ncol`` times instead of
+  ``2 ncol - 1``), a second sweep doubles the K1-K3 launches of an
+  application;
+- ``IEHDG_TENT_FUSED`` (linalg/tentative.py) and ``IEHDG_FACT``
+  (linalg/preconditioners.py): read at every solve and every stage build;
+  ``FUSED=0`` takes the left-preconditioned composition (K1, K2 in the
+  matvec between colours), ``FACT=0`` dense tables on a structured mesh
+  (``einsum``s; K4, or K5 from k = 4, alone);
+- ``IEHDG_LAG_PC=1``: read at every step; on the projection path a stage
+  whose a_ii equals the previous stage's reuses that stage's patch factors
+  (``build_tentative_operator(reuse_factors=...)``, hdg_imex.py:621-666),
+  so its build launches no Gauss-Jordan kernel (SSP2(3,3,2) never lags;
+  ARS2(2,3,2), ARS3(4,4,3) and SSP3(4,3,3) build once a step).  The JAX
+  package honours it only in its composite step, above
+  ``COMPOSITE_STEP_CELLS`` = 100,000 cells (hdg_imex.py:141-172); this
+  single host loop is the composite step's analogue, so the port honours
+  it on every mesh of one rank;
+- ``IEHDG_PHASE_TIMING=1``: read at every step; the wall clock of each
+  phase, ended by ``torch.cuda.synchronize()`` on the card, goes into
+  ``PerformanceLog`` under the JAX labels "forcing", "star+build",
+  "residual", "sweep", "monolithic", "final", "reconstruct" (each interval
+  runs from the end of the previous one, as hdg_imex.py:586-604 does).
+
+Over ranks (:meth:`distribute`) the JAX package runs its fused step, which
+reads the restart, sweeps, symmetry, fused and factored knobs and ignores
+the lag and the phase timing; so does the port.  ``IEHDG_TENT_FUSED=2``
+and ``IEHDG_PC_BF16=1`` are measured dead ends of the JAX package that the
+port does not carry (ROADMAP, "Do not port"): they raise ValueError.
 """
 
+import os
 import time
 import warnings
 
@@ -104,6 +139,9 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         self._alpha_f, self._beta_f = t(alpha_f), t(beta_f)
         self._cs = build_condensed_system(disc, tau=self.tau)
         self._gtmg = build_gtmg(disc, self._cs)
+        self.tentative_restart = int(os.environ.get("IEHDG_TENT_RESTART", str(TENTATIVE_RESTART)))
+        self.tentative_sweeps = int(os.environ.get("IEHDG_TENT_SWEEPS", "1"))
+        self.tentative_symmetric = os.environ.get("IEHDG_TENT_SYM", "1") == "1"
         self.niter_tentative = Averager()
         self.niter_pressure = Averager()
         self.niter_final_pressure = Averager()
@@ -164,7 +202,9 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
                   + c * (f_impl_apply(geom, star, Q_i, ALPHA_PENALTY, self.upwind)
                          + pressure_gradient_apply(geom, p_i, lam_i)))
         dQt, n_t, rr_t = tentative_solve(geom, op, b_tent, rtol=self.rtol_tentative,
-                                         restart=TENTATIVE_RESTART)
+                                         restart=self.tentative_restart,
+                                         sweeps=self.tentative_sweeps,
+                                         symmetric=self.tentative_symmetric)
         f_p = (-1.0 / c) * weak_divergence_apply(geom, dQt)
         du, dp, dlam, n_p, rr_p = self._pressure_solve(
             torch.zeros_like(Q_i), f_p, torch.zeros_like(lam_i))
@@ -180,6 +220,25 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         p_new, lam_new = self._shift(p_new, lam_new)
         return p_new, lam_new, n_pr, rr_pr
 
+    def _phase_marker(self):
+        """``mark(label)``: with ``IEHDG_PHASE_TIMING=1`` on one rank, the
+        wall clock since the previous mark (the step's start first) into
+        ``PerformanceLog`` under ``label``, after the card has finished;
+        else nothing."""
+        if os.environ.get("IEHDG_PHASE_TIMING") != "1" or self.dec is not None:
+            return lambda label: None
+        t_last = [time.perf_counter()]
+        dev = self.disc.device
+
+        def mark(label):
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            PerformanceLog.data[label].append(now - t_last[0])
+            t_last[0] = now
+
+        return mark
+
     def step(self, stage_Q, stage_p, stage_lam, tn, f_rhs_fn):
         """One IMEX timestep from time ``tn`` (a float).
 
@@ -191,31 +250,50 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         s = self.nstages
         dt = self._dt
         a_impl = self.tableau.a_impl
+        if os.environ.get("IEHDG_PC_BF16") == "1":
+            raise ValueError("IEHDG_PC_BF16=1 (bfloat16 patch factors) is a measured dead end "
+                             "on ROADMAP's 'Do not port' list; unset it")
+        lag_pc = os.environ.get("IEHDG_LAG_PC", "0") == "1" and self.dec is None
+        mark = self._phase_marker()
         stage_Q, stage_p, stage_lam = list(stage_Q), list(stage_p), list(stage_lam)
         b_all = self._forcing(f_rhs_fn, tn)
+        mark("forcing")
         its_t, its_p, relres = [], [], []
+        op_prev, c_prev = None, None
         for i in range(1, s):
-            c = float(a_impl[i][i]) * dt
+            a_ii = float(a_impl[i][i])
+            c = a_ii * dt
             star = star_fields(geom, project_bdm(geom, self._proj, stage_Q[i - 1]))
+            if self.use_projection_method:
+                # the patch factors carry over only between equal a_ii
+                # (preconditioners.py:211-227, hdg_imex.py:621-626)
+                reuse = op_prev if lag_pc and a_ii == c_prev else None
+                op = build_tentative_operator(geom, star, c, ALPHA_PENALTY, self.upwind,
+                                              reuse_factors=reuse)
+            mark("star+build")
             r_i = self._weighted((self._alpha[i], self._beta[i]), torch.stack(stage_Q), b_all)
+            mark("residual")
             Q_i, p_i, lam_i = stage_Q[i], stage_p[i], stage_lam[i]
             if self.use_projection_method:
-                op = build_tentative_operator(geom, star, c, ALPHA_PENALTY, self.upwind)
                 for _ in range(self.n_richardson):
                     Q_i, p_i, lam_i, n_t, n_p, rr = self._sweep(star, op, r_i, Q_i, p_i,
                                                                 lam_i, c)
+                    mark("sweep")
                     its_t.append(n_t)
                     its_p.append(n_p)
                     relres.append(rr)
+                op_prev = op if lag_pc else None
                 del op
             else:
                 Q_i, p_i, lam_i, n_m, _ = monolithic_stage_solve(
                     geom, self._cs, star, r_i, c, precond=self._precond,
                     alpha=ALPHA_PENALTY, upwind=self.upwind, rtol=10 * self.rtol_pressure,
                     x0=(Q_i, p_i, lam_i))
+                mark("monolithic")
                 its_t.append(n_m)
                 its_p.append(n_m)
                 relres.append(0.0)
+            c_prev = a_ii
             del star
             stage_p[i], stage_lam[i] = self._shift(p_i, lam_i)
             stage_Q[i] = Q_i
@@ -224,7 +302,9 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         Q_new, _, _, n_fp, rr_fp = self._pressure_solve(
             r_fin, r_fin.new_zeros((geom.d0, geom.n_cells)),
             r_fin.new_zeros((self._cs.nt, geom.n_facets)))
+        mark("final")
         p_new, lam_new, n_pr, rr_pr = self._reconstruct(f_rhs_fn, Q_new, tn)
+        mark("reconstruct")
         stage_Q[0], stage_p[0], stage_lam[0] = Q_new, p_new, lam_new
         counts = dict(
             tentative=its_t,

@@ -33,10 +33,12 @@ DEFAULT_PLANS = [
     (30, 8, 8, 16, 1), (30, 6, 6, 16, 1), (30, 6, 6, 8, 1), (30, 10, 6, 32, 1),
     (30, 10, 10, 16, 1), (30, 10, 5, 16, 1),
     (42, 7, 7, 8, 1), (42, 7, 7, 16, 1),
+    (56, 8, 8, 8, 1), (56, 8, 8, 4, 1), (56, 7, 7, 8, 1), (56, 7, 7, 16, 1),
+    (72, 8, 8, 4, 1), (72, 8, 8, 2, 1), (72, 9, 9, 4, 1), (72, 6, 6, 8, 1),
 ]
-# own-cell batches: 256^2 at k = 1, 2, 3 (n = 12, 20, 30) and 128^2 at k=4
-# (n = 42); any other N: 131072 blocks
-BATCH = {12: 131072, 20: 131072, 30: 131072, 42: 32768}
+# own-cell batches: 256^2 at k = 1, 2, 3 (n = 12, 20, 30) and 128^2 at
+# k = 4, 5, 6 (n = 42, 56, 72); any other N: 131072 blocks
+BATCH = {12: 131072, 20: 131072, 30: 131072, 42: 32768, 56: 32768, 72: 32768}
 TOL = {torch.float32: 5.0e-5, torch.float64: 1.0e-11}
 
 

@@ -337,26 +337,37 @@ def test_gauss_jordan_select_on_cpu():
 
 
 def test_card_refuses_widths_beyond_k4():
-    """On the card, d1 > 21 (k >= 5) and n > 48 raise NotImplementedError
-    naming the ROADMAP item, before any launch; n <= 48 passes the width
-    check (and fails only for want of a CUDA tensor)."""
-    d1 = 28
-    A = torch.empty(d1, d1, 10, device="meta")
-    Pm = torch.empty(1, 2 * d1, 2 * d1, device="meta")
-    x = torch.empty(2 * d1, 10, device="meta")
-    D = torch.empty(2 * d1, 2 * d1, 10, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.fact_apply(A, Pm, (0, 10), x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.cross_pair(A, A, Pm, Pm, (0, 10), x, x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.patch_solve(D, D, A, A, Pm[0], Pm[0], x, x, 0)
-    G = torch.empty(49, 49, 10, device="meta")
+    """On the card, d1 > 36 (k >= 7) and n > 72 raise NotImplementedError
+    naming the ROADMAP item, before any launch; d1 = 28, 36 (k = 5, 6) and
+    n = 56, 72 pass the width check (and fail only for want of a CUDA
+    tensor)."""
+
+    def tables(d1):
+        nu = 2 * d1
+        A = torch.empty(d1, d1, 10, device="meta")
+        Pm = torch.empty(1, nu, nu, device="meta")
+        x = torch.empty(nu, 10, device="meta")
+        D = torch.empty(nu, nu, 10, device="meta")
+        return (lambda: TP.fact_apply(A, Pm, (0, 10), x),
+                lambda: TP.cross_pair(A, A, Pm, Pm, (0, 10), x, x),
+                lambda: TP.patch_solve(D, D, A, A, Pm[0], Pm[0], x, x, 0))
+
+    for call in tables(45):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*k >= 7 on the card"):
+            call()
+    for d1 in (28, 36):
+        assert d1 in TP.CUDA_D1
+        for call in tables(d1):
+            with pytest.raises(ValueError, match="CUDA"):
+                call()
+    G = torch.empty(90, 90, 10, device="meta")
     for fn in (TI.gauss_jordan_inv_bl, TI.gauss_jordan_inv_select):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*k >= 7 on the card"):
             fn(G)
-    with pytest.raises(ValueError, match="CUDA"):
-        TI.gauss_jordan_inv_bl(torch.empty(42, 42, 10, device="meta"))
+    for n in (42, 56, 72):
+        for fn in (TI.gauss_jordan_inv_bl, TI.gauss_jordan_inv_select):
+            with pytest.raises(ValueError, match="CUDA"):
+                fn(torch.empty(n, n, 10, device="meta"))
 
 
 # ----------------------------------------------------------------------
