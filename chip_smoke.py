@@ -7,8 +7,10 @@ Phases, each printing its own lines:
 1. device check: a CUDA card is required (exit 1 otherwise); prints the
    card's name and power limit and pins float32 matmuls/convolutions to full
    float32 (no TF32);
-2. kernel build: compiles the CUDA kernels of incompressibleeulerhdg_tpu_torch/csrc
-   with nvcc (timed);
+2. kernel build: starts nvcc on every CUDA source of
+   incompressibleeulerhdg_tpu_torch/csrc at once; phases 3 and 3b wait for
+   the libraries of K1-K4 only, and the build is timed to its last
+   library;
 3. each kernel K1-K4 against its plain PyTorch version on the card, at the
    main path's shapes (256^2, k=2), in float32 and float64, with a nonzero
    colour offset and a colour size that is not a multiple of the thread
@@ -44,15 +46,14 @@ Phases, each printing its own lines:
    K5 and the d1 = 21 kernels; (e) the double shear layer on the periodic
    256^2 square, k=2, float32, projection SSP2, two steps, which must
    launch K1-K4; (f) Kelvin-Helmholtz on the refinement-7 unit disk, k=2,
-   float32, projection SSP2, two steps, which must launch K4 and none of
+   float32, projection SSP2, one step, which must launch K4 and none of
    K1-K3 (dense tables); each validated on finite state, the L2 error
    bounds ((e), (f): the kinetic energy ratio and, (f), the divergence
    bound of the JAX package's tests) and nonzero iteration counts, with
    set-up and s/step printed; then (g) DG implicit at 256^2, k=2, one
    step (the coupled FGMRES, K1-K4); (h) the conforming RT1 x DG0 scheme,
-   projection, at 256^2, two steps, and (i) its monolithic branch (the CLI
-   default) in float64 at 16^2, two steps, neither of which launches a
-   kernel; (j) the main path's configuration with ``--tracer_advection
+   projection, at 256^2, and (i) its monolithic branch (the CLI default) in
+   float64 at 16^2, one step each, neither of which launches a kernel; (j) the main path's configuration with ``--tracer_advection
    --animation``, two steps, its tracer finite and its L2 norm held to the
    JAX package's, and ``evolution.pvd`` listing three .vtu files that hold
    velocity, pressure, vorticity and tracer;
@@ -63,7 +64,7 @@ Phases, each printing its own lines:
    ``torch.linalg.inv`` on the same blocks;
 6c. (k) the main path's configuration slab-decomposed over 2 ranks (the
    ``--n_devices`` path: ``stepper.distribute``, ``parallel.launch``),
-   one warm-up and 2 timed steps; with one card the ranks share cuda:0
+   one warm-up and 1 timed step; with one card the ranks share cuda:0
    through gloo (a check of the distributed numbers, not of scaling), with
    two or more cards NCCL also runs one rank per card.  Validates the bench
    gates, the state against the single-rank main path's after as many
@@ -74,8 +75,8 @@ Phases, each printing its own lines:
    own-cell batch); prints both runs' counts, each rank's peak
    memory, halo exchanges and all-reduces a step and s/step;
 6d. (l) run (f)'s flags on the refinement-6 disk (cut from 7 to keep the
-   script's time; k=2, float32, projection SSP2, two steps: one warm-up,
-   one timed), on one rank and then with ``--n_devices 2`` on the
+   script's time; k=2, float32, projection SSP2, one step), on one rank
+   and then with ``--n_devices 2`` on the
    cell/facet partition, each rank through the CLI's ``driver.run`` as
    ``driver.main`` runs it, sharing cuda:0 through gloo (with two or more
    cards also NCCL, one rank per card).  Validates the tentative counts
@@ -89,8 +90,8 @@ Phases, each printing its own lines:
    and float64, with times, bytes, bound and ``torch.linalg.inv`` on the
    same blocks; prints s/step against the single rank's, ghost exchanges and
    all-reduces a step a rank, owned and ghost counts a rank.  (l64): the
-   same flags in float64 on the refinement-4 disk, over 2 ranks and on one
-   rank in the same call: every count equal, step for step, and the state
+   same flags in float64 on the refinement-4 disk, one step, over 2 ranks
+   and on one rank in the same call: every count equal and the state
    within 1e-10;
 6e. (m) the JAX package's knobs through the CLI at the main path's
    configuration (256^2, k=2, float32, projection SSP2), one step each:
@@ -108,7 +109,23 @@ Phases, each printing its own lines:
    float32 and float64, with K5's float32 inverse also read against the
    float64 plain one; then phase 5's kernel comparison at 128^2 for k = 5
    and k = 6 (timing rows);
-7. the launch check: every kernel K1-K5 launched on some path.
+6g. (o) every degree: from k = 7 the widths dispatch to the runtime-width
+   kernels K1w-K3w (csrc/wide_apply.cu, csrc/patch_solve_wide.cu) and K5w
+   (csrc/gauss_jordan_wide.cu).  (o7): projection SSP2 at k = 7 on 64^2,
+   float32, two steps, and (o8) k = 8 on 32^2, one step, each held to the
+   velocity bound, launching the four wide kernels and no other, with the
+   run's own tables and blocks held to the plain versions in float32 and
+   float64 (from n = 90 the float32 inverse is held to twice the plain
+   version's own float32 error against the float64 plain inverse); (o64):
+   k = 7 on 4^2 in float64, one step on the card against the same flags
+   with ``--device cpu``: every Krylov count equal, the state within 1e-10;
+   (o7d): Kelvin-Helmholtz on the refinement-2 disk at k = 7, one step (K5w
+   alone), K5w held on the disk's own-cell and Schur batches, identity
+   blocks included; then the kernel comparison at 128^2, k = 7 (timing
+   rows), with K5w also at n = 110 (float32) and on a float64 n = 182
+   batch, which takes K5w's device-memory path;
+7. the launch check: every kernel K1-K5 and K1w-K3w, K5w launched on some
+   path.
 
 The JSON line before the card's name and power limit has one entry per
 kernel (route, source, the TPU kernel it replaces, launches by path and per
@@ -120,7 +137,10 @@ batches, and its launches a step over the ranks; K1-K3 ``*_d1_28``,
 ``*_d1_36`` and K5 ``*_n56``, ``*_n72``: phase (n)'s widths at 128^2, the
 errors on the run's own tables and the launches a step of runs (n5), (n6);
 K3 also ``*_additive``: one additive patch application, every colour and
-the boundary tail, at 256^2); the last
+the boundary tail, at 256^2; K1w-K3w and K5w: phase (o)'s 128^2, k = 7
+shapes, launches a step of (o7) and (o8), the errors on those runs' own
+tables, and K5w ``*_n110``, ``*_n182`` and its holds on the k = 7 disk's
+blocks); the last
 line is ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it.
 """
@@ -174,9 +194,11 @@ ERROR_VELOCITY_MAX_MONOLITHIC = 2.0e-3
 #     held to the same bound, which keeps the script under 600 s beside
 #     phase (k);
 # (h) conforming, projection, 256^2, float32, two steps (RT1 x DG0: first
-#     order in space);
-# (i) conforming, monolithic, 16^2, float64, two steps.  Run (i) is reduced
-#     to 16^2 (and runs in float64): each of its FGMRES iterations applies a
+#     order in space); run (h) now takes one step, held to the same bound;
+# (i) conforming, monolithic, 16^2, float64, two steps (run (i) now takes
+#     one step, held to the same bound: with run (f)'s one step and phase
+#     (l64)'s, that keeps the script under 600 s beside phase (o)).  Run (i)
+#     is reduced to 16^2 (and runs in float64): each of its FGMRES iterations applies a
 #     mass solve and a Schur CG of mass solves, which is what a step of run
 #     (h) does (3.6 s at 256^2 on the H100), and a step may take 100 of them;
 # (j) projection SSP2, 256^2, k=2, float32, with the tracer, two steps: the
@@ -193,16 +215,18 @@ DISK_REFINEMENT = 7  # the largest disk under the vertex-star gate (49,537 verti
 # runs (e) and (f): kinetic energy E(T)/E(0) and the divergence bound of the
 # JAX package's tests/test_integration_extra.py (shear: [0.5, 1.05]; the
 # Kelvin-Helmholtz disk: [0.2, 1.05], divergence L2 norm below 1e-3)
-ENERGY_RANGE = {"e": (0.5, 1.05), "f": (0.2, 1.05)}
+ENERGY_RANGE = {"e": (0.5, 1.05), "f": (0.2, 1.05), "o7d": (0.2, 1.05)}  # (o7d): k = 7 on the disk
 DIVERGENCE_MAX_KH = 1.0e-3
 DENSE_PATH_KERNELS = ("gauss_jordan",)
 MAIN_PATH_KERNELS = ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan")
 # phase (k): the main path's configuration slab-decomposed over 2 ranks, one
-# warm-up and 2 timed steps; its state is held to the single-rank main
-# path's after as many steps, to 1e-4 of its largest entry (float32 Krylov
-# tolerances; the two runs differ in the order of the sums)
+# warm-up and SLAB_STEPS timed steps; its state is held to the single-rank
+# main path's after as many steps, to 1e-4 of its largest entry (float32
+# Krylov tolerances; the two runs differ in the order of the sums).  One
+# timed step, cut from 2: the ranks share the card through gloo, 2.4-7.1 s
+# a step on the H100's hosts (PERF.md section 4)
 SLAB_RANKS = 2
-SLAB_STEPS = 2
+SLAB_STEPS = 1
 SLAB_STATE_RTOL = 1.0e-4
 SLAB_TIMEOUT = 900
 # K4 on a slab's own-cell and Schur blocks, float32, per block: the two
@@ -211,12 +235,13 @@ SLAB_TIMEOUT = 900
 # leaves room for the Schur blocks' conditioning (float64 is held to 1e-11)
 SLAB_GJ_F32_RTOL = 2.0e-4
 # phase (l): run (f)'s flags (Kelvin-Helmholtz on the unit disk, k=2,
-# float32, projection SSP2, two steps: one warm-up, one timed) over 2 ranks
+# float32, projection SSP2, PART_STEPS steps) over 2 ranks
 # of the cell/facet partition, against one rank in the same call; the state
 # is held to the single rank's to 1e-4 of its largest entry, as phase
 # (k)'s.  Refinement 6, cut from run (f)'s 7: at 7 the partitioned run
 # took 93-120 s of the script and the script 632 s (PERF.md section 4)
 PART_REFINEMENT = 6
+PART_STEPS = 1  # cut from 2 (one warm-up, one timed): 7.3-13.6 s a step over the ranks
 PART_RANKS = 2
 PART_STATE_RTOL = 1.0e-4
 PART_TIMEOUT = 600
@@ -229,6 +254,7 @@ PART_TIMEOUT = 600
 # state to PART_F64_RTOL
 PART_F64_REFINEMENT = 4
 PART_F64_RTOL = 1.0e-10
+PART_F64_STEPS = 1  # cut from 2 (5.6-5.9 s a step over the ranks) for phase (o)'s time
 # phase (m): the IEHDG_* knobs through the CLI at the main path's
 # configuration, one step each, held to bench.py's bounds; each run's path
 # must launch its kernels (IEHDG_FACT=0: dense tables, the Gauss-Jordan
@@ -268,6 +294,43 @@ WIDE_K_NX = 64
 # 6; an unpivoted elimination of blocks whose inverses reach 1e6); the
 # float64 kernel is held to TOL[float64]
 WIDE_GJ_F32_RTOL = 1.0e-4
+# phase (o): every degree on the card.  From k = 7 (d1 = 45, Gauss-Jordan
+# n = 90) the widths dispatch to the runtime-width kernels K1w-K3w and K5w.
+# (o7): projection SSP2 at k = 7 on DEG7_NX^2, float32, O7_STEPS steps;
+# (o8): k = 8 (d1 = 55, n = 110) on DEG8_NX^2, one step (a second runtime
+# width); both held to the velocity bound, launching the four wide kernels
+# and no other, with the run's own tables and blocks held to the plain
+# versions as in phase (n).  (o64): k = 7 on DEG7_F64_NX^2 in float64, one
+# step on the card against the same flags with --device cpu: every Krylov
+# count equal and the state within DEG7_F64_RTOL of its largest entry.
+# (o7d): Kelvin-Helmholtz on the refinement-DEG7_DISK_REFINEMENT disk at
+# k = 7, one step: K5w alone, held on the disk's own-cell and Schur batches
+# (boundary identity blocks included).  The timing rows come from
+# compare_kernels(WIDE_NX, 7), with K5w also at WIDE_GJ_EXTRA.
+WIDE_KERNELS = ("fact_apply_wide", "cross_pair_wide", "patch_solve_wide", "gauss_jordan_wide")
+DEG7_NX, O7_STEPS = 64, 2
+DEG8_NX = 32
+DEG7_F64_NX = 4
+DEG7_F64_RTOL = 1.0e-10
+# refinement 2 (96 cells), cut from 3: the disk's set-up at k = 7 is host
+# numpy (the BDM projection's per-cell tables: every disk cell is its own
+# geometry class) and took 37.7 s of the script at refinement 3 on the
+# H100's host (PERF.md section 4)
+DEG7_DISK_REFINEMENT = 2
+# K5w at n = 110 (k = 8) in float32 on the 128^2 own-cell batch, and in
+# float64 at n = 182 (k = 11) on 1024 blocks, where one block exceeds a
+# thread block's shared memory and K5w works in device memory
+WIDE_GJ_EXTRA = ((110, torch.float32, None), (182, torch.float64, 1024))
+# calls a timing of the Gauss-Jordan inverse from n = 56 (k = 5): its plain
+# version takes 40-300 ms a call there
+WIDE_GJ_REPS = 3
+# From n = 90 the float32 check of the Gauss-Jordan inverse is set by the
+# plain version's own float32 error against the float64 plain inverse on
+# the same blocks (per block, relative to the block's largest entry): K5w
+# is held to WIDE_GJ_F32_MULT times that, both against the float32 plain
+# version and against the float64 plain inverse (WIDE_GJ_F32_RTOL, for
+# n <= 72, stays as it is)
+WIDE_GJ_F32_MULT = 2.0
 # the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
 # 700 W): its bytes (each input read once, each output written once) over
 # the 3.35 TB/s of HBM, or its floating-point operations (an FMA is two)
@@ -313,6 +376,7 @@ def work(name, dtype, d1, m, nseg=1, n=None):
     columns (facets, cells or blocks); ``nseg`` penalty blocks."""
     size = torch.empty((), dtype=dtype).element_size()
     nu = 2 * d1
+    name = name.removesuffix("_wide")  # K1w-K3w, K5w: the work of K1-K3, K5
     if name == "fact_apply":  # A (d1, d1, m), P, x -> out
         return size * (d1 * d1 * m + nseg * nu * nu + 2 * nu * m), 2 * (2 * d1 * d1 + nu * nu) * m
     if name == "cross_pair":  # K01, K10, Bp, Cp, x0, x1 -> y0, y1
@@ -369,16 +433,16 @@ class Holds:
         if not ok:
             fail(f"{name} ({self.label}) {key}: max abs err {abs_err:.3e}, max rel err {rel:.3e}")
 
-    def timed(self, name, dtype, kern, plain, nbytes, flops, suffix="", launches=1):
-        """Device time (torch.profiler, else CUDA events), in turns: plain,
-        kernel, kernel, plain; ``kern`` launches the kernel ``launches``
-        times a call, and its time is a call's."""
+    def timed(self, name, dtype, kern, plain, nbytes, flops, suffix="", launches=1, reps=REPS):
+        """Device time (torch.profiler, else CUDA events) over ``reps`` calls,
+        in turns: plain, kernel, kernel, plain; ``kern`` launches the kernel
+        ``launches`` times a call, and its time is a call's."""
         from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
 
         sym = f"{name}_kernel"
         (t_p1, u_p1), (t_k1, u_k1), (t_k2, u_k2), (t_p2, u_p2) = (
-            device_time(plain), device_time(kern, match=sym), device_time(kern, match=sym),
-            device_time(plain))
+            device_time(plain, reps), device_time(kern, reps, match=sym),
+            device_time(kern, reps, match=sym), device_time(plain, reps))
         t_b, by = bound(dtype, nbytes, flops)
         self.results[name].update({f"ms{suffix}": launches * min(t_k1, t_k2),
                                    f"plain_ms{suffix}": min(t_p1, t_p2),
@@ -393,9 +457,11 @@ class Holds:
 def compare_kernels(nx, degree):
     """Phases 3 and 5: every kernel of the nx^2, k = degree path against its
     plain version at that path's shapes.  At k <= 3 the own-cell and Schur
-    inverses go to K4 (gauss_jordan); at k = 4 (n = 42) to K5
+    inverses go to K4 (gauss_jordan); at k = 4 .. 6 (n = 42 .. 72) to K5
     (gauss_jordan_select), which is also held against the select
-    formulation's plain version at n = 42 and n = 20.  K2 and K3 (TMA tiles)
+    formulation's plain version at n and n = 20; from k = 7 K1w-K3w and
+    K5w (gauss_jordan_wide) take their place, K5w also timed at
+    WIDE_GJ_EXTRA.  K2 and K3 (TMA tiles)
     are also held to their plain versions on tables of an odd column count
     (padded stride), at an odd colour offset (tiles not aligned with the
     colour) and an odd colour size (no multiple of a tile); the Gauss-Jordan
@@ -416,7 +482,9 @@ def compare_kernels(nx, degree):
     m_odd = m_col - 37  # odd: no multiple of a thread block or a tile
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(2024)
-    gj = "gauss_jordan" if nu <= smallinv.K4_MAX_N else "gauss_jordan_select"
+    k1, k2, k3 = P.width_kernels(d1)
+    gj = smallinv.kernel_for(nu)
+    reps = REPS if nu <= 42 else WIDE_GJ_REPS
     holds = Holds(f"d1={d1}")
     results = holds.results
 
@@ -456,13 +524,13 @@ def compare_kernels(nx, degree):
         ro, bo = (r0[:, :m_odd], r1[:, :m_odd]), b0 + 3
 
         cases = {
-            "fact_apply": [
+            k1: [
                 (lambda: P.fact_apply(A, Pc, halves, xc),
                  lambda: P.fact_apply_plain(A, Pc, halves, xc)),
                 (lambda: P.fact_apply(K01, Bp[k:k + 1], (0, m_odd), x0[:, :m_odd], aoff=b0),
                  lambda: P.fact_apply_plain(K01, Bp[k:k + 1], (0, m_odd), x0[:, :m_odd], aoff=b0)),
             ],
-            "cross_pair": [
+            k2: [
                 (lambda: P.cross_pair(K01, K10, Bp, Cp, b, x0, x1),
                  lambda: P.cross_pair_plain(K01, K10, Bp, Cp, b, x0, x1)),
                 (lambda: P.cross_pair(K01, K10, Bp[k:k + 1], Cp[k:k + 1], (0, m_col),
@@ -481,7 +549,7 @@ def compare_kernels(nx, degree):
                  lambda: P.cross_pair_plain(odd[0], odd[1], Bp[k:k + 1], Cp[k:k + 1], (0, m_odd),
                                             x0[:, :m_odd], x1[:, :m_odd], aoff=bo)),
             ],
-            "patch_solve": [
+            k3: [
                 (lambda: P.patch_solve(Di, Si, K01, K10, Bk, Ck, r0, r1, b0),
                  lambda: P.patch_solve_plain(Di, Si, K01, K10, Bk, Ck, r0, r1, b0)),
                 (lambda: P.patch_solve(Di, Si, K01, K10, Bk, Ck, *ro, b0),
@@ -504,15 +572,15 @@ def compare_kernels(nx, degree):
                 (lambda: smallinv.gauss_jordan_inv_select(G20),
                  lambda: smallinv.gauss_jordan_inv_select_plain(G20)),
             ]
-        shape = {"fact_apply": (nc, 2), "cross_pair": (nf, 3), "patch_solve": (m_col, 1),
-                 gj: (nc, 1)}
+        shape = {k1: (nc, 2), k2: (nf, 3), k3: (m_col, 1), gj: (nc, 1)}
         for name, pairs in cases.items():
             for kern, plain in pairs:
                 check(name, dtype, kern(), plain())
             if dtype == torch.float32:
                 m, nseg = shape[name]
-                timed(name, dtype, *pairs[0], *work(name, dtype, d1, m, nseg, n=nu))
-                if name == "cross_pair":  # one colour, as in the sweep
+                timed(name, dtype, *pairs[0], *work(name, dtype, d1, m, nseg, n=nu),
+                      reps=reps if name == gj else REPS)
+                if name == k2:  # one colour, as in the sweep
                     timed(name, dtype, *pairs[1], *work(name, dtype, d1, m_col), suffix="_color")
                 if name == "patch_solve" and degree == DEGREE and nf > b[-1]:
                     # the additive patch preconditioner: every colour and the
@@ -531,20 +599,40 @@ def compare_kernels(nx, degree):
                 if name == gj:  # one colour's Schur inverses, as in the build
                     timed(name, dtype, lambda: smallinv.gauss_jordan_inv_bl(Gc),
                           lambda: smallinv.gauss_jordan_inv_plain(Gc),
-                          *work(name, dtype, d1, m_col, n=nu), suffix="_color")
+                          *work(name, dtype, d1, m_col, n=nu), suffix="_color", reps=reps)
                     results[gj]["library_ms_color"] = device_time(
-                        lambda: torch.linalg.inv(Gc.permute(2, 0, 1)))[0]
+                        lambda: torch.linalg.inv(Gc.permute(2, 0, 1)), reps)[0]
         if dtype == torch.float32:
             # one PyTorch call on the same blocks: batched LU inverse (cuBLAS/cuSOLVER),
             # on the batch-last table and on an (m, n, n) contiguous copy
             Gm = G.permute(2, 0, 1).contiguous()
-            lib_perm = device_time(lambda: torch.linalg.inv(G.permute(2, 0, 1)))[0]
-            lib_contig = device_time(lambda: torch.linalg.inv(Gm))[0]
+            lib_perm = device_time(lambda: torch.linalg.inv(G.permute(2, 0, 1)), reps)[0]
+            lib_contig = device_time(lambda: torch.linalg.inv(Gm), reps)[0]
             results[gj].update(library_ms=lib_perm, library_ms_contiguous=lib_contig,
                                plan=smallinv.launch_plan(gj, dtype, nu))
             del Gm
         del A, Pc, xc, K01, K10, Bp, Cp, x0, x1, Di, Si, G, Gc, cases, odd
         torch.cuda.empty_cache()
+    if gj == "gauss_jordan_wide":
+        # K5w at k = 8's n in float32 on the same batch, and on one float64
+        # batch past a block's shared memory (the device-memory path)
+        for n_x, dtype, batch in WIDE_GJ_EXTRA:
+            Gx = spd(n_x, nc if batch is None else batch, dtype)
+            sfx = f"_n{n_x}"
+            holds.check(gj, dtype, smallinv.gauss_jordan_inv_bl(Gx),
+                        smallinv.gauss_jordan_inv_plain(Gx))
+            timed(gj, dtype, lambda: smallinv.gauss_jordan_inv_bl(Gx),
+                  lambda: smallinv.gauss_jordan_inv_plain(Gx),
+                  *work(gj, dtype, 0, Gx.shape[2], n=n_x), suffix=sfx, reps=reps)
+            results[gj][f"library_ms{sfx}"] = device_time(
+                lambda: torch.linalg.inv(Gx.permute(2, 0, 1)), reps)[0]
+            results[gj][f"plan{sfx}"] = smallinv.launch_plan(gj, dtype, n_x)
+            results[gj][f"shape{sfx}"] = tuple(Gx.shape)
+            results[gj][f"dtype{sfx}"] = str(dtype).replace("torch.", "")
+            del Gx
+            torch.cuda.empty_cache()
+        print_new_shapes(results, [(gj, f"_n{n_x}", str(results[gj][f"shape_n{n_x}"]))
+                                   for n_x, _, _ in WIDE_GJ_EXTRA])
 
     for name, e in results.items():
         lib = (f" | torch.linalg.inv {e['library_ms']:.4f} ms (contiguous copy "
@@ -706,7 +794,8 @@ def print_new_shapes(r, rows):
               f"{e['ms' + key]:.4f} ms plain {e['plain_ms' + key]:.4f} ms | "
               f"{e['bytes' + key] / 1e6:.1f} MB, bound {e['bound_ms' + key]:.4f} ms "
               f"({e['bound_by' + key]}), {pct_bound(e['bound_ms' + key], e['ms' + key], name):.1f}% "
-              f"of bound{lib} (float32; timer {'/'.join(e['timers'])})", flush=True)
+              f"of bound{lib} ({e.get('dtype' + key, 'float32')}; timer {'/'.join(e['timers'])})",
+              flush=True)
 
 
 def ptxas_summary():
@@ -715,9 +804,9 @@ def ptxas_summary():
     from incompressibleeulerhdg_tpu_torch import kernels
 
     total_spill = 0
-    for name in kernels.KERNELS:
+    for src in kernels.all_sources():
         fn = None
-        for line in kernels.ptxas_report(name).splitlines():
+        for line in kernels.ptxas_report(src).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 mangled = m.group(1)
@@ -860,17 +949,17 @@ def driver_runs():
           "--use_projection_method"]),
         ("f", f"Kelvin-Helmholtz, disk refinement {DISK_REFINEMENT} k=2", None,
          ["--problem", "kelvinhelmholtz", "--refinement", DISK_REFINEMENT, "--degree", DEGREE,
-          "--tfinal", 2 * dt, "--use_projection_method"]),
+          "--tfinal", dt, "--use_projection_method"]),
     ]
     dg, conf = ["--discretisation", "dg"], ["--discretisation", "conforming"]
     runs += [
         ("g", f"DG implicit {NX}^2 k=2", ERROR_BOUNDS["g"],
          ["--nx", NX, "--degree", DEGREE, "--tfinal", dt, *dg, "--timestepper", "implicit"]),
         ("h", f"conforming RT1 x DG0, projection, {NX}^2", ERROR_BOUNDS["h"],
-         ["--nx", NX, "--tfinal", 2 * dt, *conf, "--timestepper", "implicit",
+         ["--nx", NX, "--tfinal", dt, *conf, "--timestepper", "implicit",
           "--use_projection_method"]),
         ("i", f"conforming RT1 x DG0, monolithic, {CONFORMING_MONOLITHIC_NX}^2 float64",
-         ERROR_BOUNDS["i"], ["--nx", CONFORMING_MONOLITHIC_NX, "--tfinal", 2 * dt, *conf,
+         ERROR_BOUNDS["i"], ["--nx", CONFORMING_MONOLITHIC_NX, "--tfinal", dt, *conf,
                              "--timestepper", "implicit", "--dtype", "float64"]),
         ("j", f"projection SSP2 {NX}^2 k=2 with the tracer and the animation",
          ERROR_VELOCITY_MAX, ["--nx", NX, "--degree", DEGREE, "--tfinal", 2 * dt,
@@ -978,9 +1067,9 @@ def check_tracer_run(res):
 
 
 def check_flow_run(key, label, res, setup_s, steps, wall, counts, its, finite, launches):
-    """Runs (e) and (f), which have no exact solution: finite state, the
-    kinetic energy ratio E(T)/E(0) in its range, (f) the divergence bound,
-    every Krylov solve > 0 iterations."""
+    """Runs (e), (f) and (o7d), which have no exact solution: finite state,
+    the kinetic energy ratio E(T)/E(0) in its range, on the disk the
+    divergence bound, every Krylov solve > 0 iterations."""
     from incompressibleeulerhdg_tpu_torch.models import problems
     from incompressibleeulerhdg_tpu_torch.utils.diagnostics import flow_diagnostics
 
@@ -994,13 +1083,13 @@ def check_flow_run(key, label, res, setup_s, steps, wall, counts, its, finite, l
           f"wall {wall:.1f} s | iters {[{k: v for k, v in c.items() if k != 'max_relres'} for c in counts]} "
           f"| max relres {max(c['max_relres'] for c in counts):.2e} | energy ratio {ratio:.6f} "
           f"(range [{lo}, {hi}]) | divergence {div:.3e}"
-          f"{f' (bound {DIVERGENCE_MAX_KH:.0e})' if key == 'f' else ''} | launches {launches} "
+          f"{f' (bound {DIVERGENCE_MAX_KH:.0e})' if key != 'e' else ''} | launches {launches} "
           f"(per step {per_step})", flush=True)
     if not finite:
         fail(f"driver run ({key}): non-finite state")
     if not lo <= ratio <= hi:
         fail(f"driver run ({key}): energy ratio {ratio:.6f} outside [{lo}, {hi}]")
-    if key == "f" and not div < DIVERGENCE_MAX_KH:
+    if key != "e" and not div < DIVERGENCE_MAX_KH:
         fail(f"driver run ({key}): divergence {div:.3e} above {DIVERGENCE_MAX_KH:.0e}")
     if not (its and min(its) > 0):
         fail(f"driver run ({key}): a Krylov solve took zero iterations")
@@ -1296,11 +1385,11 @@ def strip_relres(counts):
     return [{k: v for k, v in c.items() if k != "max_relres"} for c in counts]
 
 
-def disk_argv(refinement, dtype):
-    """Run (f)'s flags at ``refinement`` and ``dtype``: two steps."""
+def disk_argv(refinement, dtype, steps):
+    """Run (f)'s flags at ``refinement`` and ``dtype``, ``steps`` steps."""
     dt = 1.0 / NX
     return ["--dt", str(dt), "--dtype", dtype, "--problem", "kelvinhelmholtz", "--refinement",
-            str(refinement), "--degree", str(DEGREE), "--tfinal", str(2 * dt),
+            str(refinement), "--degree", str(DEGREE), "--tfinal", str(steps * dt),
             "--use_projection_method"]
 
 
@@ -1317,22 +1406,22 @@ def partition_runs(card, runs):
     for shared in modes:
         label = (f"{PART_RANKS} ranks sharing one card (cuda:0, gloo through host memory; "
                  f"no scaling measured)" if shared else f"{PART_RANKS} ranks, one card each (NCCL)")
-        for tag, argv, _ in runs:
-            print(f"# phase ({tag}): {' '.join(argv + nd)}, 1 warm-up + 1 timed step, {label}",
-                  flush=True)
+        for tag, argv, _, steps in runs:
+            what = "1 warm-up + 1 timed step" if steps == 2 else f"{steps} step"
+            print(f"# phase ({tag}): {' '.join(argv + nd)}, {what}, {label}", flush=True)
         cwd = os.getcwd()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             os.chdir(tmp)
             try:
                 res = run_ranks(partition_ranks, PART_RANKS,
-                                args=(tuple((argv + nd, check) for _, argv, check in runs),),
+                                args=(tuple((argv + nd, check) for _, argv, check, _ in runs),),
                                 device="cuda", share_device=shared, timeout=PART_TIMEOUT)
             finally:
                 os.chdir(cwd)
         wall = time.perf_counter() - t0
         outs = {}
-        for i, (tag, _, _) in enumerate(runs):
+        for i, (tag, _, _, steps) in enumerate(runs):
             out = outs[tag] = [r[i] for r in res]
             for line in out[0]["text"].splitlines():
                 if line.strip():
@@ -1344,7 +1433,7 @@ def partition_runs(card, runs):
                       f"cells, facets, star facets {r['ghosts']} | peak {r['peak_gib']:.3f} GiB, "
                       f"partition tables {r['table_mib']:.1f} MiB | launches {r['launches']} | "
                       f"{label} | card {card}", flush=True)
-            if any(len(r["steps"]) != 2 or any(c["gather"] or not c["ghosts"]
+            if any(len(r["steps"]) != steps or any(c["gather"] or not c["ghosts"]
                                                for _, c in r["steps"]) for r in out):
                 fail(f"phase ({tag}): a step gathered, or exchanged no ghosts")
             if not out[0]["finite"]:
@@ -1385,17 +1474,18 @@ def partition_phase(card):
     energy or divergence gate, a gather inside a step, or a kernel other
     than K4 (or K4 never) launched.  Returns the launches summed over the
     ranks of the (first) float32 run and rank 0's K4 entry."""
-    argv32 = disk_argv(PART_REFINEMENT, "float32")
-    argv64 = disk_argv(PART_F64_REFINEMENT, "float64")
+    argv32 = disk_argv(PART_REFINEMENT, "float32", PART_STEPS)
+    argv64 = disk_argv(PART_F64_REFINEMENT, "float64", PART_F64_STEPS)
     ref, ref64 = single_rank(card, argv32, "l"), single_rank(card, argv64, "l64")
     first = None
-    for label, outs, wall in partition_runs(card, (("l", argv32, True), ("l64", argv64, False))):
+    for label, outs, wall in partition_runs(card, (("l", argv32, True, PART_STEPS),
+                                                   ("l64", argv64, False, PART_F64_STEPS))):
         out = outs["l"]
         r0 = out[0]
         diff = float((r0["Q"] - ref["Q"]).abs().max()) / float(ref["Q"].abs().max())
         print(f"# phase (l) disk refinement {PART_REFINEMENT} k={DEGREE} float32 SSP2 over "
               f"{PART_RANKS} ranks: wall {wall:.1f} s with (l64) | timed step "
-              f"{max(r['steps'][-1][0] for r in out):.4f} s/step (warm-up "
+              f"{max(r['steps'][-1][0] for r in out):.4f} s/step (first step "
               f"{max(r['steps'][0][0] for r in out):.4f}) against one rank's "
               f"{ref['steps'][-1]:.4f} | iters {r0['counts']} (one rank {ref['counts']}) | "
               f"energy ratio {r0['ratio']:.6f} | divergence {r0['div']:.3e} | "
@@ -1423,7 +1513,7 @@ def partition_phase(card):
                   f"({e[f'bound_by{sfx}']}), "
                   f"{pct_bound(e[f'bound_ms{sfx}'], e[f'ms{sfx}'], 'gauss_jordan'):.1f}% of bound "
                   f"| torch.linalg.inv {e[f'library_ms{sfx}']:.4f} ms | launches a step "
-                  f"{launches['gauss_jordan'] / 2:.1f} over the ranks (timer "
+                  f"{launches['gauss_jordan'] / PART_STEPS:.1f} over the ranks (timer "
                   f"{'/'.join(e['timers'])})", flush=True)
         first = first or (launches, e)
         r0 = outs["l64"][0]
@@ -1555,17 +1645,66 @@ def recording_operator(store):
         hdg_imex.build_tentative_operator = real
 
 
-def wide_table_checks(geom, op, blocks, degree):
-    """Phase (n): K1-K3 on a k = 5 or 6 run's own tables (random fields)
-    and K5 on its own-cell and first Schur blocks, each against its plain
-    version in float32 (the run's) and float64 (the tables widened)."""
-    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+def per_block_rel(got, ref):
+    """Largest over the batch-last blocks of each block's error relative to
+    its largest entry."""
+    return float(((got - ref).abs().amax(dim=(0, 1)) / ref.abs().amax(dim=(0, 1))).max())
+
+
+def gj_f32_rtol(blocks):
+    """(float32 tolerance of the Gauss-Jordan kernel on ``blocks``, the plain
+    version's own float32 error against its float64 inverse or None): up to
+    n = 72 WIDE_GJ_F32_RTOL, above WIDE_GJ_F32_MULT times that error."""
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+
+    if blocks[0].shape[0] <= smallinv.SELECT_MAX_N:
+        return WIDE_GJ_F32_RTOL, None
+    plain = max(per_block_rel(smallinv.gauss_jordan_inv_plain(G.float()),
+                              smallinv.gauss_jordan_inv_plain(G.double())) for G in blocks)
+    return WIDE_GJ_F32_MULT * plain, plain
+
+
+def hold_gj_blocks(holds, blocks, tag):
+    """The Gauss-Jordan kernel of the blocks' size on a run's own blocks
+    (float32, as recorded, and widened to float64) against its plain
+    version, and its float32 inverse against the float64 plain one; returns
+    (the float32 tolerance, K's float32 error against the float64 plain
+    inverse, the plain version's own)."""
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+
+    gj = smallinv.kernel_for(blocks[0].shape[0])
+    rtol, plain_err = gj_f32_rtol(blocks)
+    for dtype in (torch.float32, torch.float64):
+        for G in blocks:
+            G = G.to(dtype)
+            holds.check(gj, dtype, smallinv.gauss_jordan_inv_bl(G),
+                        smallinv.gauss_jordan_inv_plain(G), per_block=True,
+                        rel_tol=rtol if dtype == torch.float32 else None)
+    f32_vs_f64 = max(per_block_rel(smallinv.gauss_jordan_inv_bl(G.float()),
+                                   smallinv.gauss_jordan_inv_plain(G.double())) for G in blocks)
+    if not f32_vs_f64 <= rtol:
+        fail(f"run ({tag}): the float32 inverse of {gj} differs from the float64 one by "
+             f"{f32_vs_f64:.3e} of a block's largest entry (bound {rtol:.3e})")
+    e = holds.results[gj]
+    e["f32_vs_f64"] = max(e.get("f32_vs_f64", 0.0), f32_vs_f64)
+    if plain_err is not None:
+        e["plain_f32_vs_f64"] = max(e.get("plain_f32_vs_f64", 0.0), plain_err)
+        e["f32_rtol"] = WIDE_GJ_F32_MULT * e["plain_f32_vs_f64"]
+    return rtol, f32_vs_f64, plain_err
+
+
+def wide_table_checks(geom, op, blocks, degree, tag):
+    """Phases (n), (o): K1-K3 (or K1w-K3w) on a k >= 5 run's own tables
+    (random fields) and the Gauss-Jordan kernel (K5 or K5w) on its own-cell
+    and first Schur blocks, each against its plain version in float32 (the
+    run's) and float64 (the tables widened)."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
 
     d1, nc, nf, b = geom.d1, geom.n_cells, geom.n_facets, geom.fcol_bounds
     nu = 2 * d1
+    k1, k2, k3 = P.width_kernels(d1)
     gen = torch.Generator(device=geom.device).manual_seed(degree)
-    holds = Holds(f"run (n) k={degree}")
+    holds = Holds(f"run ({tag}) k={degree}")
     for dtype in (torch.float32, torch.float64):
         t = lambda a: a.to(dtype)
         tt = lambda a: P.pad_table(a.to(dtype))
@@ -1575,71 +1714,134 @@ def wide_table_checks(geom, op, blocks, degree):
                                          t(op.Bp), t(op.Cp))
         Dinv0, Sinv = tt(op.Dinv0), tt(op.Sinv)
         halves = (0, nc // 2, nc)
-        holds.check("fact_apply", dtype, P.fact_apply(Sown, Pcell, halves, x),
+        holds.check(k1, dtype, P.fact_apply(Sown, Pcell, halves, x),
                     P.fact_apply_plain(Sown, Pcell, halves, x))
-        holds.check("cross_pair", dtype, P.cross_pair(K01, K10, Bp, Cp, b, u0, u1),
+        holds.check(k2, dtype, P.cross_pair(K01, K10, Bp, Cp, b, u0, u1),
                     P.cross_pair_plain(K01, K10, Bp, Cp, b, u0, u1))
         for k in range(len(b) - 1):
             m = b[k + 1] - b[k]
             args = (Dinv0, Sinv, K01, K10, Bp[k], Cp[k], u0[:, :m], u1[:, :m], b[k])
-            holds.check("patch_solve", dtype, P.patch_solve(*args), P.patch_solve_plain(*args))
-        for G in blocks:
-            G = G.to(dtype)
-            holds.check("gauss_jordan_select", dtype, smallinv.gauss_jordan_inv_bl(G),
-                        smallinv.gauss_jordan_inv_plain(G), per_block=True,
-                        rel_tol=WIDE_GJ_F32_RTOL if dtype == torch.float32 else None)
-    # the float32 inversion itself, against the float64 plain version
-    f32_vs_f64 = max(float(((smallinv.gauss_jordan_inv_bl(G) -
-                              smallinv.gauss_jordan_inv_plain(G.double())).abs().amax(dim=(0, 1))
-                             / smallinv.gauss_jordan_inv_plain(G.double()).abs().amax(dim=(0, 1))
-                             ).max()) for G in blocks)
-    if not f32_vs_f64 <= WIDE_GJ_F32_RTOL:
-        fail(f"run (n{degree}): K5's float32 inverse differs from the float64 one by "
-             f"{f32_vs_f64:.3e} of a block's largest entry")
+            holds.check(k3, dtype, P.patch_solve(*args), P.patch_solve_plain(*args))
+    rtol, f32_vs_f64, plain_err = hold_gj_blocks(holds, blocks, tag)
     r = holds.results
-    print(f"# phase (n) k={degree} kernels on the run's tables ({geom.n_cells} cells, d1={d1}, "
-          f"blocks {[tuple(G.shape) for G in blocks]}): rel err f32/f64 "
+    plain = "" if plain_err is None else f", the plain version's own {plain_err:.3e}"
+    print(f"# phase ({tag[0]}) k={degree} kernels on the run's tables ({geom.n_cells} cells, "
+          f"d1={d1}, blocks {[tuple(G.shape) for G in blocks]}): rel err f32/f64 "
           + " | ".join(f"{n} {e['rel']['float32']:.3e}/{e['rel']['float64']:.3e}"
                        for n, e in r.items())
-          + f" | K5 float32 against the float64 plain inverse, per block {f32_vs_f64:.3e} "
-          f"(bound {WIDE_GJ_F32_RTOL:.0e})",
-          flush=True)
-    r["gauss_jordan_select"]["f32_vs_f64"] = f32_vs_f64
+          + f" | the float32 inverse against the float64 plain inverse, per block "
+          f"{f32_vs_f64:.3e}{plain} (bound {rtol:.3e})", flush=True)
     return r
 
 
-def wide_phase():
-    """Phase (n): projection SSP2 at k = 5 and 6 through the CLI, with the
-    run's own tables and blocks held to the plain versions.  Returns the
-    launches and the table checks by degree."""
+def degree_runs(runs):
+    """Phases (n), (o): projection SSP2 through the CLI at each (key, k, nx,
+    steps) of ``runs``, held to the velocity bound, each run's path launching
+    its kernels (K1-K3 and K5 at k = 5, 6; K1w-K3w and K5w, and no other, from
+    k = 7), with the run's own tables and blocks held to the plain versions.
+    Returns the launches by run and the table checks by degree."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+
     dt = 1.0 / NX
     launches, checks = {}, {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            for degree in WIDE_K:
-                key = f"n{degree}"
+            for key, degree, nx, steps in runs:
                 ops, blocks = [], []
                 record = contextlib.ExitStack()
                 record.enter_context(recording_operator(ops))
                 record.enter_context(recording_k4_inputs(blocks))
                 res, wall, launches[key], timers = run_cli(
-                    key, ["--nx", WIDE_K_NX, "--degree", degree, "--tfinal", 2 * dt,
+                    key, ["--nx", nx, "--degree", degree, "--tfinal", steps * dt,
                           "--use_projection_method"], record=record)
-                check_driver_run(key, f"projection SSP2 {WIDE_K_NX}^2 k={degree}",
+                check_driver_run(key, f"projection SSP2 {nx}^2 k={degree}",
                                  ERROR_VELOCITY_MAX, res, wall, timers, launches[key])
-                check_path_kernels(key, launches[key],
-                                   ("fact_apply", "cross_pair", "patch_solve"))
-                if launches[key]["gauss_jordan_select"] == 0:
-                    fail(f"run ({key}) never launched the Gauss-Jordan kernel (K5)")
+                d1 = (degree + 2) * (degree + 3) // 2
+                path = (*P.width_kernels(d1), smallinv.kernel_for(2 * d1))
+                check_path_kernels(key, launches[key], path[:3])
+                others = [n for n, v in launches[key].items() if v and n not in path]
+                if launches[key][path[3]] == 0 or others:
+                    fail(f"run ({key}) must launch {list(path)} and no other kernel: "
+                         f"{launches[key]}")
                 checks[degree] = wide_table_checks(res["timestepper"].geom, ops[0], blocks,
-                                                   degree)
+                                                   degree, key)
                 del ops, blocks, res
                 torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
     return launches, checks
+
+
+def wide_phase():
+    """Phase (n): projection SSP2 at k = 5 and 6 through the CLI, with the
+    run's own tables and blocks held to the plain versions.  Returns the
+    launches and the table checks by degree."""
+    return degree_runs([(f"n{k}", k, WIDE_K_NX, 2) for k in WIDE_K])
+
+
+def degree7_phase():
+    """Phase (o): k = 7 and 8 through the CLI ((o7), (o8)), k = 7 in float64
+    on the card against the CPU ((o64)) and on the disk ((o7d)).  Returns
+    the launches by run, the table checks by degree and the disk's K5w
+    holds."""
+    launches, checks = degree_runs([("o7", 7, DEG7_NX, O7_STEPS), ("o8", 8, DEG8_NX, 1)])
+    dt = 1.0 / NX
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            argv = ["--nx", DEG7_F64_NX, "--degree", 7, "--tfinal", dt,
+                    "--use_projection_method", "--dtype", "float64"]
+            res, wall, launches["o64"], timers = run_cli("o64", argv)
+            check_driver_run("o64", f"projection SSP2 {DEG7_F64_NX}^2 k=7 float64", ERROR_VELOCITY_MAX,
+                             res, wall, timers, launches["o64"])
+            cpu, _, cpu_launches, _ = run_cli("o64cpu", argv + ["--device", "cpu"])
+            if any(cpu_launches.values()):
+                fail(f"run (o64) on the CPU launched a kernel: {cpu_launches}")
+            diff = max(float((res[f].cpu() - cpu[f]).abs().max()) / float(cpu[f].abs().max())
+                       for f in ("Q", "p"))
+            c_card, c_cpu = (strip_relres(r["timestepper"].step_counts) for r in (res, cpu))
+            print(f"# phase (o64) k=7 {DEG7_F64_NX}^2 float64, card against CPU: counts "
+                  f"{c_card} against {c_cpu} | max|state_card - state_cpu| / max|state_cpu| "
+                  f"{diff:.3e} (bound {DEG7_F64_RTOL:.0e})", flush=True)
+            if c_card != c_cpu:
+                fail("run (o64): the card's Krylov counts differ from the CPU's")
+            if not diff <= DEG7_F64_RTOL:
+                fail(f"run (o64): the card's state differs from the CPU's by {diff:.3e}")
+            if any(launches["o64"][n] == 0 for n in WIDE_KERNELS):
+                fail(f"run (o64) must launch {list(WIDE_KERNELS)}: {launches['o64']}")
+            del res, cpu
+            blocks = []
+            res, wall, launches["o7d"], timers = run_cli(
+                "o7d", ["--problem", "kelvinhelmholtz", "--refinement", DEG7_DISK_REFINEMENT,
+                        "--degree", 7, "--tfinal", dt, "--use_projection_method"],
+                record=recording_k4_inputs(blocks))
+            check_driver_run("o7d", f"Kelvin-Helmholtz, disk refinement {DEG7_DISK_REFINEMENT} "
+                             "k=7", None, res, wall, timers, launches["o7d"])
+            del res
+        finally:
+            os.chdir(cwd)
+    others = [n for n, v in launches["o7d"].items() if v and n != "gauss_jordan_wide"]
+    if launches["o7d"]["gauss_jordan_wide"] == 0 or others:
+        fail(f"run (o7d) on the disk must launch K5w only: {launches['o7d']}")
+    own, schur = blocks
+    eye = torch.eye(own.shape[0], dtype=schur.dtype, device=schur.device)[:, :, None]
+    n_eye = int((schur == eye).all(dim=1).all(dim=0).sum())
+    if n_eye == 0 or schur.shape[2] <= own.shape[2]:
+        fail("run (o7d)'s second K5w batch is not the facet Schur batch with its identities")
+    holds = Holds("disk k=7")
+    rtol, f32_vs_f64, plain_err = hold_gj_blocks(holds, blocks, "o7d")
+    e = holds.results["gauss_jordan_wide"]
+    print(f"# phase (o7d) K5w on the disk's own-cell {tuple(own.shape)} and Schur "
+          f"{tuple(schur.shape)} blocks ({n_eye} identity blocks): rel err f32/f64 "
+          f"{e['rel']['float32']:.3e}/{e['rel']['float64']:.3e} | the float32 inverse against "
+          f"the float64 plain inverse {f32_vs_f64:.3e}, the plain version's own "
+          f"{plain_err:.3e} (bound {rtol:.3e})", flush=True)
+    e["identity_blocks_disk"] = n_eye
+    return launches, checks, holds.results
 
 
 def main():
@@ -1656,10 +1858,15 @@ def main():
 
     from incompressibleeulerhdg_tpu_torch import kernels
 
-    build_s = kernels.build_all()
-    print(f"# kernel build: {build_s:.2f} s ({', '.join(kernels.KERNELS)})", flush=True)
+    t_build = time.perf_counter()
+    kernels.start_builds()  # phases 3, 3b wait for K1-K4's libraries only
+    print(f"# kernel build: nvcc started on {', '.join(kernels.all_sources())}", flush=True)
     main_cmp = compare_kernels(NX, DEGREE)
     new_cmp = compare_periodic_shapes()
+    kernels.build_all()
+    print(f"# kernel build: every library built and loaded "
+          f"{time.perf_counter() - t_build:.2f} s after nvcc started (phases 3, 3b ran "
+          f"meanwhile; kernels {', '.join(kernels.KERNELS)})", flush=True)
     stamp("phases 2, 3, 3b")
     main_launches, launches_step, slab_ref = main_path(card)
     launches = {"main": main_launches}
@@ -1688,11 +1895,16 @@ def main():
     launches.update(wide_launches)
     wide_k = {k: compare_kernels(WIDE_NX, k) for k in WIDE_K}
     stamp("phase (n)")
+    deg7_launches, deg7_checks, disk7 = degree7_phase()
+    launches.update(deg7_launches)
+    deg7_cmp = compare_kernels(WIDE_NX, 7)
+    stamp("phase (o)")
 
     rows = []
     for name in kernels.KERNELS:
-        # K1-K4 at the main path's shapes; K5 (not on the k = 2 path) at k = 4
-        e = main_cmp.get(name) or wide_cmp[name]
+        # K1-K4 at the main path's shapes; K5 (not on the k = 2 path) at k = 4;
+        # K1w-K3w and K5w at k = 7
+        e = main_cmp.get(name) or wide_cmp.get(name) or deg7_cmp[name]
         row = dict(
             name=name, route="cuda", source=kernels.source_path(name),
             replaces=kernels.KERNELS[name][2],
@@ -1735,6 +1947,27 @@ def main():
             w = wide_cmp[name]
             row.update(max_abs_err_d1_21=w["abs"]["float32"], max_rel_err_f64_d1_21=w["rel"]["float64"],
                        ms_d1_21=w["ms"], plain_ms_d1_21=w["plain_ms"], bound_ms_d1_21=w["bound_ms"])
+        if name in WIDE_KERNELS:  # phase (o): launches a step, the runs' own tables
+            row.update(launches_per_step_o7=launches["o7"][name] / O7_STEPS,
+                       launches_per_step_o8=launches["o8"][name],
+                       launches_o64=launches["o64"][name], launches_o7d=launches["o7d"][name])
+            for k in (7, 8):
+                c = deg7_checks[k].get(name)
+                if c is not None:
+                    row[f"max_rel_err_run_tables_k{k}"] = c["rel"]
+                    row.update({f"{key}_k{k}": c[key] for key in (
+                        "f32_vs_f64", "plain_f32_vs_f64", "f32_rtol") if key in c})
+            if name == "gauss_jordan_wide":
+                d = disk7[name]
+                row.update(max_rel_err_disk_k7=d["rel"], f32_vs_f64_disk_k7=d["f32_vs_f64"],
+                           plain_f32_vs_f64_disk_k7=d["plain_f32_vs_f64"],
+                           identity_blocks_disk_k7=d["identity_blocks_disk"])
+                for n_x, _, _ in WIDE_GJ_EXTRA:
+                    sfx = f"_n{n_x}"
+                    row.update({f"{key}{sfx}": e[f"{key}{sfx}"] for key in (
+                        "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "library_ms", "plan",
+                        "shape", "dtype")})
+                    row[f"pct_bound{sfx}"] = pct_bound(e[f"bound_ms{sfx}"], e[f"ms{sfx}"], name)
         if name == "gauss_jordan_select":
             row.update(ab_k4_n20_ms=ab["k4_n20_ms"], ab_k5_n20_ms=ab["k5_n20_ms"],
                        ab_k5_n42_ms=ab["k5_n42_ms"], ab_timer=ab["timer"])
@@ -1763,7 +1996,7 @@ def main():
                 row[f"pct_bound{sfx}"] = pct_bound(e[f"bound_ms{sfx}"], e[f"ms{sfx}"], name)
             row.update(max_abs_err_partition=e["abs"]["float32"],
                        max_rel_err_f64_partition=e["rel"]["float64"],
-                       launches_partition_per_step=part_launches[name] / 2)
+                       launches_partition_per_step=part_launches[name] / PART_STEPS)
         rows.append(row)
     missing = [row["name"] for row in rows if row["launches"] == 0]
     if missing:

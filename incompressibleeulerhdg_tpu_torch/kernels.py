@@ -1,13 +1,17 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface (``build/torch_kernels/lib<name>-<hash>.so`` at the
-repository root, keyed by the hash of the sources and flags), loaded with
-``ctypes``.  Nothing is compiled or loaded at import time: the first launch
-of a kernel builds it, and :func:`build_all` builds every kernel at once
-(in parallel), e.g. as a timed set-up phase.  nvcc runs with ``-Xptxas -v``;
-its report (registers, shared memory, spills of every instantiation) is kept
-beside each library and read by :func:`ptxas_report`.
+Each kernel source ``csrc/<source>.cu`` compiles with ``nvcc`` into its own
+shared library with a plain C interface
+(``build/torch_kernels/lib<source>-<hash>.so`` at the repository root, keyed
+by the hash of the sources and flags), loaded with ``ctypes``; a source is
+named after its kernel, or holds several (:data:`SOURCES`).  Nothing is
+compiled or loaded at import time: the first launch of a kernel builds it,
+:func:`build_all` builds every kernel at once (in parallel), e.g. as a
+timed set-up phase, and :func:`start_builds` starts them all and returns,
+so work that needs some kernels can run while the others compile.  nvcc
+runs with ``-Xptxas -v``; its report (registers, shared memory, spills of
+every instantiation) is kept beside each library and read by
+:func:`ptxas_report`.
 
 Every wrapper that launches a kernel adds one to ``LAUNCHES[name]`` at the
 launch, and only there, so a run can show which kernels its main path went
@@ -77,11 +81,36 @@ KERNELS = {
         [_I, _I, _I, _P, _P, _L, _P],
         "tools/microbench_gj.py:79 _gj_old",
     ),
+    # the runtime-width kernels of d1 >= 45 and n > 72 (k >= 7)
+    "fact_apply_wide": (
+        "iehdg_fact_apply_wide",
+        [_I, _I, _I, _P, _L, _L, _P, _LP, _I, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/preconditioners.py:830 _fact_pallas",
+    ),
+    "cross_pair_wide": (
+        "iehdg_cross_pair_wide",
+        [_I, _I, _I, _P, _P, _L, _L, _P, _P, _LP, _I, _P, _P, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/preconditioners.py:1007 _cross_pair_pallas",
+    ),
+    "patch_solve_wide": (
+        "iehdg_patch_solve_wide",
+        [_I, _I, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/preconditioners.py:1199 _patch_pallas",
+    ),
+    "gauss_jordan_wide": (
+        "iehdg_gauss_jordan_wide",
+        [_I, _I, _I, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/smallinv.py:89 gauss_jordan_inv_bl",
+    ),
 }
+
+# kernel -> its source's name, where that differs from the kernel's
+SOURCES = {"fact_apply_wide": "wide_apply", "cross_pair_wide": "wide_apply"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _LIBS = {}
+_PENDING = {}  # source -> (nvcc process, temporary output) started by start_builds
 _LOCK = threading.Lock()
 
 
@@ -91,9 +120,19 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
+def source_of(name):
+    """Name of kernel ``name``'s CUDA source (``csrc/<source>.cu``)."""
+    return SOURCES.get(name, name)
+
+
 def source_path(name):
     """Repository-relative path of a kernel's CUDA source."""
-    return f"{_PKG.name}/csrc/{name}.cu"
+    return f"{_PKG.name}/csrc/{source_of(name)}.cu"
+
+
+def all_sources():
+    """Every kernel source, once, in the order of :data:`KERNELS`."""
+    return list(dict.fromkeys(source_of(n) for n in KERNELS))
 
 
 def _nvcc():
@@ -106,19 +145,19 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def _lib_path(name):
+def _lib_path(src):
     h = hashlib.sha256()
-    for f in (_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))):
+    for f in (_CSRC / f"{src}.cu", *sorted(_CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS + NVCC_LIBS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{src}-{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name, so):
+def _start_build(src, so):
     """Start nvcc on one kernel source; returns (process, temporary output)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu"), *NVCC_LIBS]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{src}.cu"), *NVCC_LIBS]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp
 
 
@@ -126,58 +165,80 @@ def _report_path(so):
     return so.with_name(so.name + ".ptxas.txt")
 
 
-def _finish_build(name, so, proc, tmp):
+def _finish_build(src, so, proc, tmp):
     """Wait for nvcc; install the library and its ptxas report, or return
     nvcc's error report."""
     _, err = proc.communicate()
     if proc.returncode != 0:
-        return f"nvcc failed for {name} (exit {proc.returncode}):\n{err}"
+        return f"nvcc failed for {src}.cu (exit {proc.returncode}):\n{err}"
     _report_path(so).write_text(err)
     os.replace(tmp, so)
     return None
 
 
-def ptxas_report(name):
-    """ptxas's ``-v`` report of kernel ``name``'s library (built first if
-    needed): registers, shared memory and spill bytes of every instantiation."""
-    _get(name)
-    return _report_path(_lib_path(name)).read_text()
+def ptxas_report(src):
+    """ptxas's ``-v`` report of kernel source ``src``'s library (built first
+    if needed): registers, shared memory and spill bytes of every
+    instantiation."""
+    _get_source(src)
+    return _report_path(_lib_path(src)).read_text()
 
 
-def _load(name, so):
+def _load(src, so):
     lib = ctypes.CDLL(str(so))
-    entry, argtypes, _ = KERNELS[name]
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for name, (entry, argtypes, _) in KERNELS.items():
+        if source_of(name) == src:
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.iehdg_error_string.argtypes = [ctypes.c_int]
     lib.iehdg_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _get(name):
+def _get_source(src):
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(src)
         if lib is None:
-            so = _lib_path(name)
-            if not so.exists():
-                err = _finish_build(name, so, *_start_build(name, so))
+            so = _lib_path(src)
+            job = _PENDING.pop(src, None)
+            if job is not None or not so.exists():
+                err = _finish_build(src, so, *(job or _start_build(src, so)))
                 if err:
                     raise RuntimeError(err)
-            lib = _LIBS[name] = _load(name, so)
+            lib = _LIBS[src] = _load(src, so)
         return lib
 
 
+def _get(name):
+    """The loaded library of kernel ``name`` (built first if needed)."""
+    return _get_source(source_of(name))
+
+
+def start_builds():
+    """Start nvcc on every kernel source not built yet (one process a
+    source, all at once) and return: a kernel's first use, or
+    :func:`build_all`, waits for its own source's build only."""
+    with _LOCK:
+        for src in all_sources():
+            so = _lib_path(src)
+            if src not in _LIBS and src not in _PENDING and not so.exists():
+                _PENDING[src] = _start_build(src, so)
+
+
 def build_all():
-    """Compile (in parallel) and load every kernel; returns wall seconds."""
+    """Compile (in parallel, one nvcc a source) and load every kernel;
+    returns wall seconds."""
     t0 = time.perf_counter()
-    jobs = [(name, so) for name, so in ((n, _lib_path(n)) for n in KERNELS) if not so.exists()]
-    started = [(name, so, *_start_build(name, so)) for name, so in jobs]
-    errors = [e for e in (_finish_build(*job) for job in started) if e]
+    start_builds()
+    errors = []
+    for src in all_sources():
+        try:
+            _get_source(src)
+        except RuntimeError as e:  # gather every source's nvcc report, then raise
+            errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    for name in KERNELS:
-        _get(name)
     return time.perf_counter() - t0
 
 

@@ -35,12 +35,15 @@ CUDA here, each beside its plain PyTorch version (the JAX fallback):
 - K2 :func:`cross_pair`  (csrc/cross_pair.cu)  -- both cross applies in one pass
 - K3 :func:`patch_solve` (csrc/patch_solve.cu) -- one colour's patch solves
 
-A CPU tensor goes to the plain version; a CUDA tensor launches the kernel.
-The kernels are instantiated for the widths d1 = (k + 2)(k + 3)/2 of the
-degrees k = 0 .. 6; a wider table on the card raises.  K2 and K3 stage
-their per-facet tables in shared memory with TMA, which needs 16-byte rows:
-the operator's facet tables are allocated with a padded column stride
-(:func:`pad_table`; the plain versions read the same views).
+A CPU tensor goes to the plain version; a CUDA tensor launches a kernel,
+chosen by the width d1 = (k + 2)(k + 3)/2 alone: the three kernels above
+are instantiated for the degrees k = 0 .. 6 (d1 in :data:`CUDA_D1`), and
+any other width launches their runtime-width counterparts K1w, K2w
+(csrc/wide_apply.cu) and K3w (csrc/patch_solve_wide.cu), so the card takes
+every degree.  K2 and K3 stage their per-facet tables in shared memory
+with TMA, which needs 16-byte rows: the operator's facet tables are
+allocated with a padded column stride (:func:`pad_table`; the plain
+versions and the wide kernels read the same views).
 """
 
 import os
@@ -67,6 +70,7 @@ __all__ = [
     "patch_solve_plain",
     "pad_table",
     "tile_facets",
+    "width_kernels",
     "tentative_patch_apply",
     "tentative_colored_apply",
 ]
@@ -99,15 +103,45 @@ class TentativeOperator:
     Cx: torch.Tensor = None  # (nu, nu, nf) minus rows, plus columns
 
 
-CUDA_D1 = (3, 6, 10, 15, 21, 28, 36)  # k = 0 .. 6
+CUDA_D1 = (3, 6, 10, 15, 21, 28, 36)  # k = 0 .. 6: K1-K3's instantiations
+SMEM_MAX = 232448  # bytes of shared memory a thread block may use (H100)
+PATCH_WIDE_FACETS = (32, 16, 8)  # K3w's facets a thread block, widest first
 
 
-def _check_width(name, d1):
-    if d1 not in CUDA_D1:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is instantiated for d1 in {CUDA_D1} (k <= 6), "
-            f"got d1 = {d1} (ROADMAP Queue 1, 'k >= 7 on the card': one K3 tile of "
-            f"the four tables exceeds a block's shared memory from d1 = 45)")
+def width_kernels(d1):
+    """Names of the kernels that K1, K2, K3's wrappers launch at width d1:
+    ``fact_apply``, ``cross_pair``, ``patch_solve`` at their instantiated
+    widths (:data:`CUDA_D1`), their ``*_wide`` counterparts at any other."""
+    sfx = "" if d1 in CUDA_D1 else "_wide"
+    return tuple(f"{k}{sfx}" for k in ("fact_apply", "cross_pair", "patch_solve"))
+
+
+def _wide_tables(*tables):
+    """Tables of one shape class with a common batch-last column stride ``ld``
+    (strides (b * ld, ld, 1), ``ld`` >= the column count, as :func:`pad_table`
+    or ``contiguous`` leave them), as K1w-K3w read them: the tables
+    themselves where they have one, else contiguous copies.  Returns
+    (tables, ld)."""
+    ld = tables[0].stride(1)
+    if all(t.stride() == (t.shape[1] * ld, ld, 1) and ld >= t.shape[2] for t in tables):
+        return tables, ld
+    tables = [t.contiguous() for t in tables]
+    return tables, tables[0].shape[2]
+
+
+def patch_wide_facets(d1, dtype):
+    """Facets a thread block of K3w at width d1: the widest of
+    :data:`PATCH_WIDE_FACETS` whose three facet vectors (nu x F each) fit a
+    block's shared memory; raises NotImplementedError past them all (in
+    float64 from d1 = 606: k = 33)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    for F in PATCH_WIDE_FACETS:
+        if 3 * 2 * d1 * F * size <= SMEM_MAX:
+            return F
+    F = PATCH_WIDE_FACETS[-1]
+    raise NotImplementedError(
+        f"patch_solve_wide: the three facet vectors of {F} facets at d1 = {d1} take "
+        f"{3 * 2 * d1 * F * size} B of shared memory, past the {SMEM_MAX} B a block may use")
 
 
 def pad_table(A):
@@ -198,19 +232,24 @@ def fact_apply(A, P, bounds, x, aoff=0):
     nseg + 1 segment offsets into x's columns."""
     if x.device.type == "cpu":
         return fact_apply_plain(A, P, bounds, x, aoff)
-    A, P, x = A.contiguous(), P.contiguous(), x.contiguous()
+    P, x = P.contiguous(), x.contiguous()
     d1 = A.shape[0]
-    _check_width("fact_apply", d1)
     nu, m = x.shape
     if A.shape[1] != d1 or nu != 2 * d1 or P.shape[1:] != (nu, nu) or \
             P.shape[0] != len(bounds) - 1 or aoff + m > A.shape[2]:
         raise ValueError(f"fact_apply: shapes A {tuple(A.shape)} P {tuple(P.shape)} x {tuple(x.shape)}")
-    dev, code = kernels.check_cuda("fact_apply", A, P, x)
+    name = width_kernels(d1)[0]
+    if name == "fact_apply":
+        A = A.contiguous()
+        lda = A.shape[2]
+    else:
+        (A,), lda = _wide_tables(A)
+    dev, code = kernels.check_cuda(name, P, x, tables=(A,))
     out = torch.empty_like(x)
     if m == 0:
         return out
     seg, nseg = kernels.seg_array(bounds)
-    kernels.launch("fact_apply", dev, code, d1, A.data_ptr(), A.shape[2], aoff,
+    kernels.launch(name, dev, code, d1, A.data_ptr(), lda, aoff,
                    P.data_ptr(), seg, nseg, x.data_ptr(), out.data_ptr(), m,
                    kernels.stream_ptr(x))
     return out
@@ -235,20 +274,23 @@ def cross_pair(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
     Bp, Cp = Bp.contiguous(), Cp.contiguous()
     x0, x1 = x0.contiguous(), x1.contiguous()
     d1 = K01.shape[0]
-    _check_width("cross_pair", d1)
     nu, m = x0.shape
     if K10.shape != K01.shape or x1.shape != x0.shape or nu != 2 * d1 or \
             Bp.shape != Cp.shape or Bp.shape[1:] != (nu, nu) or \
             Bp.shape[0] != len(bounds) - 1 or aoff + m > K01.shape[2]:
         raise ValueError(f"cross_pair: shapes K {tuple(K01.shape)} P {tuple(Bp.shape)} x {tuple(x0.shape)}")
-    dev, code = kernels.check_cuda("cross_pair", Bp, Cp, x0, x1, tables=(K01, K10))
-    ld = kernels.table_ld("cross_pair", K01, K10)
+    name = width_kernels(d1)[1]
+    if name == "cross_pair_wide":
+        (K01, K10), ld = _wide_tables(K01, K10)
+    dev, code = kernels.check_cuda(name, Bp, Cp, x0, x1, tables=(K01, K10))
+    if name == "cross_pair":
+        ld = kernels.table_ld(name, K01, K10)
     y0 = torch.empty_like(x0)
     y1 = torch.empty_like(x0)
     if m == 0:
         return y0, y1
     seg, nseg = kernels.seg_array(bounds)
-    kernels.launch("cross_pair", dev, code, d1, K01.data_ptr(), K10.data_ptr(),
+    kernels.launch(name, dev, code, d1, K01.data_ptr(), K10.data_ptr(),
                    ld, aoff, Bp.data_ptr(), Cp.data_ptr(), seg, nseg,
                    x0.data_ptr(), x1.data_ptr(), y0.data_ptr(), y1.data_ptr(), m,
                    kernels.stream_ptr(x0))
@@ -287,7 +329,6 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
     ts = [t.contiguous() for t in (Bp_k, Cp_k, r0, r1)]
     Bp_k, Cp_k, r0, r1 = ts
     d1 = K01.shape[0]
-    _check_width("patch_solve", d1)
     nu, m = r0.shape
     nf = Dinv0.shape[2]
     if nu != 2 * d1 or Dinv0.shape != (nu, nu, nf) or Sinv.shape != Dinv0.shape or \
@@ -295,13 +336,18 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
             Bp_k.shape != (nu, nu) or Cp_k.shape != (nu, nu) or \
             r1.shape != r0.shape or off + m > nf:
         raise ValueError(f"patch_solve: shapes Dinv0 {tuple(Dinv0.shape)} K {tuple(K01.shape)} r {tuple(r0.shape)}")
-    dev, code = kernels.check_cuda("patch_solve", *ts, tables=(Dinv0, Sinv, K01, K10))
-    ld = kernels.table_ld("patch_solve", Dinv0, Sinv, K01, K10)
+    name, width = width_kernels(d1)[2], (d1,)
+    if name == "patch_solve_wide":  # K3w: F facets a thread block
+        width = (d1, patch_wide_facets(d1, r0.dtype))
+        (Dinv0, Sinv, K01, K10), ld = _wide_tables(Dinv0, Sinv, K01, K10)
+    dev, code = kernels.check_cuda(name, *ts, tables=(Dinv0, Sinv, K01, K10))
+    if name == "patch_solve":
+        ld = kernels.table_ld(name, Dinv0, Sinv, K01, K10)
     y0 = torch.empty_like(r0)
     y1 = torch.empty_like(r0)
     if m == 0:
         return y0, y1
-    kernels.launch("patch_solve", dev, code, d1, Dinv0.data_ptr(), Sinv.data_ptr(),
+    kernels.launch(name, dev, code, *width, Dinv0.data_ptr(), Sinv.data_ptr(),
                    K01.data_ptr(), K10.data_ptr(), ld, off, Bp_k.data_ptr(),
                    Cp_k.data_ptr(), r0.data_ptr(), r1.data_ptr(), y0.data_ptr(),
                    y1.data_ptr(), m, kernels.stream_ptr(r0))

@@ -233,7 +233,11 @@ def test_kernel_sources_and_metadata():
 
     root = pathlib.Path(__file__).resolve().parents[1]
     assert set(kernels.KERNELS) == {"fact_apply", "cross_pair", "patch_solve", "gauss_jordan",
-                                    "gauss_jordan_select"}
+                                    "gauss_jordan_select", "fact_apply_wide", "cross_pair_wide",
+                                    "patch_solve_wide", "gauss_jordan_wide"}
+    assert kernels.all_sources() == ["fact_apply", "cross_pair", "patch_solve", "gauss_jordan",
+                                     "gauss_jordan_select", "wide_apply", "patch_solve_wide",
+                                     "gauss_jordan_wide"]
     for name, (entry, argtypes, replaces) in kernels.KERNELS.items():
         src = (root / kernels.source_path(name)).read_text()
         fn = replaces.split()[-1]
@@ -337,10 +341,11 @@ def test_gauss_jordan_select_on_cpu():
 
 
 def test_card_refuses_widths_beyond_k4():
-    """On the card, d1 > 36 (k >= 7) and n > 72 raise NotImplementedError
-    naming the ROADMAP item, before any launch; d1 = 28, 36 (k = 5, 6) and
-    n = 56, 72 pass the width check (and fail only for want of a CUDA
-    tensor)."""
+    """On the card every width passes the width dispatch: d1 = 28, 36 (k =
+    5, 6) go to K1-K3, d1 = 45, 55, 78 (k = 7, 8, 10) to K1w-K3w, n = 42 ..
+    72 to K5 and n = 90, 110, 182 (k = 7, 8, 11) to K5w, and each fails
+    only for want of a CUDA tensor.  K5's own entry point still takes n <=
+    72, and K3w refuses a width whose facet vectors fit no thread block."""
 
     def tables(d1):
         nu = 2 * d1
@@ -352,22 +357,26 @@ def test_card_refuses_widths_beyond_k4():
                 lambda: TP.cross_pair(A, A, Pm, Pm, (0, 10), x, x),
                 lambda: TP.patch_solve(D, D, A, A, Pm[0], Pm[0], x, x, 0))
 
-    for call in tables(45):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*k >= 7 on the card"):
-            call()
-    for d1 in (28, 36):
-        assert d1 in TP.CUDA_D1
+    for d1 in (28, 36, 45, 55, 78):
+        assert (d1 in TP.CUDA_D1) == (d1 <= 36)
         for call in tables(d1):
             with pytest.raises(ValueError, match="CUDA"):
                 call()
-    G = torch.empty(90, 90, 10, device="meta")
-    for fn in (TI.gauss_jordan_inv_bl, TI.gauss_jordan_inv_select):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*k >= 7 on the card"):
-            fn(G)
-    for n in (42, 56, 72):
-        for fn in (TI.gauss_jordan_inv_bl, TI.gauss_jordan_inv_select):
+    for n in (42, 56, 72, 90, 110, 182):
+        with pytest.raises(ValueError, match="CUDA"):
+            TI.gauss_jordan_inv_bl(torch.empty(n, n, 10, device="meta"))
+        with pytest.raises(ValueError, match="CUDA"):
+            TI.gauss_jordan_inv_wide(torch.empty(n, n, 10, device="meta"))
+        if n <= 72:
             with pytest.raises(ValueError, match="CUDA"):
-                fn(torch.empty(n, n, 10, device="meta"))
+                TI.gauss_jordan_inv_select(torch.empty(n, n, 10, device="meta"))
+        else:
+            with pytest.raises(NotImplementedError, match="gauss_jordan_wide"):
+                TI.gauss_jordan_inv_select(torch.empty(n, n, 10, device="meta"))
+    assert TP.patch_wide_facets(45, torch.float64) == 32
+    assert TP.patch_wide_facets(200, torch.float64) == 16
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        TP.patch_wide_facets(700, torch.float64)
 
 
 # ----------------------------------------------------------------------

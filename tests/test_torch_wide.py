@@ -1,17 +1,22 @@
-"""k = 5 and k = 6 in the PyTorch port: the widths d1 = 28, 36 of K1-K3 and
-n = 56, 72 of the Gauss-Jordan inverse, against the JAX package in float64.
+"""k = 5, 6 and 7 in the PyTorch port: the widths d1 = 28, 36, 45 of K1-K3
+and n = 56 .. 110 of the Gauss-Jordan inverse, against the JAX package in
+float64.
 
-- the plain K1-K3 at d1 = 28 and 36 against the JAX fallbacks on a real
+- the plain K1-K3 at d1 = 28, 36 and 45 against the JAX fallbacks on a real
   factored operator (a non-periodic 4 x 2 mesh), at 1e-12 relative, as
   tests/test_torch_kernels.py does at d1 = 21;
 - the plain Gauss-Jordan inverses (K4's indexed and K5's masked-select
-  pivot steps) at n = 56 and 72 against the JAX fallback's jnp loop;
-- ``build_tentative_operator`` at k = 5 on the 2^2 square: every table at
-  1e-12 relative;
+  pivot steps) at n = 56, 72, 90 and 110 against the JAX fallback's jnp
+  loop;
+- ``build_tentative_operator`` at k = 5 and k = 7 on the 2^2 square: every
+  table at 1e-12 relative;
 - one SSP2 step at k = 5 on the 2^2 square from the same state: the stage
-  states within 1e-10 and every Krylov count equal;
+  states within 1e-10 and every Krylov count equal (k = 7:
+  tests/test_torch_degree7.py);
 - on a CUDA card only: K1-K3 at d1 = 28, 36 and K5 at n = 56, 72 against
-  their plain versions, and the dispatch of n = 56, 72 blocks to K5.
+  their plain versions, and the dispatch of n = 56, 72 blocks to K5; the
+  runtime-width kernels K1w-K3w at d1 = 45, 55 and K5w at n = 73, 90, 110
+  and (float64, blocks in device memory) 182, and the dispatch to them.
 """
 
 import numpy as np
@@ -42,7 +47,7 @@ from incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex import (
 
 torch.set_num_threads(1)
 
-WIDTHS = {5: 28, 6: 36}  # degree -> d1
+WIDTHS = {5: 28, 6: 36, 7: 45}  # degree -> d1
 
 
 def t(a):
@@ -59,7 +64,7 @@ def close(got, ref, rtol):
 
 @pytest.fixture(scope="module", params=sorted(WIDTHS), ids=lambda k: f"k{k}")
 def wide(request):
-    """Flat factored operator at k = 5 or 6 on a non-periodic 4 x 2 mesh."""
+    """Flat factored operator at k = 5, 6 or 7 on a non-periodic 4 x 2 mesh."""
     k = request.param
     disc = JDisc(unit_square_mesh(4, 2), k)
     geom = disc.geom
@@ -100,7 +105,7 @@ def test_patch_solve_plain_matches_fallback_wide(wide, k):
           JP._patch_color_structured(geom, jop, k, jnp.asarray(rb)), 1e-12)
 
 
-@pytest.mark.parametrize("n", [56, 72])
+@pytest.mark.parametrize("n", [56, 72, 90, 110])
 def test_gauss_jordan_plain_matches_fallback_wide(n):
     """Both plain pivot steps (K4's and K5's) against the JAX fallback's jnp
     loop, and numpy's inverse, in float64."""
@@ -113,16 +118,26 @@ def test_gauss_jordan_plain_matches_fallback_wide(n):
           1e-12)
 
 
-def test_build_tentative_operator_k5():
-    """Every table of the k = 5 stage operator on the 2^2 square."""
-    jd = JDisc(unit_square_mesh(2), 5)
-    td = TDisc(t_mesh(2), 5, device="cpu")
-    rng = np.random.default_rng(55)
-    u = rng.standard_normal((2, 28, jd.geom.n_cells))
+def _check_build(k, seed):
+    """Every table of the degree-k stage operator on the 2^2 square."""
+    jd = JDisc(unit_square_mesh(2), k)
+    td = TDisc(t_mesh(2), k, device="cpu")
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((2, jd.geom.d1, jd.geom.n_cells))
     jop = JP.build_tentative_operator(jd.geom, j_star_fields(jd.geom, jnp.asarray(u)), 0.02)
     top = TP.build_tentative_operator(td.geom, t_star_fields(td.geom, t(u)), 0.02)
     for name in ("Dinv", "Sinv", "Dinv0", "Sown", "Pcell", "Ks01", "Ks10", "Bp", "Cp"):
         close(getattr(top, name), getattr(jop, name), 1e-12)
+
+
+def test_build_tentative_operator_k5():
+    _check_build(5, 55)
+
+
+def test_build_tentative_operator_k7():
+    """k = 7 (d1 = 45, n = 90: the Gauss-Jordan blocks K5w inverts on the
+    card)."""
+    _check_build(7, 77)
 
 
 def test_step_k5_matches_jax():
@@ -199,8 +214,10 @@ def _check_kernels_width(d1, dtype, device):
         got = TP.patch_solve(Di, Si, K01, K10, P4[0], Q4[0], x0[:, :mm], x1[:, :mm], off)
         ref = TP.patch_solve_plain(Di, Si, K01, K10, P4[0], Q4[0], x0[:, :mm], x1[:, :mm], off)
         assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
-    assert kernels.LAUNCHES["fact_apply"] == 2 and kernels.LAUNCHES["cross_pair"] == 2
-    assert kernels.LAUNCHES["patch_solve"] == 3
+    k1, k2, k3 = TP.width_kernels(d1)
+    assert kernels.LAUNCHES[k1] == 2 and kernels.LAUNCHES[k2] == 2
+    assert kernels.LAUNCHES[k3] == 3
+    assert sum(kernels.LAUNCHES.values()) == 7
 
 
 @pytest.mark.cuda
@@ -235,3 +252,38 @@ def test_cuda_gauss_jordan(cuda, dtype, n):
         assert float((TI.gauss_jordan_inv_bl(A) - ref).abs().max()) <= tol
     assert kernels.LAUNCHES["gauss_jordan_select"] == 2 * len(cases)
     assert kernels.LAUNCHES["gauss_jordan"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d1", [45, 55])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernels_wide(cuda, dtype, d1):
+    """K1w-K3w at d1 = 45, 55 (k = 7, 8): an unaligned colour offset, a
+    segment edge inside a thread block, a padded table of an odd column
+    count."""
+    _check_kernels_width(d1, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, dtype", [(73, torch.float32), (90, torch.float32),
+                                      (110, torch.float32), (73, torch.float64),
+                                      (90, torch.float64), (110, torch.float64),
+                                      (182, torch.float64)])
+def test_cuda_gauss_jordan_wide(cuda, dtype, n):
+    """K5w against its plain version on batches around its thread block's
+    (n = 182 in float64 takes the device-memory path), and the main-path
+    dispatch of the same blocks to K5w.  K5w rounds as the plain version
+    does, so the two agree to the last bit."""
+    g = torch.Generator().manual_seed(n)
+    plan = TI.launch_plan("gauss_jordan_wide", dtype, n)
+    assert plan["in_smem"] == (n < 182)
+    blocks = lambda m: (0.1 * torch.randn(n, n, m, generator=g, dtype=dtype)
+                        + 3.0 * torch.eye(n, dtype=dtype)[:, :, None]).to(cuda)
+    cases = [blocks(m) for m in (1, plan["G"] + 1, 77)] + [blocks(2 * 77)[:, :, 1::2]]
+    kernels.reset_launches()
+    for A in cases:
+        ref = TI.gauss_jordan_inv_plain(A)
+        assert torch.equal(TI.gauss_jordan_inv_wide(A), ref)
+        assert torch.equal(TI.gauss_jordan_inv_bl(A), ref)
+    assert kernels.LAUNCHES["gauss_jordan_wide"] == 2 * len(cases)
+    assert kernels.LAUNCHES["gauss_jordan"] == kernels.LAUNCHES["gauss_jordan_select"] == 0
