@@ -108,10 +108,17 @@ Phases, each printing its own lines:
    own tables (K1-K3, random fields) and own-cell and Schur blocks (K5) in
    float32 and float64, with K5's float32 inverse also read against the
    float64 plain one; then phase 5's kernel comparison at 128^2 for k = 5
-   and k = 6 (timing rows);
+   and k = 6 (timing rows); then K3 (its template built at d1 = 28, 36 by
+   tools/ab_patch.py beside the kernels) against K3w, which the dispatch
+   takes from d1 = 28, on one 128^2 colour in this process, in float32 and
+   float64: both held to the plain version, and the run fails if the
+   dispatch takes the slower;
 6g. (o) every degree: from k = 7 the widths dispatch to the runtime-width
-   kernels K1w-K3w (csrc/wide_apply.cu, csrc/patch_solve_wide.cu) and K5w
-   (csrc/gauss_jordan_wide.cu).  (o7): projection SSP2 at k = 7 on 64^2,
+   kernels K1w-K3w (csrc/wide_apply.cu, csrc/patch_solve_wide.cu: a
+   thread-block cluster a facet tile, K3w also from k = 5) and K5w
+   (csrc/gauss_jordan_wide.cu: register tiles at a run-time n, a cluster
+   where one SM's registers do not hold a block, device memory past a
+   cluster of 8).  (o7): projection SSP2 at k = 7 on 64^2,
    float32, two steps, and (o8) k = 8 on 32^2, one step, each held to the
    velocity bound, launching the four wide kernels and no other, with the
    run's own tables and blocks held to the plain versions in float32 and
@@ -123,7 +130,12 @@ Phases, each printing its own lines:
    alone), K5w held on the disk's own-cell and Schur batches, identity
    blocks included; then the kernel comparison at 128^2, k = 7 (timing
    rows), with K5w also at n = 110 (float32) and on a float64 n = 182
-   batch, which takes K5w's device-memory path;
+   batch (the cluster path) beside ``torch.linalg.inv``, and held on a
+   float64 n = 420 batch (the device-memory path); K3w's plan without a
+   cluster (d1 >= 81) held at d1 = 91 in float32 and float64;
+6h. (p) one projection SSP2 step at k = 7 on 128^2, float32, after a
+   warm-up step, under torch.profiler: device ms by kernel, the device
+   busy share, the operators with the most device time;
 7. the launch check: every kernel K1-K5 and K1w-K3w, K5w launched on some
    path.
 
@@ -139,8 +151,9 @@ errors on the run's own tables and the launches a step of runs (n5), (n6);
 K3 also ``*_additive``: one additive patch application, every colour and
 the boundary tail, at 256^2; K1w-K3w and K5w: phase (o)'s 128^2, k = 7
 shapes, launches a step of (o7) and (o8), the errors on those runs' own
-tables, and K5w ``*_n110``, ``*_n182`` and its holds on the k = 7 disk's
-blocks); the last
+tables, their device ms in phase (p)'s step (``k7_step_device_ms``), K5w
+``*_n110``, ``*_n182``, its device-memory plan and its holds on the k = 7
+disk's blocks, K3w the K3 A/B at d1 = 28, 36 (``ab_*``)); the last
 line is ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it.
 """
@@ -318,9 +331,18 @@ DEG7_F64_RTOL = 1.0e-10
 # H100's host (PERF.md section 4)
 DEG7_DISK_REFINEMENT = 2
 # K5w at n = 110 (k = 8) in float32 on the 128^2 own-cell batch, and in
-# float64 at n = 182 (k = 11) on 1024 blocks, where one block exceeds a
-# thread block's shared memory and K5w works in device memory
+# float64 at n = 182 (k = 11) on 1024 blocks, where one block's register
+# tiles exceed an SM's registers and K5w splits them over a thread-block
+# cluster (timed beside torch.linalg.inv on the same blocks)
 WIDE_GJ_EXTRA = ((110, torch.float32, None), (182, torch.float64, 1024))
+# K5w's device-memory path (float64 past n = 384: no cluster of 8 holds a
+# block's tiles), held to its plain version on WIDE_GJ_DEVICE_BATCH blocks
+# of k = 18 (n = 420)
+WIDE_GJ_DEVICE_N, WIDE_GJ_DEVICE_BATCH = 420, 32
+# K3w's plan without a cluster (d1 >= 81: no cluster of 8 stages its rows
+# of Dinv0), held to its plain version at k = 11 on one colour of this many
+# facets
+PATCH_WIDE_DEVICE_D1, PATCH_WIDE_DEVICE_FACETS = 91, 4099
 # calls a timing of the Gauss-Jordan inverse from n = 56 (k = 5): its plain
 # version takes 40-300 ms a call there
 WIDE_GJ_REPS = 3
@@ -334,10 +356,11 @@ WIDE_GJ_F32_MULT = 2.0
 # the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
 # 700 W): its bytes (each input read once, each output written once) over
 # the 3.35 TB/s of HBM, or its floating-point operations (an FMA is two)
-# over the 67 TFLOP/s (float32) / 34 TFLOP/s (float64) outside the tensor
-# cores, whichever is larger
+# over the card's peak for their type, whichever is larger: 67 TFLOP/s for
+# float32 (outside the tensor cores) and for float64 (through the tensor
+# cores, DMMA; 34 TFLOP/s outside them)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 def fail(msg):
@@ -436,7 +459,8 @@ class Holds:
     def timed(self, name, dtype, kern, plain, nbytes, flops, suffix="", launches=1, reps=REPS):
         """Device time (torch.profiler, else CUDA events) over ``reps`` calls,
         in turns: plain, kernel, kernel, plain; ``kern`` launches the kernel
-        ``launches`` times a call, and its time is a call's."""
+        ``launches`` times a call, and its time is a call's (a read of 0.2 ms
+        or more is checked against CUDA events by ``device_time``)."""
         from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
 
         sym = f"{name}_kernel"
@@ -633,6 +657,40 @@ def compare_kernels(nx, degree):
             torch.cuda.empty_cache()
         print_new_shapes(results, [(gj, f"_n{n_x}", str(results[gj][f"shape_n{n_x}"]))
                                    for n_x, _, _ in WIDE_GJ_EXTRA])
+        # the device-memory path, held only (its plain version takes seconds)
+        n_x = WIDE_GJ_DEVICE_N
+        plan = smallinv.wide_gj_plan(n_x, torch.float64)
+        if plan["path"] != "device":
+            fail(f"K5w at float64 n = {n_x} does not take the device-memory path: {plan}")
+        Gx = spd(n_x, WIDE_GJ_DEVICE_BATCH, torch.float64)
+        holds.check(gj, torch.float64, smallinv.gauss_jordan_inv_bl(Gx),
+                    smallinv.gauss_jordan_inv_plain(Gx), per_block=True)
+        results[gj]["device_path"] = {"n": n_x, "batch": WIDE_GJ_DEVICE_BATCH, "plan": plan}
+        print(f"# kernel {gj} device-memory path, float64 {tuple(Gx.shape)}: held to its plain "
+              f"version (rel err f64 {results[gj]['rel']['float64']:.3e}); plan {plan}",
+              flush=True)
+        del Gx
+        torch.cuda.empty_cache()
+        # K3w's plan without a cluster (from d1 = 81), held only, on one
+        # colour of PATCH_WIDE_DEVICE_FACETS facets at an odd offset
+        d1x, nux, mx = PATCH_WIDE_DEVICE_D1, 2 * PATCH_WIDE_DEVICE_D1, PATCH_WIDE_DEVICE_FACETS
+        for dtype in (torch.float32, torch.float64):
+            plan = P.patch_wide_plan(d1x, dtype)
+            if plan["path"] != "device":
+                fail(f"K3w at d1 = {d1x} does not take the plan without a cluster: {plan}")
+            tabs = [P.pad_table(rnd(*shp, 2 * mx + 1, dtype=dtype))
+                    for shp in ((nux, nux), (nux, nux), (d1x, d1x), (d1x, d1x))]
+            args = (*tabs, rnd(nux, nux, dtype=dtype), rnd(nux, nux, dtype=dtype),
+                    rnd(nux, mx, dtype=dtype), rnd(nux, mx, dtype=dtype), mx + 1)
+            holds.check(k3, dtype, P.patch_solve(*args), P.patch_solve_plain(*args))
+            results[k3].setdefault("device_plan", {"d1": d1x, "facets": mx})[
+                str(dtype).replace("torch.", "")] = plan
+            del tabs, args
+        print(f"# kernel {k3} without a cluster, d1 = {d1x}, {mx} facets: held to its plain "
+              f"version (rel err f32 {results[k3]['rel']['float32']:.3e} f64 "
+              f"{results[k3]['rel']['float64']:.3e}); plans {results[k3]['device_plan']}",
+              flush=True)
+        torch.cuda.empty_cache()
 
     for name, e in results.items():
         lib = (f" | torch.linalg.inv {e['library_ms']:.4f} ms (contiguous copy "
@@ -1782,6 +1840,53 @@ def wide_phase():
     return degree_runs([(f"n{k}", k, WIDE_K_NX, 2) for k in WIDE_K])
 
 
+def patch_ab(build):
+    """Phase (n): K3 (its template built at d1 = 28, 36 by
+    tools/ab_patch.py, started with the kernels) against K3w, the patch
+    solve the dispatch takes there, on one 128^2 colour in one process, in
+    float32 and float64; fails unless both hold the plain version and the
+    dispatch takes the faster.  Returns one row a width and dtype."""
+    from incompressibleeulerhdg_tpu_torch.tools import ab_patch
+
+    rows = ab_patch.compare(ab_patch.load(build))
+    for r in rows:
+        faster = "patch_solve_wide" if r["k3w_ms"] <= r["k3_ms"] else "patch_solve"
+        print(f"# phase (n) K3 against K3w at d1={r['d1']} (one colour, {r['m']} facets, "
+              f"{r['dtype']}): K3 {r['k3_ms']:.4f} ms ({100 * r['bound_ms'] / r['k3_ms']:.1f}% of "
+              f"bound), K3w {r['k3w_ms']:.4f} ms ({100 * r['bound_ms'] / r['k3w_ms']:.1f}%; plan "
+              f"{r['k3w_plan']}) | rel err {r['k3_rel_err']:.2e}, {r['k3w_rel_err']:.2e} | the "
+              f"dispatch takes {r['dispatch']}", flush=True)
+        if max(r["k3_rel_err"], r["k3w_rel_err"]) > TOL[getattr(torch, r["dtype"])]:
+            fail(f"phase (n): K3 or K3w at d1 = {r['d1']} ({r['dtype']}) differs from the plain "
+                 f"version")
+        if r["dispatch"] != faster:
+            fail(f"phase (n): at d1 = {r['d1']} ({r['dtype']}) the dispatch takes "
+                 f"{r['dispatch']}, the slower")
+    return rows
+
+
+def degree7_breakdown():
+    """Phase (p): one projection SSP2 step at k = 7 on WIDE_NX^2, float32,
+    after a warm-up step, under torch.profiler: device ms by kernel, the
+    busy share of the step and the operators with the most device time
+    (tools/ab_cross_patch.py main_path).  Returns its dict."""
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import main_path
+
+    r = main_path(nx=WIDE_NX, degree=7, steps=1)
+    ms = {k: v for k, v in r["kernel_device_ms"].items() if v > 0}
+    print(f"# phase (p) k=7 {WIDE_NX}^2 float32, one step: set-up {r['setup_s']:.2f} s, "
+          f"{r['s_per_step']:.3f} s/step, device busy {r['device_ms']:.1f} ms "
+          f"({100 * r['device_busy_share']:.1f}% of the step, {r['device_events']} kernels) | "
+          f"by kernel " + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f" | launches a step {dict((k, v) for k, v in r['launches_per_step'].items() if v)}"
+          f" | counts tentative {r['tentative']} pressure {r['pressure']}", flush=True)
+    print("# phase (p) top operators by device ms: "
+          + "; ".join(f"{k} {v:.2f} ms x{n}" for k, v, n in r["top_device_ms"][:10]), flush=True)
+    if not ms or r["device_ms"] <= 0:
+        fail("phase (p): the profiler recorded no kernel of the k = 7 step")
+    return r
+
+
 def degree7_phase():
     """Phase (o): k = 7 and 8 through the CLI ((o7), (o8)), k = 7 in float64
     on the card against the CPU ((o64)) and on the disk ((o7d)).  Returns
@@ -1857,9 +1962,11 @@ def main():
     card = device_check()
 
     from incompressibleeulerhdg_tpu_torch import kernels
+    from incompressibleeulerhdg_tpu_torch.tools import ab_patch
 
     t_build = time.perf_counter()
     kernels.start_builds()  # phases 3, 3b wait for K1-K4's libraries only
+    ab_build = ab_patch.start_build()  # K3 at d1 = 28, 36 for phase (n)'s A/B
     print(f"# kernel build: nvcc started on {', '.join(kernels.all_sources())}", flush=True)
     main_cmp = compare_kernels(NX, DEGREE)
     new_cmp = compare_periodic_shapes()
@@ -1894,11 +2001,14 @@ def main():
     wide_launches, wide_checks = wide_phase()
     launches.update(wide_launches)
     wide_k = {k: compare_kernels(WIDE_NX, k) for k in WIDE_K}
+    ab_rows = patch_ab(ab_build)
     stamp("phase (n)")
     deg7_launches, deg7_checks, disk7 = degree7_phase()
     launches.update(deg7_launches)
     deg7_cmp = compare_kernels(WIDE_NX, 7)
     stamp("phase (o)")
+    k7 = degree7_breakdown()
+    stamp("phase (p)")
 
     rows = []
     for name in kernels.KERNELS:
@@ -1957,7 +2067,14 @@ def main():
                     row[f"max_rel_err_run_tables_k{k}"] = c["rel"]
                     row.update({f"{key}_k{k}": c[key] for key in (
                         "f32_vs_f64", "plain_f32_vs_f64", "f32_rtol") if key in c})
+            row["k7_step_device_ms"] = k7["kernel_device_ms"][name]
+            if name == "patch_solve_wide":
+                for r in ab_rows:
+                    row.update({f"ab_{key}_d1_{r['d1']}_{r['dtype']}": r[key] for key in (
+                        "k3_ms", "k3w_ms", "bound_ms", "dispatch")})
+                row["device_plan"] = e["device_plan"]
             if name == "gauss_jordan_wide":
+                row["device_path"] = e["device_path"]
                 d = disk7[name]
                 row.update(max_rel_err_disk_k7=d["rel"], f32_vs_f64_disk_k7=d["f32_vs_f64"],
                            plain_f32_vs_f64_disk_k7=d["plain_f32_vs_f64"],

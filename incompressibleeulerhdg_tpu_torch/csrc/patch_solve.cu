@@ -36,14 +36,15 @@
 //   loop trip); Cp and Bp are read through L1.
 // No tensor cores: every facet has its own matrices (no reuse).
 //
-// Widths: above d1 = 15 a tile is one 16-byte row of facets (TC = VEC, the
-// TMA minimum).  The four tables of that tile take 2 nu^2 + 2 d1^2 rows of
-// 16 bytes: 128,768 B at d1 = 28 and 208,128 B at d1 = 36 (rows rounded to
-// whole boxes), so from k = 5 a block runs alone on its SM with nu threads,
-// and k = 7 (d1 = 45: 259,200 B of Dinv0 and Sinv alone) exceeds the
-// 232,448 B a block may use.  Staging K10, Sinv and K01 through one buffer
-// would not lift that limit, since Dinv0 and Sinv each take 129,600 B at
-// d1 = 45: the shared memory of one tile sets the widest degree, k = 6.
+// Widths: instantiated for d1 = 3 .. 21 (k = 0 .. 4).  Above d1 = 15 a
+// tile is one 16-byte row of facets (TC = VEC, the TMA minimum), and the
+// four tables of that tile take 2 nu^2 + 2 d1^2 rows of 16 bytes: from
+// d1 = 28 (128,768 B) a block runs alone on its SM with nu threads and
+// nothing overlaps its loads (d1 = 28, 36 reached 29%, 19% of the bytes
+// bound on the H100), and d1 = 45 exceeds the 232,448 B a block may use.
+// Every wider d1 goes to K3w (csrc/patch_solve_wide.cu), which splits a
+// facet tile's rows over a thread-block cluster; tools/ab_patch.py builds
+// this template at d1 = 28, 36 to time it against K3w.
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -281,8 +282,6 @@ static int dispatch_d1(int d1, const void* Di, const void* Si, const void* K01,
     case 10: return launch<T, 10>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     case 15: return launch<T, 15>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     case 21: return launch<T, 21>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
-    case 28: return launch<T, 28>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
-    case 36: return launch<T, 36>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,6 @@
 // K3w: the fused facet-pair patch solve of one facet colour (K3) at a width
-// d1 given at run time (every degree; the port launches it for the widths
-// that patch_solve.cu is not instantiated for, d1 = 45 (k = 7) and up).
+// d1 given at run time (the port launches it for every width from d1 = 28,
+// k = 5, on; patch_solve.cu serves d1 <= 21).
 //
 // For every facet c of the colour (table column off + c) the exact 2x2
 // block-Schur solve of the [plus cell, minus cell] patch, in K3's five
@@ -22,30 +22,270 @@
 // colour (16,256 facets) holds Dinv0 + Sinv = 2 * 90*90*16256*4 B = 1,053
 // MB and K01 + K10 = 263 MB, plus 23 MB of fields: 1,340 MB, 0.400 ms at
 // 3.35 TB/s.  The 5 nu^2 + 4 d1^2 FMAs a facet are about a fifth of that
-// time in float32.
+// time in float32.  Every table must therefore be read once, Dinv0 too,
+// which phases 1 and 5 both apply: one facet's Dinv0 (32 KB at d1 = 45)
+// and Sinv exceed what one thread block can stage for enough facets.
 //
-// What the design does about it: K3 stages one tile of all four tables in
-// shared memory, which from d1 = 45 exceeds the 232,448 B a block may use
-// (Dinv0 and Sinv of one 16-byte row of facets alone take 259,200 B).
-// Here only the three facet vectors are staged: a block owns F
-// consecutive facets of the colour (F = 32, or 16 or 8 where the vectors
-// would not fit; the wrapper chooses F and passes it), laid out [nu][F] in
-// shared memory (r0 then u, w then y1, t: 69 KB at d1 = 45, F = 32,
-// float64).  The block is F lanes by 256 / F row slots: lanes run along
-// facets, so each table entry of the F facets is one coalesced read
-// straight from device memory, and every table is read once but Dinv0,
-// which phases 1 and 5 both read (the least time is then about 71% of the
-// bound at d1 = 45).  A row slot's thread computes the rows slot, slot +
-// 256 / F, ... of a phase; its vector reads are consecutive words across
-// the lanes (no bank conflict); Cp and Bp are read through L1.  One
-// __syncthreads between phases.  Tiles are aligned in table columns (the
-// colour's first and last tiles mask the facets outside it), so a warp's
-// read of a table entry starts a 128-byte line where the table's column
-// stride allows.
-#include "common.cuh"
+// What the design does about it (the plan, F facets and a cluster of CS
+// thread blocks, comes from linalg/preconditioners.py:patch_wide_plan):
+// - a cluster of CS thread blocks on neighbouring SMs owns F consecutive
+//   facets (table columns, aligned to F); rank r owns the scalar rows
+//   i0 .. i1 - 1 of d1 (d1 split as evenly as CS allows) in both
+//   components, rows i and d1 + i of every phase, so each row of K01 and
+//   K10 has one owner too;
+// - at the start one thread issues TMA box loads of the rank's rows of
+//   Dinv0 for the F facets into shared memory (a box is one scalar row's
+//   nu table rows by F columns, on its own mbarrier), where they stay from
+//   phase 1 to phase 5: every table entry is read from device memory once;
+// - a thread owns one row of one facet, lanes along facets (F x the
+//   element size = 64 or 128 bytes of a table row a slot: two slots a warp,
+//   or one); Dinv0's sums read shared memory (where two slots share a warp
+//   the odd one walks j ^ 1, so the two read distinct banks), K10, Sinv and K01 stream from device
+//   memory in groups of K3W_U loads, the next group in flight while the
+//   last one's FMAs run, and each phase's first group is loaded before the
+//   cluster barrier that precedes the phase (K10's before phase 1);
+// - each phase writes the rank's rows of its vector (w, t, y1, u) into
+//   every rank's copy of the whole vector through distributed shared
+//   memory (cooperative_groups map_shared_rank), and one cluster barrier
+//   (release/acquire) sits between phases;
+// - Cp and Bp (nu x nu, one a colour) are read through L1, the same address
+//   across a slot's lanes, while the K10 and K01 loads are in flight.
+// Staging all four tables' rows with TMA instead (so every load is
+// asynchronous), and a persistent cluster that double-buffers Dinv0's
+// rows, were both slower at every width tried on the H100.
+//
+// Past every cluster plan (from d1 = 79: a rank's rows of Dinv0 for 16
+// facets no longer fit one SM on 8 ranks) the plan has CS = 0 and
+// patch_solve_wide_kernel_dev runs instead: one thread block of 256
+// threads owns F facets (32, or 16 or 8 where the vectors do not fit) and
+// stages only their three vectors ([nu][F]: r0 then u, w then y1, t); F
+// lanes by 256 / F row slots, a slot computing the rows slot, slot + 256 /
+// F, ... of each phase; every table is read once from device memory but
+// Dinv0, which phases 1 and 5 both read.  One __syncthreads between
+// phases.  It takes any width whose vectors fit a block (float64 d1 <= 605).
+// Tiles are aligned in table columns (TMA reads from a 16-byte aligned
+// column; the colour's first and last tiles mask the facets outside it,
+// and TMA fills columns past off + m with zeros).
+#include <cooperative_groups.h>
 
-constexpr int PATCH_WIDE_THREADS = 256;
+#include "common.cuh"
+#include "tma.cuh"
+
+namespace cg = cooperative_groups;
+
 constexpr int PATCH_WIDE_SMEM_MAX = 232448;
+constexpr int PATCH_WIDE_CLUSTER_MAX = 8;
+
+// shared-memory layout, in elements of T: 2 RS Dinv0 slots (nu table rows
+// x F each), two vectors (nu x F: r0, then t, then u; w, then y1), every
+// region 128-byte aligned; then an mbarrier a slot
+struct PatchWideLayout {
+  int sd;  // slot (and vector) size
+  int off_d, off_x, off_w, off_bar;
+  long long bytes;
+};
+
+__host__ __device__ inline PatchWideLayout patch_wide_layout(int d1, int F, int RS, int size) {
+  const int per = 128 / size;  // elements of 128 bytes
+  PatchWideLayout L;
+  L.sd = iehdg_round_up(2 * d1 * F, per);
+  L.off_d = 0;
+  L.off_x = L.off_d + 2 * RS * L.sd;
+  L.off_w = L.off_x + L.sd;
+  L.off_bar = L.off_w + L.sd;
+  L.bytes = (long long)L.off_bar * size + 2 * RS * 8;
+  return L;
+}
+
+constexpr int K3W_U = 16;               // table loads a group (in flight a thread: two)
+constexpr int K3W_THREADS_MAX = 512;    // 128 registers a thread
+constexpr int PATCH_WIDE_DEV_THREADS = 256;  // the plan without a cluster
+
+// sum_j A[j ^ jx][lane] x[j ^ jx][lane] over n (even) terms of a staged
+// slot A and vector x ([j][F], from the thread's lane): with jx = 1 each
+// pair of terms is read in swapped order (two base pointers)
+template <typename T, int F>
+__device__ __forceinline__ T smem_dot(const T* A, const T* x, int n, int jx) {
+  const int s = jx * F;
+  const T *Ae = A + s, *Ao = A - s, *xe = x + s, *xo = x - s;
+  T acc[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) acc[u] = T(0);
+  int j = 0;
+  for (; j + 8 <= n; j += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; u += 2) {
+      acc[u] += Ae[(j + u) * F] * xe[(j + u) * F];
+      acc[u + 1] += Ao[(j + u + 1) * F] * xo[(j + u + 1) * F];
+    }
+  }
+  for (; j < n; j += 2) {
+    acc[0] += Ae[j * F] * xe[j * F];
+    acc[1] += Ao[(j + 1) * F] * xo[(j + 1) * F];
+  }
+  return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + ((acc[4] + acc[5]) + (acc[6] + acc[7]));
+}
+
+// The loads of a table row at the thread's column, K3W_U terms a group:
+// group j0 of the n terms A[j * ld] into v (rows past n read row n - 1).
+template <typename T>
+__device__ __forceinline__ void load_group(T (&v)[K3W_U], const T* __restrict__ A, long long ld,
+                                           int j0, int n) {
+  const T* q = A + (long long)j0 * ld;
+#pragma unroll
+  for (int u = 0; u < K3W_U; ++u) {
+    v[u] = __ldg(q);
+    if (j0 + u + 1 < n) q += ld;
+  }
+}
+
+// sum_j A[j * ld] x[j][lane] over n terms, with group 0 already in v: each
+// group's FMAs run while the next group's loads are in flight
+template <typename T, int F>
+__device__ __forceinline__ T stream_dot(T (&v)[K3W_U], const T* __restrict__ A, long long ld,
+                                        int n, const T* x) {
+  T acc[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) acc[u] = T(0);
+  int j = 0;
+  for (; j + K3W_U < n; j += K3W_U) {
+    T w[K3W_U];
+    load_group(w, A, ld, j + K3W_U, n);
+#pragma unroll
+    for (int u = 0; u < K3W_U; ++u) {
+      acc[u % 8] += v[u] * x[(j + u) * F];
+      v[u] = w[u];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < K3W_U; ++u) acc[u % 8] += j + u < n ? v[u] * x[(j + u) * F] : T(0);
+  return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + ((acc[4] + acc[5]) + (acc[6] + acc[7]));
+}
+
+// (I2 (x) K + P)[row, :] x for the thread's facet: K the thread's scalar
+// row i at its column (stride ld), whose first group is already in v, P
+// the colour's nu x nu block (through L1), summed while K's loads fly
+template <typename T, int F>
+__device__ __forceinline__ T cross_dot(T (&v)[K3W_U], const T* __restrict__ K, long long ld,
+                                       const T* __restrict__ P, const T* x, int d1, int a,
+                                       int row) {
+  const int nu = 2 * d1;
+  T acc[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) acc[u] = T(0);
+  const T* p = P + (long long)row * nu;
+  int j = 0;
+  for (; j + 4 <= nu; j += 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[u] += __ldg(p + j + u) * x[(j + u) * F];
+  }
+  for (; j < nu; ++j) acc[0] += __ldg(p + j) * x[j * F];
+  return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + stream_dot<T, F>(v, K, ld, d1, x + a * d1 * F);
+}
+
+// this thread's value of the rank's row `row` (of F facets) into every
+// rank's copy of a vector
+template <typename T>
+__device__ __forceinline__ void push_row(cg::cluster_group& cl, T* v, int row, int lane, int F,
+                                         int CS, T val) {
+  for (int r = 0; r < CS; ++r) cl.map_shared_rank(v, r)[row * F + lane] = val;
+}
+
+template <typename T, int F>
+__global__ void __launch_bounds__(K3W_THREADS_MAX) patch_solve_wide_kernel(
+    const __grid_constant__ CUtensorMap mD, const T* __restrict__ Si, const T* __restrict__ K01, const T* __restrict__ K10,
+    long long ld, int d1, int RS, long long off, const T* __restrict__ Bp,
+    const T* __restrict__ Cp, const T* __restrict__ r0, const T* __restrict__ r1,
+    T* __restrict__ y0, T* __restrict__ y1, long long m) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int CS = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int nu = 2 * d1;
+  const PatchWideLayout L = patch_wide_layout(d1, F, RS, (int)sizeof(T));
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* sD = sm + L.off_d;
+  T* sx = sm + L.off_x;  // r0, then t, then u
+  T* sw = sm + L.off_w;  // w, then y1
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + L.off_bar * sizeof(T));  // a slot each
+  const int i0 = (int)((long long)rank * d1 / CS), i1 = (int)((long long)(rank + 1) * d1 / CS);
+  const int rs = i1 - i0;  // scalar rows of this rank (<= RS)
+  // the cluster's tile: table columns col .. col + F - 1 (aligned), facets c = col - off
+  const long long col0 = off - off % F + (long long)(blockIdx.x / CS) * F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  if (tid == 0) {
+    for (int k = 0; k < 2 * RS; ++k) mbar_init(bar + k, 1);
+    mbar_fence_init();
+    const int c = (int)col0;
+    for (int il = 0; il < rs; ++il)
+      for (int a = 0; a < 2; ++a) {
+        const int k = a * RS + il;
+        mbar_expect_tx(bar + k, (uint32_t)(nu * F * sizeof(T)));
+        tma_load_2d(sD + k * L.sd, &mD, c, (a * d1 + i0 + il) * nu, bar + k);
+      }
+  }
+  // the whole r0 of the F facets, and the thread's own row of r1
+  for (int e = tid; e < nu * F; e += nt) {
+    const int j = e / F, ln = e % F;
+    const long long c = col0 + ln - off;
+    sx[e] = c >= 0 && c < m ? r0[j * m + c] : T(0);
+  }
+  const int lane = tid % F, slot = tid / F;
+  const int a = slot >= RS ? 1 : 0, il = slot - a * RS;
+  const bool act = il < rs;
+  const int i = i0 + il, row = a * d1 + i;  // the thread's rows of K and of every phase
+  const long long c = col0 + lane - off;
+  const bool in = act && c >= 0 && c < m;
+  const long long tcol = in ? col0 + lane : off;  // a column of the colour for masked lanes
+  const int jx = F * (int)sizeof(T) < 128 ? (slot & 1) : 0;  // two slots a warp: distinct banks
+  const T r1v = in ? r1[row * m + c] : T(0);
+  const T* Dr = sD + (a * RS + il) * L.sd + lane;
+  const T* K10r = K10 + (long long)i * d1 * ld + tcol;
+  const T* Sr = Si + (long long)row * nu * ld + tcol;
+  const T* K01r = K01 + (long long)i * d1 * ld + tcol;
+  T v0[K3W_U];  // the first group of the next phase's table row, loaded ahead
+  if (act) load_group(v0, K10r, ld, 0, d1);
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  __syncthreads();  // barriers initialised, r0 staged
+
+  // w = Dinv0 r0
+  const T r0v = act ? sx[row * F + lane] : T(0);  // for phase 4: t and u take r0's place
+  if (act) mbar_wait(bar + a * RS + il, 0);
+  T v = act ? smem_dot<T, F>(Dr, sx + lane, nu, jx) : T(0);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank runs
+  if (act) push_row(cl, sw, row, lane, F, CS, v);
+  cl.sync();
+
+  // t = r1 - (I2 (x) K10 + Cp) w (into r0: every rank has read r0)
+  if (act) {
+    v = r1v - cross_dot<T, F>(v0, K10r, ld, Cp, sw + lane, d1, a, row);
+    load_group(v0, Sr, ld, 0, nu);
+    push_row(cl, sx, row, lane, F, CS, v);
+  }
+  cl.sync();
+
+  // y1 = Sinv t (into w: every rank has read w)
+  if (act) {
+    v = stream_dot<T, F>(v0, Sr, ld, nu, sx + lane);
+    load_group(v0, K01r, ld, 0, d1);
+    if (in) y1[row * m + c] = v;
+    push_row(cl, sw, row, lane, F, CS, v);
+  }
+  cl.sync();
+
+  // u = r0 - (I2 (x) K01 + Bp) y1 (into t: every rank has read t)
+  if (act) {
+    v = r0v - cross_dot<T, F>(v0, K01r, ld, Bp, sw + lane, d1, a, row);
+    push_row(cl, sx, row, lane, F, CS, v);
+  }
+  cl.sync();  // no rank touches another's shared memory after this
+
+  // y0 = Dinv0 u
+  if (act) {
+    v = smem_dot<T, F>(Dr, sx + lane, nu, jx);
+    if (in) y0[row * m + c] = v;
+  }
+}
 
 // acc = sum_j A[row, j, col] x[j] over an nu x nu table (column stride ld)
 // and a staged vector x ([j][F], the thread's lane)
@@ -62,9 +302,9 @@ __device__ __forceinline__ T table_dot(const T* __restrict__ A, long long ld, in
 // (I2 (x) K + P)[row, :] x for the facet of the thread's lane (K the d1 x d1
 // table at the facet's column, P the colour's nu x nu block)
 template <typename T>
-__device__ __forceinline__ T cross_dot(const T* __restrict__ K, long long ld,
-                                       const T* __restrict__ P, int d1, int row, const T* x,
-                                       int F) {
+__device__ __forceinline__ T cross_dot_dev(const T* __restrict__ K, long long ld,
+                                           const T* __restrict__ P, int d1, int row, const T* x,
+                                           int F) {
   const int nu = 2 * d1;
   const int a = row >= d1 ? 1 : 0;
   const int i = row - a * d1;
@@ -80,7 +320,7 @@ __device__ __forceinline__ T cross_dot(const T* __restrict__ K, long long ld,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(PATCH_WIDE_THREADS) patch_solve_wide_kernel(
+__global__ void __launch_bounds__(PATCH_WIDE_DEV_THREADS) patch_solve_wide_kernel_dev(
     int d1, const T* __restrict__ Di, const T* __restrict__ Si, const T* __restrict__ K01,
     const T* __restrict__ K10, long long ld, long long off, const T* __restrict__ Bp,
     const T* __restrict__ Cp, const T* __restrict__ r0, const T* __restrict__ r1,
@@ -111,7 +351,7 @@ __global__ void __launch_bounds__(PATCH_WIDE_THREADS) patch_solve_wide_kernel(
   // t = r1 - (I2 (x) K10 + Cp) w
   for (int row = slot; row < nu; row += slots) {
     const T r = in ? r1[row * m + c] : T(0);
-    st[row * F + lane] = r - cross_dot(K10c, ld, Cp, d1, row, sw + lane, F);
+    st[row * F + lane] = r - cross_dot_dev(K10c, ld, Cp, d1, row, sw + lane, F);
   }
   __syncthreads();
   // y1 = Sinv t (kept in w)
@@ -123,7 +363,7 @@ __global__ void __launch_bounds__(PATCH_WIDE_THREADS) patch_solve_wide_kernel(
   __syncthreads();
   // u = r0 - (I2 (x) K01 + Bp) y1 (each thread updates its own rows of u)
   for (int row = slot; row < nu; row += slots)
-    su[row * F + lane] -= cross_dot(K01c, ld, Bp, d1, row, sw + lane, F);
+    su[row * F + lane] -= cross_dot_dev(K01c, ld, Bp, d1, row, sw + lane, F);
   __syncthreads();
   // y0 = Dinv0 u
   for (int row = slot; row < nu; row += slots) {
@@ -132,51 +372,119 @@ __global__ void __launch_bounds__(PATCH_WIDE_THREADS) patch_solve_wide_kernel(
   }
 }
 
-// shared bytes of the three facet vectors of F facets
-static inline long long patch_wide_smem(int d1, int F, int size) {
-  return 3LL * 2 * d1 * F * size;
-}
-
+// the plan without a cluster (CS = 0): F facets a block of
+// PATCH_WIDE_DEV_THREADS threads, `smem` = the three vectors' bytes
 template <typename T>
-static int launch(int d1, int F, const void* Di, const void* Si, const void* K01,
-                  const void* K10, long long ld, long long off, const void* Bp, const void* Cp,
-                  const void* r0, const void* r1, void* y0, void* y1, long long m,
-                  cudaStream_t stream) {
-  const long long smem = patch_wide_smem(d1, F, (int)sizeof(T));
-  if (smem > PATCH_WIDE_SMEM_MAX) return (int)cudaErrorInvalidValue;
+static int launch_dev(int d1, int F, int threads, long long smem, const void* Di,
+                      const void* Si, const void* K01, const void* K10, long long ld,
+                      long long off, const void* Bp, const void* Cp, const void* r0,
+                      const void* r1, void* y0, void* y1, long long m, cudaStream_t stream) {
+  if ((F != 8 && F != 16 && F != 32) || threads != PATCH_WIDE_DEV_THREADS ||
+      smem != 3LL * 2 * d1 * F * (long long)sizeof(T) || smem > PATCH_WIDE_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
   static bool attr = false;  // the cap only: a launch takes the bytes it asks for
   if (!attr) {
     const cudaError_t a = cudaFuncSetAttribute(
-        patch_solve_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        patch_solve_wide_kernel_dev<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         PATCH_WIDE_SMEM_MAX);
     if (a != cudaSuccess) return (int)a;
     attr = true;
   }
   const long long ntiles = off % F + m;  // columns from the aligned first tile
-  const dim3 block(F, PATCH_WIDE_THREADS / F);
-  patch_solve_wide_kernel<T><<<blocks_for(ntiles, F), block, smem, stream>>>(
+  const dim3 block(F, PATCH_WIDE_DEV_THREADS / F);
+  patch_solve_wide_kernel_dev<T><<<blocks_for(ntiles, F), block, smem, stream>>>(
       d1, (const T*)Di, (const T*)Si, (const T*)K01, (const T*)K10, ld, off, (const T*)Bp,
       (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0, (T*)y1, m);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int launch(int d1, int F, int CS, int threads, long long smem, const void* Di,
+                  const void* Si, const void* K01, const void* K10, long long ld, long long off,
+                  const void* Bp, const void* Cp, const void* r0, const void* r1, void* y0,
+                  void* y1, long long m, cudaStream_t stream) {
+  const int nu = 2 * d1;
+  const int RS = (d1 + CS - 1) / CS;
+  const PatchWideLayout L = patch_wide_layout(d1, F, RS, (int)sizeof(T));
+  if (smem != L.bytes || smem > PATCH_WIDE_SMEM_MAX || threads != 2 * RS * F ||
+      threads > K3W_THREADS_MAX || nu > 256 || F > 256 ||
+      (F * (int)sizeof(T) != 64 && F * (int)sizeof(T) != 128) ||
+      off + m > 0x7fffffffLL)  // TMA boxes: at most 256 a side, int32 coordinates
+    return (int)cudaErrorInvalidValue;
+  const long long ncols = off + m;
+  CUtensorMap mD;
+  if (((uintptr_t)Di | (uintptr_t)Si | (uintptr_t)K01 | (uintptr_t)K10) % 16 ||
+      (ld * (long long)sizeof(T)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const int es = (int)sizeof(T);
+  const int e = encode_table_map(&mD, Di, es, (long long)nu * nu, ld, ncols, F, nu);
+  if (e) return e;
+  void (*kernel)(const CUtensorMap, const T*, const T*, const T*, long long, int, int,
+                 long long, const T*, const T*, const T*, const T*, T*, T*, long long) =
+      F * (int)sizeof(T) == 64 ? patch_solve_wide_kernel<T, 64 / sizeof(T)>
+                               : patch_solve_wide_kernel<T, 128 / sizeof(T)>;
+  static bool attr = false;  // the cap only: a launch takes the bytes it asks for
+  if (!attr) {
+    cudaError_t a = cudaFuncSetAttribute(patch_solve_wide_kernel<T, 64 / sizeof(T)>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         PATCH_WIDE_SMEM_MAX);
+    if (a == cudaSuccess)
+      a = cudaFuncSetAttribute(patch_solve_wide_kernel<T, 128 / sizeof(T)>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, PATCH_WIDE_SMEM_MAX);
+    if (a != cudaSuccess) return (int)a;
+    attr = true;
+  }
+  const long long ntiles = off % F + m;  // columns from the aligned first tile
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks_for(ntiles, F) * CS);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = CS;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, kernel, mD, (const T*)Si, (const T*)K01, (const T*)K10, ld, d1, RS, off,
+      (const T*)Bp,
+      (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0, (T*)y1, m);
+  return le != cudaSuccess ? (int)le : (int)cudaGetLastError();
+}
+
 // dtype: 0 float32, 1 float64.  Di/Si (nu, nu, ld-strided columns), K01/K10
-// (d1, d1, ld-strided columns), Bp/Cp (nu, nu), r0/r1/y0/y1 (nu, m),
-// contiguous; the colour's table columns are off .. off + m - 1; F (8, 16
-// or 32) facets a thread block, whose three vectors must fit the shared
-// memory of a block.
-IEHDG_EXPORT int iehdg_patch_solve_wide(int device, int dtype, int d1, int F, const void* Di,
+// (d1, d1, ld-strided columns) with 16-byte aligned bases and rows, Bp/Cp
+// (nu, nu), r0/r1/y0/y1 (nu, m), contiguous; the colour's table columns are
+// off .. off + m - 1.  The plan (preconditioners.py:patch_wide_plan): F
+// facets a cluster of CS thread blocks (F x the element size 64 or 128
+// bytes), `threads` = 2 ceil(d1 / CS) F,
+// `smem` the bytes of the layout above; or CS = 0, F = 8, 16 or 32 facets a
+// thread block of 256 threads, `smem` = 3 nu F elements (the plan without a
+// cluster); one that does not match returns cudaErrorInvalidValue.
+IEHDG_EXPORT int iehdg_patch_solve_wide(int device, int dtype, int d1, int F, int CS,
+                                        int threads, long long smem, const void* Di,
                                         const void* Si, const void* K01, const void* K10,
                                         long long ld, long long off, const void* Bp,
                                         const void* Cp, const void* r0, const void* r1,
                                         void* y0, void* y1, long long m, void* stream) {
-  if (d1 < 1 || m < 1 || (F != 8 && F != 16 && F != 32)) return (int)cudaErrorInvalidValue;
+  if (d1 < 1 || m < 1 || F < 1 || CS < 0 || CS > PATCH_WIDE_CLUSTER_MAX || CS > d1)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
+  if (CS == 0 && dtype == 0)
+    return launch_dev<float>(d1, F, threads, smem, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1,
+                             y0, y1, m, st);
+  if (CS == 0 && dtype == 1)
+    return launch_dev<double>(d1, F, threads, smem, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1,
+                              y0, y1, m, st);
   if (dtype == 0)
-    return launch<float>(d1, F, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    return launch<float>(d1, F, CS, threads, smem, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1,
+                         y0, y1, m, st);
   if (dtype == 1)
-    return launch<double>(d1, F, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    return launch<double>(d1, F, CS, threads, smem, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1,
+                          y0, y1, m, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -81,7 +81,7 @@ KERNELS = {
         [_I, _I, _I, _P, _P, _L, _P],
         "tools/microbench_gj.py:79 _gj_old",
     ),
-    # the runtime-width kernels of d1 >= 45 and n > 72 (k >= 7)
+    # the runtime-width kernels of d1 >= 45 (K3w: d1 >= 28) and n > 72
     "fact_apply_wide": (
         "iehdg_fact_apply_wide",
         [_I, _I, _I, _P, _L, _L, _P, _LP, _I, _P, _P, _L, _P],
@@ -94,12 +94,12 @@ KERNELS = {
     ),
     "patch_solve_wide": (
         "iehdg_patch_solve_wide",
-        [_I, _I, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P],
+        [_I, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P],
         "incompressibleeulerhdg_tpu/linalg/preconditioners.py:1199 _patch_pallas",
     ),
     "gauss_jordan_wide": (
         "iehdg_gauss_jordan_wide",
-        [_I, _I, _I, _P, _P, _L, _P],
+        [_I, _I, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
         "incompressibleeulerhdg_tpu/linalg/smallinv.py:89 gauss_jordan_inv_bl",
     ),
 }

@@ -36,14 +36,15 @@ CUDA here, each beside its plain PyTorch version (the JAX fallback):
 - K3 :func:`patch_solve` (csrc/patch_solve.cu) -- one colour's patch solves
 
 A CPU tensor goes to the plain version; a CUDA tensor launches a kernel,
-chosen by the width d1 = (k + 2)(k + 3)/2 alone: the three kernels above
-are instantiated for the degrees k = 0 .. 6 (d1 in :data:`CUDA_D1`), and
-any other width launches their runtime-width counterparts K1w, K2w
-(csrc/wide_apply.cu) and K3w (csrc/patch_solve_wide.cu), so the card takes
-every degree.  K2 and K3 stage their per-facet tables in shared memory
-with TMA, which needs 16-byte rows: the operator's facet tables are
-allocated with a padded column stride (:func:`pad_table`; the plain
-versions and the wide kernels read the same views).
+chosen by the width d1 = (k + 2)(k + 3)/2 alone: K1 and K2 are
+instantiated for the degrees k = 0 .. 6 (d1 in :data:`CUDA_D1`), K3 for
+k = 0 .. 4 (:data:`PATCH_D1`), and any other width launches their
+runtime-width counterparts K1w, K2w (csrc/wide_apply.cu) and K3w
+(csrc/patch_solve_wide.cu: a thread-block cluster a facet tile up to d1 =
+78, one thread block a tile past it, planned by :func:`patch_wide_plan`).  K2, K3 and K3w read their
+per-facet tables with TMA, which needs 16-byte rows: the operator's facet
+tables are allocated with a padded column stride (:func:`pad_table`; the
+plain versions and K1w, K2w read the same views).
 """
 
 import os
@@ -103,23 +104,38 @@ class TentativeOperator:
     Cx: torch.Tensor = None  # (nu, nu, nf) minus rows, plus columns
 
 
-CUDA_D1 = (3, 6, 10, 15, 21, 28, 36)  # k = 0 .. 6: K1-K3's instantiations
+CUDA_D1 = (3, 6, 10, 15, 21, 28, 36)  # k = 0 .. 6: K1 and K2's instantiations
+PATCH_D1 = (3, 6, 10, 15, 21)  # k = 0 .. 4: K3's; K3w takes every other width
 SMEM_MAX = 232448  # bytes of shared memory a thread block may use (H100)
-PATCH_WIDE_FACETS = (32, 16, 8)  # K3w's facets a thread block, widest first
+PATCH_WIDE_ROW_BYTES = (64, 128)  # K3w: bytes of a table row a cluster reads
+PATCH_WIDE_CLUSTER_MAX = 8  # the portable cluster size
+PATCH_WIDE_THREADS_MAX = 512  # csrc/patch_solve_wide.cu K3W_THREADS_MAX
+PATCH_WIDE_DEV_FACETS = (32, 16, 8)  # K3w past every cluster plan: facets a thread block
+PATCH_WIDE_DEV_THREADS = 256  # csrc/patch_solve_wide.cu PATCH_WIDE_DEV_THREADS
+# K3w's fastest (F, CS) by device time on one 128^2 colour, from
+# tools/ab_patch.py --sweep (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md
+# section 6); other widths take the rule in patch_wide_plan
+PATCH_WIDE_MEASURED = {
+    (28, torch.float32): (32, 4), (36, torch.float32): (16, 4),
+    (45, torch.float32): (16, 5), (55, torch.float32): (32, 8),
+    (28, torch.float64): (16, 4), (36, torch.float64): (16, 4),
+    (45, torch.float64): (16, 5), (55, torch.float64): (16, 8),
+}
 
 
 def width_kernels(d1):
     """Names of the kernels that K1, K2, K3's wrappers launch at width d1:
-    ``fact_apply``, ``cross_pair``, ``patch_solve`` at their instantiated
-    widths (:data:`CUDA_D1`), their ``*_wide`` counterparts at any other."""
-    sfx = "" if d1 in CUDA_D1 else "_wide"
-    return tuple(f"{k}{sfx}" for k in ("fact_apply", "cross_pair", "patch_solve"))
+    ``fact_apply``, ``cross_pair`` at their instantiated widths
+    (:data:`CUDA_D1`), ``patch_solve`` at its own (:data:`PATCH_D1`), their
+    ``*_wide`` counterparts at any other."""
+    return tuple(k if d1 in widths else f"{k}_wide" for k, widths in (
+        ("fact_apply", CUDA_D1), ("cross_pair", CUDA_D1), ("patch_solve", PATCH_D1)))
 
 
 def _wide_tables(*tables):
     """Tables of one shape class with a common batch-last column stride ``ld``
     (strides (b * ld, ld, 1), ``ld`` >= the column count, as :func:`pad_table`
-    or ``contiguous`` leave them), as K1w-K3w read them: the tables
+    or ``contiguous`` leave them), as K1w and K2w read them: the tables
     themselves where they have one, else contiguous copies.  Returns
     (tables, ld)."""
     ld = tables[0].stride(1)
@@ -129,19 +145,63 @@ def _wide_tables(*tables):
     return tables, tables[0].shape[2]
 
 
-def patch_wide_facets(d1, dtype):
-    """Facets a thread block of K3w at width d1: the widest of
-    :data:`PATCH_WIDE_FACETS` whose three facet vectors (nu x F each) fit a
-    block's shared memory; raises NotImplementedError past them all (in
-    float64 from d1 = 606: k = 33)."""
+def patch_wide_smem(d1, F, CS, size):
+    """Shared bytes of a K3w thread block (csrc/patch_solve_wide.cu
+    ``patch_wide_layout``): the rank's RS = ceil(d1 / CS) scalar rows of
+    Dinv0 (2 RS slots of nu table rows x F facets), two vectors (nu x F),
+    each 128-byte aligned, and an mbarrier a slot."""
+    nu, rs, per = 2 * d1, -(-d1 // CS), 128 // size
+    return (2 * rs + 2) * (-(-nu * F // per) * per) * size + 2 * rs * 8
+
+
+def patch_wide_plan(d1, dtype, F=None, CS=None):
+    """K3w's launch plan at width d1.  A cluster plan (``path`` "cluster"):
+    F facets (table columns) a cluster of CS thread blocks, rank r owning
+    the scalar rows r d1 / CS .. (r + 1) d1 / CS - 1 (both components),
+    ``RS`` = ceil(d1 / CS) the most a rank holds, ``threads`` = 2 RS F (one
+    row of one facet each) and ``smem_bytes`` (:func:`patch_wide_smem`).
+    F x the element size is one of :data:`PATCH_WIDE_ROW_BYTES`; a cluster
+    plan needs nu <= 256 (the rows of a TMA box),
+    :data:`PATCH_WIDE_THREADS_MAX` threads and 232,448 shared bytes at
+    most.  The default is the measured fastest (:data:`PATCH_WIDE_MEASURED`)
+    where there is one, else the most facets x rows a thread block (F RS)
+    within half the shared memory, then the widest table rows (over the
+    whole where nothing fits half).  Where no cluster plan fits (from d1 =
+    81, float32 and float64 alike: k = 11 on) the plan is ``path``
+    "device", ``CS`` = 0, ``RS`` = d1: F of :data:`PATCH_WIDE_DEV_FACETS`
+    facets a thread block of :data:`PATCH_WIDE_DEV_THREADS` threads, the
+    widest whose three vectors (3 nu F elements) fit its shared memory,
+    Dinv0 read from device memory in phases 1 and 5.  ``F`` and ``CS`` (0
+    for the device plan) fix a plan.  Raises NotImplementedError past every
+    plan (float64 from d1 = 606, float32 from 1,211)."""
     size = torch.empty((), dtype=dtype).element_size()
-    for F in PATCH_WIDE_FACETS:
-        if 3 * 2 * d1 * F * size <= SMEM_MAX:
-            return F
-    F = PATCH_WIDE_FACETS[-1]
+    nu = 2 * d1
+    plans = []
+    clusters = () if CS == 0 else (CS,) if CS else range(1, PATCH_WIDE_CLUSTER_MAX + 1)
+    for f in (F,) if F else (b // size for b in PATCH_WIDE_ROW_BYTES):
+        for cs in clusters:
+            rs = -(-d1 // cs)
+            smem = patch_wide_smem(d1, f, cs, size)
+            if f * size not in PATCH_WIDE_ROW_BYTES or cs > min(d1, PATCH_WIDE_CLUSTER_MAX) or \
+                    nu > 256 or 2 * rs * f > PATCH_WIDE_THREADS_MAX or smem > SMEM_MAX:
+                continue
+            plans.append({"path": "cluster", "F": f, "CS": cs, "RS": rs, "threads": 2 * rs * f,
+                          "smem_bytes": smem})
+    if plans:
+        best = [p for p in plans if (p["F"], p["CS"]) == PATCH_WIDE_MEASURED.get((d1, dtype))]
+        return best[0] if best else min(plans, key=lambda p: (
+            p["smem_bytes"] > SMEM_MAX // 2, -p["F"] * p["RS"], -p["F"], p["CS"]))
+    if CS == 0 or (CS is None and F is None):
+        for f in (F,) if F else PATCH_WIDE_DEV_FACETS:
+            smem = 3 * nu * f * size
+            if f in PATCH_WIDE_DEV_FACETS and smem <= SMEM_MAX:
+                return {"path": "device", "F": f, "CS": 0, "RS": d1,
+                        "threads": PATCH_WIDE_DEV_THREADS, "smem_bytes": smem}
     raise NotImplementedError(
-        f"patch_solve_wide: the three facet vectors of {F} facets at d1 = {d1} take "
-        f"{3 * 2 * d1 * F * size} B of shared memory, past the {SMEM_MAX} B a block may use")
+        f"patch_solve_wide: no plan at d1 = {d1} ({dtype}, F = {F}, CS = {CS}): no cluster of "
+        f"at most {PATCH_WIDE_CLUSTER_MAX} thread blocks stages its rows of Dinv0, and the "
+        f"three facet vectors of {min(PATCH_WIDE_DEV_FACETS)} facets exceed the {SMEM_MAX} B "
+        f"a thread block may use")
 
 
 def pad_table(A):
@@ -322,7 +382,8 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
         w = Dinv0 r0;  t = r1 - (I2 (x) K10 + Cp) w;  y1 = Sinv t;
         y0 = Dinv0 (r0 - (I2 (x) K01 + Bp) y1)
 
-    On the card the four tables must have :func:`pad_table`'s layout.
+    On the card the four tables must have :func:`pad_table`'s layout (K3
+    and K3w read them with TMA).
     """
     if r0.device.type == "cpu":
         return patch_solve_plain(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off)
@@ -336,18 +397,18 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
             Bp_k.shape != (nu, nu) or Cp_k.shape != (nu, nu) or \
             r1.shape != r0.shape or off + m > nf:
         raise ValueError(f"patch_solve: shapes Dinv0 {tuple(Dinv0.shape)} K {tuple(K01.shape)} r {tuple(r0.shape)}")
-    name, width = width_kernels(d1)[2], (d1,)
-    if name == "patch_solve_wide":  # K3w: F facets a thread block
-        width = (d1, patch_wide_facets(d1, r0.dtype))
-        (Dinv0, Sinv, K01, K10), ld = _wide_tables(Dinv0, Sinv, K01, K10)
+    name = width_kernels(d1)[2]
     dev, code = kernels.check_cuda(name, *ts, tables=(Dinv0, Sinv, K01, K10))
-    if name == "patch_solve":
-        ld = kernels.table_ld(name, Dinv0, Sinv, K01, K10)
+    ld = kernels.table_ld(name, Dinv0, Sinv, K01, K10)
+    plan = ()
+    if name == "patch_solve_wide":
+        p = patch_wide_plan(d1, r0.dtype)
+        plan = (p["F"], p["CS"], p["threads"], p["smem_bytes"])
     y0 = torch.empty_like(r0)
     y1 = torch.empty_like(r0)
     if m == 0:
         return y0, y1
-    kernels.launch(name, dev, code, *width, Dinv0.data_ptr(), Sinv.data_ptr(),
+    kernels.launch(name, dev, code, d1, *plan, Dinv0.data_ptr(), Sinv.data_ptr(),
                    K01.data_ptr(), K10.data_ptr(), ld, off, Bp_k.data_ptr(),
                    Cp_k.data_ptr(), r0.data_ptr(), r1.data_ptr(), y0.data_ptr(),
                    y1.data_ptr(), m, kernels.stream_ptr(r0))

@@ -7,9 +7,11 @@ block size alone: K4 (``csrc/gauss_jordan.cu``) for n <= 32, K5
 n <= 48; above it the JAX package inverts with its jnp loop), and K5w
 (``csrc/gauss_jordan_wide.cu``) above, for any n: the blocks of k >= 7.  K4
 and K5 are instantiations of one register-tiled design
-(``csrc/gauss_jordan.cuh``); K5w holds its blocks in shared memory, or in
-device memory where one block does not fit (:func:`launch_plan` describes
-a kernel's plan for n).  On a CPU tensor it runs
+(``csrc/gauss_jordan.cuh``) at a compile-time N; K5w tiles registers at a
+run-time n, splits a block's tile rows over a thread-block cluster where
+one SM's registers do not hold it, and works in device memory past a
+cluster of 8 (:func:`wide_gj_plan` chooses, :func:`launch_plan` describes
+any kernel's plan for n).  On a CPU tensor it runs
 :func:`gauss_jordan_inv_plain`, the pivot loop of the JAX fallback
 (smallinv.py:119-136).  No pivoting: the callers invert diagonally
 dominant preconditioner blocks (mass + penalty).
@@ -34,6 +36,7 @@ __all__ = [
     "gauss_jordan_inv_wide",
     "kernel_for",
     "launch_plan",
+    "wide_gj_plan",
 ]
 
 K4_MAX_N = 32  # K4's largest instantiation (csrc/gauss_jordan.cu)
@@ -41,8 +44,20 @@ SELECT_MAX_N = 72  # K5: up to k = 6 (the JAX Pallas gate is n <= 48, smallinv.p
 PLAN_KEYS = {
     "gauss_jordan": ("N", "R", "C", "BB", "threads", "smem_bytes"),
     "gauss_jordan_select": ("N", "R", "C", "BB", "threads", "smem_bytes"),
-    "gauss_jordan_wide": ("G", "RS", "threads", "smem_bytes", "in_smem"),
 }
+SMEM_MAX = 232448  # bytes of shared memory a thread block may use (H100)
+# K5w's register tiles, csrc/gauss_jordan_wide.cu GJW_TILES: R (an R x R tile
+# a thread) -> the most threads a thread block (its __launch_bounds__), in
+# the order of preference
+WIDE_GJ_TILES = {
+    torch.float32: {10: 384, 9: 448, 8: 512, 6: 640},
+    torch.float64: {6: 448, 8: 320, 4: 640},
+}
+WIDE_GJ_CLUSTER_MAX = 8  # the portable cluster size
+WIDE_GJ_WASTE = 1.1  # most padded work, (TR R / n)^2, before a less preferred R
+WIDE_GJ_BB_MAX = 8  # batch entries a thread block
+WIDE_GJ_DEV_G = 16  # device-memory path: entries a thread block
+WIDE_GJ_DEV_THREADS = 1024
 
 
 def gauss_jordan_inv_plain(A):
@@ -78,6 +93,69 @@ def gauss_jordan_inv_select_plain(A):
     return A
 
 
+def _tile_plan(n, size, R, maxt, BB=None, CS=None):
+    """K5w's register-tile plan with R x R tiles, or None where no cluster
+    of at most 8 thread blocks holds a block."""
+    TR = -(-n // R)
+    for cs in (CS,) if CS else range(1, WIDE_GJ_CLUSTER_MAX + 1):
+        rpc = -(-TR // cs)
+        if cs > 1 and (cs - 1) * rpc >= TR:  # a rank without a tile row
+            continue
+        per = rpc * TR  # threads an entry
+        if per > maxt:
+            continue
+        bb = BB or (min(WIDE_GJ_BB_MAX, maxt // per) if cs == 1 else 1)
+        smem = (4 * TR * (R | 1) * bb + 2 * bb) * size
+        if bb * per > maxt or smem > SMEM_MAX or cs > WIDE_GJ_CLUSTER_MAX:
+            return None
+        return {"path": "tiles" if cs == 1 else "cluster", "R": R, "TR": TR, "BB": bb,
+                "CS": cs, "rows_per_rank": rpc, "threads": bb * per, "smem_bytes": smem,
+                "waste": (TR * R / n) ** 2}
+    return None
+
+
+def wide_gj_plan(n, dtype, R=None, BB=None, CS=None):
+    """K5w's launch plan for (n, n) blocks of ``dtype``.
+
+    ``path`` "tiles": an R x R register tile a thread (R of
+    :data:`WIDE_GJ_TILES`), TR = ceil(n / R) tile rows and columns a block,
+    BB batch entries a thread block (as many as its threads allow, up to
+    :data:`WIDE_GJ_BB_MAX`), ``threads`` = BB TR^2; "cluster": the TR tile rows
+    split over a cluster of CS thread blocks (``rows_per_rank`` each, the
+    last may hold fewer), one batch entry a cluster, where one thread block
+    cannot hold a block's tiles; "device": the blocks in device memory (BB
+    of them a thread block, RS row slices), where no cluster of 8 holds
+    them.  ``smem_bytes``: the pivot buffers (or blocks) a thread block
+    stages.  The tile R is the first of the dtype's list whose padded work
+    (TR R / n)^2 stays within :data:`WIDE_GJ_WASTE` on the fewest thread
+    blocks a block; ``R``, ``BB`` and ``CS`` fix a plan (tools/tune_gj.py),
+    and a fixed plan that does not fit raises ValueError.  Raises
+    NotImplementedError past every plan (float64 n > 7,264)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    tiles = WIDE_GJ_TILES[dtype]
+    if R is not None:
+        if R not in tiles:
+            raise ValueError(f"gauss_jordan_wide: no {R} x {R} tile for {dtype}")
+        plan = _tile_plan(n, size, R, tiles[R], BB, CS)
+        if plan is None:
+            raise ValueError(f"gauss_jordan_wide: the plan R={R} BB={BB} CS={CS} does not "
+                             f"fit n = {n}")
+        return plan
+    plans = [p for p in (_tile_plan(n, size, r, m) for r, m in tiles.items()) if p]
+    if plans:
+        return min(plans, key=lambda p: (p["CS"], p["waste"] > WIDE_GJ_WASTE,
+                                         list(tiles).index(p["R"])))
+    G = min(WIDE_GJ_DEV_G, SMEM_MAX // (4 * n * size))
+    if G < 1:
+        raise NotImplementedError(
+            f"gauss_jordan_wide: the pivot buffers of one block at n = {n} take "
+            f"{4 * n * size} B of shared memory, past the {SMEM_MAX} B a block may use")
+    rs = min(max(1, WIDE_GJ_DEV_THREADS // (n * G)), n)
+    threads = min(WIDE_GJ_DEV_THREADS, -(-n * G * rs // 32) * 32)
+    return {"path": "device", "R": 0, "TR": 0, "BB": G, "CS": 1, "RS": rs,
+            "threads": threads, "smem_bytes": 4 * n * G * size}
+
+
 def _launch_gj(name, A, max_n=None):
     n, n2, B = A.shape
     if n != n2:
@@ -91,18 +169,25 @@ def _launch_gj(name, A, max_n=None):
     out = torch.empty_like(A)
     if B == 0:
         return out
-    kernels.launch(name, dev, code, n, A.data_ptr(), out.data_ptr(), B, kernels.stream_ptr(A))
+    plan = ()
+    if name == "gauss_jordan_wide":
+        p = wide_gj_plan(n, A.dtype)
+        dev_path = p["path"] == "device"
+        plan = (int(dev_path), p["R"], p["BB"], p["RS"] if dev_path else p["CS"],
+                p["threads"], p["smem_bytes"])
+    kernels.launch(name, dev, code, n, A.data_ptr(), out.data_ptr(), B, *plan,
+                   kernels.stream_ptr(A))
     return out
 
 
 def launch_plan(name, dtype, n):
     """Launch plan of kernel ``name`` ("gauss_jordan", "gauss_jordan_select"
-    or "gauss_jordan_wide") for (n, n) blocks of ``dtype``, from its library
-    (built first if needed).  K4, K5: the instantiation N >= n, the R x C
-    register tile of a thread, the BB blocks of a thread block, its threads
-    and its shared-memory bytes; K5w: the G blocks of a thread block, its
-    RS row slices, threads, shared-memory bytes, and whether the blocks
-    lie in shared memory (1) or in device memory (0)."""
+    or "gauss_jordan_wide") for (n, n) blocks of ``dtype``.  K4, K5, from
+    their library (built first if needed): the instantiation N >= n, the
+    R x C register tile of a thread, the BB blocks of a thread block, its
+    threads and its shared-memory bytes; K5w: :func:`wide_gj_plan`."""
+    if name == "gauss_jordan_wide":
+        return wide_gj_plan(n, dtype)
     keys = PLAN_KEYS[name]
     fn = getattr(kernels._get(name), f"iehdg_{name}_plan")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]

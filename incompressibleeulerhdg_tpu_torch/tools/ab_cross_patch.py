@@ -44,9 +44,12 @@ NX, DEGREE, REPS, STEPS = 256, 2, 20, 3
 WIDE_NX, WIDE_DEGREE = 128, 4
 DISK_REFINEMENT = 7
 PROFILER_ATTEMPTS = 3
+EVENTS_CHECK_MS, EVENTS_RATIO = 0.2, 1.2  # device_time's check against CUDA events
 # each kernel's symbol, as torch.profiler names its launches
 SYMBOLS = {name: f"{name}_kernel" for name in
-           ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan", "gauss_jordan_select")}
+           ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan", "gauss_jordan_select",
+            "fact_apply_wide", "cross_pair_wide", "patch_solve_wide")}
+SYMBOLS["gauss_jordan_wide"] = "gauss_jordan_wide"  # its register and device-memory kernels
 
 
 def device_ms(fn, reps=REPS, match=None):
@@ -67,7 +70,16 @@ def device_time(fn, reps=REPS, match=None, attempts=PROFILER_ATTEMPTS):
     and then records no device time for the kernels asked for; such a
     session is repeated, and after ``attempts`` empty sessions the timer is
     "cuda events": one event pair around ``reps`` back-to-back calls, which
-    counts every kernel of ``fn`` and any gap between them."""
+    counts every kernel of ``fn`` and any gap between them.  A session can
+    also keep part of a launch's time (on the H100, K5w's 128^2 batch once
+    read 2.23 ms where one colour, half its blocks, read 2.31; NVIDIA H100
+    80GB HBM3, 700.00 W): every read of EVENTS_CHECK_MS or more a call
+    (whose launches then hide behind the kernels) is checked against the
+    events, whose time is kept, with the timer "cuda events (longer than
+    the profiler's)", where it is more than EVENTS_RATIO times longer.
+    Without ``match`` the events also count the gaps between ``fn``'s
+    kernels, so a plain version whose host keeps the card waiting reads
+    its events' time there."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
@@ -76,7 +88,15 @@ def device_time(fn, reps=REPS, match=None, attempts=PROFILER_ATTEMPTS):
             if match and launches != reps:
                 print(f"# device_time: the profiler recorded {launches} launches of {match} "
                       f"in {reps} calls", file=sys.stderr, flush=True)
-            return us / 1e3 / (launches if match else reps), "profiler"
+            ms = us / 1e3 / (launches if match else reps)
+            if ms >= EVENTS_CHECK_MS:
+                ev = _events_ms(fn, reps)
+                if ev > EVENTS_RATIO * ms:
+                    print(f"# device_time: {match or 'all kernels'} read {ms:.4f} ms by the "
+                          f"profiler and {ev:.4f} ms by CUDA events; the events' time is kept",
+                          file=sys.stderr, flush=True)
+                    return ev, "cuda events (longer than the profiler's)"
+            return ms, "profiler"
         print(f"# device_time: profiler session {attempt + 1} of {attempts} recorded no "
               f"device time{' for ' + match if match else ''}", file=sys.stderr, flush=True)
     return _events_ms(fn, reps), "cuda events"
@@ -159,7 +179,7 @@ def gauss_jordan_times(smallinv):
 
 
 def device_ms_by_kernel(fn, top=15):
-    """Device ms of each kernel K1-K5 and of all kernels during ``fn()``,
+    """Device ms of each kernel K1-K5, K1w-K3w, K5w and of all kernels during ``fn()``,
     and the ``top`` PyTorch operators by device time (each with the kernels
     it launches itself: name, ms, calls), from torch.profiler."""
     from torch.autograd import DeviceType

@@ -1,0 +1,224 @@
+"""K3 against K3w at the widths K3w took over (d1 = 28, 36: k = 5, 6), in one
+process on a CUDA card.
+
+K3 (``csrc/patch_solve.cu``) is instantiated for d1 <= 21; from d1 = 28 the
+port's patch solve launches K3w (``csrc/patch_solve_wide.cu``).  This tool
+compiles K3's template at d1 = 28 and 36 into its own library under
+``build/ab_patch/`` (nvcc, the kernels' flags; a source that includes
+``patch_solve.cu`` and exports one more entry point), and times it beside
+K3w on one colour of the 128^2 mesh (16,256 facets at offset 16,384,
+padded tables) in float32 and float64, both held to the plain version, by
+device time (``ab_cross_patch.device_time``) in turns: K3, K3w, K3w, K3.
+It prints one JSON line a width and dtype, with the kernel the port's
+dispatch takes.
+``chip_smoke.py`` calls :func:`start_build` and :func:`compare`.
+
+With ``--sweep`` it times K3w instead under every plan
+``preconditioners.patch_wide_plan`` admits at d1 = 28, 36, 45, 55 (each
+cluster plan (F, CS) and the plan without a cluster, CS = 0) and at d1 =
+91 (where only the latter fits), in float32 and float64, on the same
+colour, through the kernel's own entry point, each held to the plain
+version: one JSON line a plan, the default plan marked.
+
+Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_patch [--sweep]
+"""
+
+import ctypes
+import json
+import subprocess
+import sys
+
+import torch
+
+WIDTHS = (28, 36)
+SWEEP_WIDTHS = (28, 36, 45, 55, 91)
+DTYPES = (torch.float32, torch.float64)
+NX = 128
+
+SOURCE = """#include "{csrc}/patch_solve.cu"
+
+// K3 at the widths whose patch solve K3w took over
+IEHDG_EXPORT int iehdg_patch_solve_k3_wide(int device, int dtype, int d1, const void* Di,
+                                           const void* Si, const void* K01, const void* K10,
+                                           long long ldt, long long off, const void* Bp,
+                                           const void* Cp, const void* r0, const void* r1,
+                                           void* y0, void* y1, long long m, void* stream) {{
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0 && d1 == 28)
+    return launch<float, 28>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+  if (dtype == 0 && d1 == 36)
+    return launch<float, 36>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+  if (dtype == 1 && d1 == 28)
+    return launch<double, 28>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+  if (dtype == 1 && d1 == 36)
+    return launch<double, 36>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+  return (int)cudaErrorInvalidValue;
+}}
+"""
+
+
+def _paths():
+    from ..kernels import _CSRC, BUILD_DIR
+
+    out = BUILD_DIR.parent / "ab_patch"
+    return _CSRC, out / "k3_wide.cu", out / "libk3_wide.so"
+
+
+def start_build():
+    """Start nvcc on K3 at d1 = 28, 36; returns the process (see :func:`load`)."""
+    from ..kernels import NVCC_FLAGS, NVCC_LIBS, _nvcc
+
+    csrc, cu, so = _paths()
+    cu.parent.mkdir(parents=True, exist_ok=True)
+    cu.write_text(SOURCE.format(csrc=csrc))
+    return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu), *NVCC_LIBS],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def load(proc):
+    """Wait for :func:`start_build`'s nvcc; the library's entry point (raises
+    RuntimeError with nvcc's report if the build failed)."""
+    from ..kernels import KERNELS
+
+    _, err = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"ab_patch: nvcc failed for K3 at d1 = {WIDTHS}:\n{err}")
+    fn = ctypes.CDLL(str(_paths()[2])).iehdg_patch_solve_k3_wide
+    fn.argtypes = KERNELS["patch_solve"][1]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _colour(d1, gen, dtype):
+    """The tables and sides of one 128^2 colour at width d1."""
+    from ..linalg import preconditioners as P
+
+    nu, nf = 2 * d1, 3 * NX * NX + 2 * NX
+    off, m = NX * NX, NX * (NX - 1)  # colour 1
+    rnd = lambda *s: torch.randn(*s, generator=gen, dtype=dtype, device="cuda:0")
+    K01, K10 = P.pad_table(rnd(d1, d1, nf)), P.pad_table(rnd(d1, d1, nf))
+    Di, Si = P.pad_table(rnd(nu, nu, nf)), P.pad_table(rnd(nu, nu, nf))
+    return (Di, Si, K01, K10, rnd(nu, nu), rnd(nu, nu), rnd(nu, m), rnd(nu, m), off)
+
+
+def _bound_ms(d1, m, dtype):
+    nu, size = 2 * d1, torch.empty((), dtype=dtype).element_size()
+    return size * (2 * nu * nu * m + 2 * d1 * d1 * m + 2 * nu * nu + 4 * nu * m) / 3.35e12 * 1e3
+
+
+def _plans(d1, dtype):
+    """Every plan K3w admits at d1: each cluster plan, then the one without."""
+    from ..linalg import preconditioners as P
+
+    size = torch.empty((), dtype=dtype).element_size()
+    plans = []
+    for rb in P.PATCH_WIDE_ROW_BYTES:
+        for cs in range(1, P.PATCH_WIDE_CLUSTER_MAX + 1):
+            try:
+                plans.append(P.patch_wide_plan(d1, dtype, F=rb // size, CS=cs))
+            except NotImplementedError:
+                pass
+    return plans + [P.patch_wide_plan(d1, dtype, CS=0)]
+
+
+def sweep(widths=SWEEP_WIDTHS, reps=10):
+    """K3w under every admissible plan at each width and dtype: one dict a
+    plan."""
+    from .. import kernels
+    from ..linalg import preconditioners as P
+    from .ab_cross_patch import device_time
+
+    gen = torch.Generator(device="cuda:0").manual_seed(2029)
+    rows = []
+    for dtype in DTYPES:
+        code = kernels.dtype_code(dtype)
+        for d1 in widths:
+            args = _colour(d1, gen, dtype)
+            Di, Si, K01, K10, Bk, Ck, r0, r1, off = args
+            m = r0.shape[1]
+            ref = P.patch_solve_plain(*args)
+            default = P.patch_wide_plan(d1, dtype)
+            for p in _plans(d1, dtype):
+
+                def run(p=p):
+                    y0, y1 = torch.empty_like(r0), torch.empty_like(r0)
+                    kernels.launch("patch_solve_wide", 0, code, d1, p["F"], p["CS"],
+                                   p["threads"], p["smem_bytes"], Di.data_ptr(), Si.data_ptr(),
+                                   K01.data_ptr(), K10.data_ptr(), K01.stride(1), off,
+                                   Bk.data_ptr(), Ck.data_ptr(), r0.data_ptr(), r1.data_ptr(),
+                                   y0.data_ptr(), y1.data_ptr(), m, kernels.stream_ptr(r0))
+                    return y0, y1
+
+                err = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(run(), ref))
+                ms = device_time(run, reps, match="patch_solve_wide")[0]
+                rows.append({"d1": d1, "dtype": str(dtype).replace("torch.", ""), **p,
+                             "default": p == default, "ms": ms,
+                             "bound_ms": _bound_ms(d1, m, dtype), "rel_err": err})
+            del args, Di, Si, K01, K10, ref
+            torch.cuda.empty_cache()
+    return rows
+
+
+def compare(k3, reps=20):
+    """K3 (the entry point :func:`load` returns) and the port's patch solve
+    (K3w) at d1 = 28, 36 on one colour of the 128^2 mesh, in float32 and
+    float64: errors against the plain version, device ms per launch of each
+    (the faster of two reads, in turns), the bytes bound, and the kernel the
+    dispatch takes.  Returns one dict a width and dtype."""
+    from .. import kernels
+    from ..linalg import preconditioners as P
+    from .ab_cross_patch import device_time
+
+    gen = torch.Generator(device="cuda:0").manual_seed(2028)
+    rows = []
+    for dtype in DTYPES:
+        code = kernels.dtype_code(dtype)
+        for d1 in WIDTHS:
+            args = _colour(d1, gen, dtype)
+            Di, Si, K01, K10, Bk, Ck, r0, r1, off = args
+            m = r0.shape[1]
+
+            def run_k3():
+                y0, y1 = torch.empty_like(r0), torch.empty_like(r0)
+                err = k3(0, code, d1, Di.data_ptr(), Si.data_ptr(), K01.data_ptr(),
+                         K10.data_ptr(), K01.stride(1), off, Bk.data_ptr(), Ck.data_ptr(),
+                         r0.data_ptr(), r1.data_ptr(), y0.data_ptr(), y1.data_ptr(), m,
+                         kernels.stream_ptr(r0))
+                if err:
+                    raise RuntimeError(f"ab_patch: K3 at d1 = {d1} ({dtype}) failed to launch "
+                                       f"({err})")
+                return y0, y1
+
+            ref = P.patch_solve_plain(*args)
+            rel = lambda got: max(float((g - r).abs().max() / r.abs().max())
+                                  for g, r in zip(got, ref))
+            e3, ew = rel(run_k3()), rel(P.patch_solve(*args))
+            k3w = lambda: P.patch_solve(*args)
+            t3a, _ = device_time(run_k3, reps, match="patch_solve_kernel")
+            twa, _ = device_time(k3w, reps, match="patch_solve_wide")
+            twb, _ = device_time(k3w, reps, match="patch_solve_wide")
+            t3b, _ = device_time(run_k3, reps, match="patch_solve_kernel")
+            rows.append({"d1": d1, "dtype": str(dtype).replace("torch.", ""), "m": m,
+                         "k3_ms": min(t3a, t3b), "k3w_ms": min(twa, twb), "k3_rel_err": e3,
+                         "k3w_rel_err": ew, "bound_ms": _bound_ms(d1, m, dtype),
+                         "dispatch": P.width_kernels(d1)[2],
+                         "k3w_plan": P.patch_wide_plan(d1, dtype)})
+            del args, Di, Si, K01, K10, ref
+            torch.cuda.empty_cache()
+    return rows
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("ab_patch: needs a CUDA card (torch.cuda.is_available() is False)")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    rows = sweep() if "--sweep" in sys.argv[1:] else compare(load(start_build()))
+    for row in rows:
+        print(json.dumps({**row, "card": card}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

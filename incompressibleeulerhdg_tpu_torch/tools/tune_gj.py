@@ -12,8 +12,19 @@ times a copy kernel with the plan's map of threads to table entries and no
 pivots (``copy_ms``): the least time of the plan's access pattern.  One
 JSON line a plan.
 
+With ``--wide`` it times K5w (``csrc/gauss_jordan_wide.cu``), whose plan
+is a run-time argument: every plan ``smallinv.wide_gj_plan`` admits for
+the block size (an R x R tile of ``WIDE_GJ_TILES``, BB batch entries a
+thread block, CS thread blocks a cluster; BB <= 2 on a cluster) through the
+kernel's own library, each held to ``gauss_jordan_inv_plain`` on 64 blocks
+and timed on the whole batch in turns, forward then reverse; one JSON line a
+plan with the default plan marked, plus ``torch.linalg.inv`` on the same
+blocks.
+
 Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.tune_gj [--dtype float32]
         [--plan N,R,C,BB,MINB ...]
+        python -m incompressibleeulerhdg_tpu_torch.tools.tune_gj --wide [N,BATCH ...]
+        [--dtype float32]
 """
 
 import argparse
@@ -128,14 +139,79 @@ def build(plans, T):
     return fn, report
 
 
+# K5w's blocks: (n, batch) of the 128^2 own cells at k = 7, 8 (float32) and
+# of 1024 k = 11 blocks (float64: the cluster path)
+WIDE_DEFAULT = {"float32": [(90, 32768), (110, 32768)], "float64": [(182, 1024)]}
+# the H100's peak FLOP/s for float32 outside the tensor cores and float64
+# through them (NVIDIA's data sheet, 700 W): the operations bound of K5w
+PEAK_FLOPS = 67e12
+
+
+def wide(sizes, dtype, card):
+    """Time every admissible K5w plan at each (n, batch) of ``sizes``."""
+    from .. import kernels
+    from ..linalg import smallinv
+    from .ab_cross_patch import device_time
+    from .microbench_gj import diag_dominant
+
+    for n, batch in sizes:
+        A = diag_dominant(n, batch, dtype, seed=n)
+        ref = smallinv.gauss_jordan_inv_plain(A[:, :, :64])
+        default = smallinv.wide_gj_plan(n, dtype)
+        plans = []
+        for R in smallinv.WIDE_GJ_TILES[dtype]:
+            for CS in range(1, smallinv.WIDE_GJ_CLUSTER_MAX + 1):
+                for BB in range(1, (smallinv.WIDE_GJ_BB_MAX if CS == 1 else 2) + 1):
+                    try:
+                        plans.append(smallinv.wide_gj_plan(n, dtype, R=R, BB=BB, CS=CS))
+                    except ValueError:
+                        pass
+
+        def launch(p, X):
+            out = torch.empty_like(X)
+            kernels.launch("gauss_jordan_wide", X.device.index, kernels.dtype_code(dtype), n,
+                           X.data_ptr(), out.data_ptr(), X.shape[2], 0, p["R"], p["BB"],
+                           p["CS"], p["threads"], p["smem_bytes"], kernels.stream_ptr(X))
+            return out
+
+        times = {}
+        for order in (plans, plans[::-1]):
+            for p in order:
+                times.setdefault(id(p), []).append(
+                    device_time(lambda: launch(p, A), 3, match="gauss_jordan_wide")[0])
+        lib = device_time(lambda: torch.linalg.inv(A.permute(2, 0, 1)), 3)[0]
+        flops = 2 * n ** 3 * batch
+        for p in plans:
+            err = float((launch(p, A[:, :, :64].contiguous()) - ref).abs().max())
+            ms = min(times[id(p)])
+            print(json.dumps({"n": n, "batch": batch, "dtype": str(dtype).replace("torch.", ""),
+                              **{k: p[k] for k in ("path", "R", "BB", "CS", "threads")},
+                              "default": all(p[k] == default[k] for k in ("R", "BB", "CS")),
+                              "ms": ms, "ms_reads": times[id(p)], "library_ms": lib,
+                              "pct_ops_bound": 100 * flops / PEAK_FLOPS * 1e3 / ms,
+                              "max_abs_err": err, "card": card}), flush=True)
+        del A
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dtype", default="float32", choices=("float32", "float64"))
     parser.add_argument("--plan", action="append", default=[],
                         help="N,R,C,BB,MINB (repeatable; default: a built-in list)")
+    parser.add_argument("--wide", nargs="*", default=None, metavar="N,BATCH",
+                        help="time K5w's plans (default sizes: the k = 7, 8 own cells at 128^2 "
+                             "in float32, 1024 k = 11 blocks in float64)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("tune_gj: needs a CUDA card (torch.cuda.is_available() is False)")
+    if args.wide is not None:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"],
+                              capture_output=True, text=True).stdout.strip()
+        sizes = [tuple(int(v) for v in w.split(",")) for w in args.wide] or WIDE_DEFAULT[args.dtype]
+        wide(sizes, getattr(torch, args.dtype), card)
+        return
     from ..kernels import stream_ptr
     from ..linalg.smallinv import gauss_jordan_inv_plain
     from .ab_cross_patch import device_time

@@ -1,0 +1,251 @@
+"""The launch plans of K5w (csrc/gauss_jordan_wide.cu) and K3w
+(csrc/patch_solve_wide.cu), which split a block's or a facet tile's rows
+over a thread-block cluster, and the width dispatch, on the CPU (no card,
+no nvcc).
+
+- ``smallinv.wide_gj_plan`` at n = 90, 110, 132, 182, 506 in float32 and
+  float64: the threads of every rank, mapped to (batch entry, tile row,
+  tile column) as the kernel maps them, own every tile of every batch entry
+  exactly once (the device-memory path: every entry (i, j) of every block
+  once); shared bytes, threads and the cluster size stay within the
+  H100's limits; a plan raises only past every plan;
+- ``preconditioners.patch_wide_plan`` at d1 = 28, 36, 45, 55, 78, 91, 200
+  in float32 and float64: the ranks own every scalar row once, the threads
+  every (component, row, facet) of a rank once, within the same limits;
+  where no (F, CS) fits (d1 = 91, 200) the plan without a cluster, whose
+  row slots own every row once; NotImplementedError only past both;
+- the dispatch: ``width_kernels`` at d1 = 28, 36 sends the patch solve to
+  K3w and K1, K2 to their own instantiations; ``kernel_for`` by n;
+- on a CUDA card only: K3w at d1 = 28, 36, 45, 55, 91 and K5w at n = 90,
+  110 and float64 182 (the cluster path) against their plain versions are
+  tests/test_torch_wide.py's ``cuda``-marked cases; here every plan K3w
+  may take at d1 = 45 (the plan without a cluster too) against the plain
+  version.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from incompressibleeulerhdg_tpu_torch import kernels
+from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as TP
+from incompressibleeulerhdg_tpu_torch.linalg import smallinv as TI
+
+DTYPES = [torch.float32, torch.float64]
+SIZE = {torch.float32: 4, torch.float64: 8}
+
+
+def _gj_tile_owners(plan):
+    """(batch entry, tile row, tile column) of every active thread of every
+    rank, as gauss_jordan_wide_kernel maps threadIdx.x and the cluster rank."""
+    TR, BB, CS, rpc = plan["TR"], plan["BB"], plan["CS"], plan["rows_per_rank"]
+    tid = np.arange(plan["threads"])
+    b, pos = tid % BB, tid // BB
+    owners = []
+    for rank in range(CS):
+        tr, tc = rank * rpc + pos // TR, pos % TR
+        act = tr < TR
+        owners.append(np.stack([b[act], tr[act], tc[act]], axis=1))
+    return np.concatenate(owners)
+
+
+@pytest.mark.parametrize("n", [90, 110, 132, 182, 506])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_wide_gj_plan_owns_every_tile_once(n, dtype):
+    plan = TI.wide_gj_plan(n, dtype)
+    assert plan["smem_bytes"] <= TI.SMEM_MAX
+    assert plan["CS"] <= TI.WIDE_GJ_CLUSTER_MAX
+    if plan["path"] == "device":
+        G, RS = plan["BB"], plan["RS"]
+        assert plan["threads"] <= TI.WIDE_GJ_DEV_THREADS
+        assert plan["smem_bytes"] == 4 * n * G * SIZE[dtype]
+        count = np.zeros((n, n, G), dtype=int)  # work items (j, g) over rows r, r + RS, ...
+        for r in range(RS):
+            count[r::RS] += 1
+        assert (count == 1).all()
+        with pytest.raises(ValueError):  # no register tile holds this block on 8 ranks
+            TI.wide_gj_plan(n, dtype, R=max(TI.WIDE_GJ_TILES[dtype]), CS=8)
+        return
+    R, TR = plan["R"], plan["TR"]
+    assert R in TI.WIDE_GJ_TILES[dtype] and TR == -(-n // R)
+    assert plan["threads"] <= TI.WIDE_GJ_TILES[dtype][R]
+    assert plan["threads"] == plan["BB"] * plan["rows_per_rank"] * TR
+    assert plan["smem_bytes"] == (4 * TR * (R | 1) * plan["BB"] + 2 * plan["BB"]) * SIZE[dtype]
+    assert (plan["path"] == "cluster") == (plan["CS"] > 1)
+    owners = _gj_tile_owners(plan)
+    assert len(owners) == plan["BB"] * TR * TR
+    assert len(np.unique(owners, axis=0)) == len(owners)
+
+
+def test_wide_gj_plan_paths():
+    """float32 n = 90, 110 on one thread block; float64 n = 182 (66,248
+    registers for the block alone) split over a cluster of 2 to 4; float64
+    n = 506 in device memory, float32 n = 506 still on a cluster; a fixed
+    plan that does not fit raises ValueError, a block past every plan
+    NotImplementedError."""
+    for n in (90, 110):
+        assert TI.wide_gj_plan(n, torch.float32)["path"] == "tiles"
+    p = TI.wide_gj_plan(182, torch.float64)
+    assert p["path"] == "cluster" and 2 <= p["CS"] <= 4
+    assert TI.wide_gj_plan(506, torch.float64)["path"] == "device"
+    assert TI.wide_gj_plan(506, torch.float32)["path"] == "cluster"
+    assert TI.launch_plan("gauss_jordan_wide", torch.float32, 90) == \
+        TI.wide_gj_plan(90, torch.float32)
+    with pytest.raises(ValueError, match="gauss_jordan_wide"):
+        TI.wide_gj_plan(182, torch.float64, R=6, CS=1)
+    with pytest.raises(ValueError, match="no 7 x 7 tile"):
+        TI.wide_gj_plan(90, torch.float32, R=7)
+    with pytest.raises(NotImplementedError, match="gauss_jordan_wide"):
+        TI.wide_gj_plan(8000, torch.float64)
+
+
+def _patch_fits(d1, dtype):
+    """Whether any (F, CS) of K3w's cluster plans fits the H100's limits."""
+    size = SIZE[dtype]
+    for rb in TP.PATCH_WIDE_ROW_BYTES:
+        F = rb // size
+        for cs in range(1, min(d1, TP.PATCH_WIDE_CLUSTER_MAX) + 1):
+            rs = -(-d1 // cs)
+            if 2 * d1 <= 256 and 2 * rs * F <= TP.PATCH_WIDE_THREADS_MAX and \
+                    TP.patch_wide_smem(d1, F, cs, size) <= TP.SMEM_MAX:
+                return True
+    return False
+
+
+@pytest.mark.parametrize("d1", [28, 36, 45, 55, 78, 91, 200])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_patch_wide_plan_owns_every_row_once(d1, dtype):
+    plan = TP.patch_wide_plan(d1, dtype)
+    F, CS, RS = plan["F"], plan["CS"], plan["RS"]
+    assert plan["smem_bytes"] <= TP.SMEM_MAX
+    if not _patch_fits(d1, dtype):  # one thread block a tile, Dinv0 from device memory
+        assert plan["path"] == "device" and CS == 0 and RS == d1 and d1 > 78
+        assert F in TP.PATCH_WIDE_DEV_FACETS and plan["threads"] == TP.PATCH_WIDE_DEV_THREADS
+        assert plan["smem_bytes"] == 3 * 2 * d1 * F * SIZE[dtype]
+        assert all(3 * 2 * d1 * f * SIZE[dtype] > TP.SMEM_MAX
+                   for f in TP.PATCH_WIDE_DEV_FACETS if f > F)
+        slots = plan["threads"] // F  # rows slot, slot + slots, ... of every lane
+        count = np.zeros((2 * d1, F), dtype=int)
+        for slot in range(slots):
+            count[slot::slots] += 1
+        assert (count == 1).all()
+        return
+    assert plan["path"] == "cluster"
+    assert F * SIZE[dtype] in TP.PATCH_WIDE_ROW_BYTES
+    assert CS <= TP.PATCH_WIDE_CLUSTER_MAX and RS == -(-d1 // CS)
+    assert plan["threads"] == 2 * RS * F <= TP.PATCH_WIDE_THREADS_MAX
+    assert plan["smem_bytes"] == TP.patch_wide_smem(d1, F, CS, SIZE[dtype])
+    rows = []
+    for rank in range(CS):  # as patch_solve_wide_kernel splits d1 and maps threadIdx.x
+        i0, i1 = rank * d1 // CS, (rank + 1) * d1 // CS
+        assert 1 <= i1 - i0 <= RS
+        tid = np.arange(plan["threads"])
+        lane, slot = tid % F, tid // F
+        a = (slot >= RS).astype(int)
+        il = slot - a * RS
+        act = il < i1 - i0
+        rows.append(np.stack([a[act], i0 + il[act], lane[act]], axis=1))
+    rows = np.concatenate(rows)
+    assert len(rows) == 2 * d1 * F
+    assert len(np.unique(rows, axis=0)) == len(rows)
+
+
+def test_patch_wide_plan_fixed_and_past_every_plan():
+    """A fixed (F, CS) that does not fit raises NotImplementedError naming
+    the kernel; CS = 0 fixes the plan without a cluster at any width; a
+    width past a TMA box's 256 rows takes that plan, and one whose facet
+    vectors fit no thread block raises.  The default plans are the
+    measured fastest on the H100 (PATCH_WIDE_MEASURED)."""
+    with pytest.raises(NotImplementedError, match="patch_solve_wide"):
+        TP.patch_wide_plan(45, torch.float32, F=32, CS=1)
+    assert TP.patch_wide_plan(129, torch.float32)["path"] == "device"
+    assert TP.patch_wide_plan(45, torch.float32, CS=0)["path"] == "device"
+    assert TP.patch_wide_plan(45, torch.float64, F=8, CS=0)["smem_bytes"] == 3 * 90 * 8 * 8
+    for d1, dtype in ((606, torch.float64), (1211, torch.float32)):
+        with pytest.raises(NotImplementedError, match="patch_solve_wide"):
+            TP.patch_wide_plan(d1, dtype)
+    assert TP.patch_wide_plan(605, torch.float64)["F"] == 8
+    p = TP.patch_wide_plan(45, torch.float32)
+    assert TP.patch_wide_plan(45, torch.float32, F=p["F"], CS=p["CS"]) == p
+    for (d1, dtype), (F, CS) in TP.PATCH_WIDE_MEASURED.items():
+        p = TP.patch_wide_plan(d1, dtype)
+        assert (p["path"], p["F"], p["CS"]) == ("cluster", F, CS)
+
+
+def test_width_dispatch():
+    """K1, K2 take their own instantiations up to d1 = 36 and K1w, K2w
+    above; the patch solve takes K3 up to d1 = 21 and K3w from d1 = 28;
+    the Gauss-Jordan inverse K4 to n = 32, K5 to 72, K5w above."""
+    assert TP.width_kernels(21) == ("fact_apply", "cross_pair", "patch_solve")
+    for d1 in (28, 36):
+        assert TP.width_kernels(d1) == ("fact_apply", "cross_pair", "patch_solve_wide")
+    assert TP.width_kernels(45) == ("fact_apply_wide", "cross_pair_wide", "patch_solve_wide")
+    assert TP.PATCH_D1 == tuple(d for d in TP.CUDA_D1 if d <= 21)
+    for n, name in ((20, "gauss_jordan"), (32, "gauss_jordan"), (42, "gauss_jordan_select"),
+                    (72, "gauss_jordan_select"), (73, "gauss_jordan_wide"),
+                    (90, "gauss_jordan_wide"), (182, "gauss_jordan_wide")):
+        assert TI.kernel_for(n) == name
+
+
+def test_wide_wrappers_refuse_cpu_free_tensors():
+    """The wrappers check the device before they plan: K3w at d1 = 28 and
+    K5w at n = 182 on meta tensors raise for want of a CUDA tensor."""
+    d1, nu = 28, 56
+    A = torch.empty(d1, d1, 10, device="meta")
+    D = torch.empty(nu, nu, 10, device="meta")
+    x = torch.empty(nu, 10, device="meta")
+    Pm = torch.empty(nu, nu, device="meta")
+    with pytest.raises(ValueError, match="patch_solve_wide.*CUDA"):
+        TP.patch_solve(D, D, A, A, Pm, Pm, x, x, 0)
+    with pytest.raises(ValueError, match="gauss_jordan_wide.*CUDA"):
+        TI.gauss_jordan_inv_bl(torch.empty(182, 182, 10, device="meta"))
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+# ----------------------------------------------------------------------
+# CUDA card only
+# ----------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_cuda_patch_wide_every_plan(cuda, dtype):
+    """K3w at d1 = 45 under every plan that fits (each F and cluster size,
+    and each F without a cluster), launched through its C entry point, against the plain version on a
+    colour at an unaligned offset."""
+    d1, nu, nf = 45, 90, 2 * 301 + 1
+    g = torch.Generator().manual_seed(45)
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype).to(cuda)
+    K01, K10 = TP.pad_table(rnd(d1, d1, nf)), TP.pad_table(rnd(d1, d1, nf))
+    Di, Si = TP.pad_table(rnd(nu, nu, nf)), TP.pad_table(rnd(nu, nu, nf))
+    Bk, Ck = rnd(nu, nu), rnd(nu, nu)
+    off, m = 133, 301 - 4
+    r0, r1 = rnd(nu, m), rnd(nu, m)
+    ref = TP.patch_solve_plain(Di, Si, K01, K10, Bk, Ck, r0, r1, off)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    code = kernels.dtype_code(dtype)
+    plans = [TP.patch_wide_plan(d1, dtype, F=f, CS=0) for f in TP.PATCH_WIDE_DEV_FACETS]
+    for rb in TP.PATCH_WIDE_ROW_BYTES:
+        for cs in range(1, TP.PATCH_WIDE_CLUSTER_MAX + 1):
+            try:
+                plans.append(TP.patch_wide_plan(d1, dtype, F=rb // SIZE[dtype], CS=cs))
+            except NotImplementedError:
+                continue
+    for p in plans:
+        y0, y1 = torch.empty_like(r0), torch.empty_like(r0)
+        kernels.launch("patch_solve_wide", 0, code, d1, p["F"], p["CS"], p["threads"],
+                       p["smem_bytes"], Di.data_ptr(), Si.data_ptr(), K01.data_ptr(),
+                       K10.data_ptr(), K01.stride(1), off, Bk.data_ptr(), Ck.data_ptr(),
+                       r0.data_ptr(), r1.data_ptr(), y0.data_ptr(), y1.data_ptr(), m,
+                       kernels.stream_ptr(r0))
+        for got, want in zip((y0, y1), ref):
+            assert float((got - want).abs().max() / want.abs().max()) <= tol, p
+    assert len(plans) >= 5

@@ -342,10 +342,12 @@ def test_gauss_jordan_select_on_cpu():
 
 def test_card_refuses_widths_beyond_k4():
     """On the card every width passes the width dispatch: d1 = 28, 36 (k =
-    5, 6) go to K1-K3, d1 = 45, 55, 78 (k = 7, 8, 10) to K1w-K3w, n = 42 ..
-    72 to K5 and n = 90, 110, 182 (k = 7, 8, 11) to K5w, and each fails
-    only for want of a CUDA tensor.  K5's own entry point still takes n <=
-    72, and K3w refuses a width whose facet vectors fit no thread block."""
+    5, 6) go to K1, K2 and K3w, d1 = 45, 55, 78 (k = 7, 8, 10) to K1w-K3w,
+    n = 42 .. 72 to K5 and n = 90, 110, 182 (k = 7, 8, 11) to K5w, and each
+    fails only for want of a CUDA tensor.  K5's own entry point still takes
+    n <= 72; K3w has a plan at d1 = 91 and 200 (k = 11, 18: without a
+    cluster) and refuses a width whose facet vectors fit no thread block,
+    K5w none short of float64 n = 7,264."""
 
     def tables(d1):
         nu = 2 * d1
@@ -359,6 +361,7 @@ def test_card_refuses_widths_beyond_k4():
 
     for d1 in (28, 36, 45, 55, 78):
         assert (d1 in TP.CUDA_D1) == (d1 <= 36)
+        assert (d1 in TP.PATCH_D1) == (d1 <= 21)
         for call in tables(d1):
             with pytest.raises(ValueError, match="CUDA"):
                 call()
@@ -373,10 +376,16 @@ def test_card_refuses_widths_beyond_k4():
         else:
             with pytest.raises(NotImplementedError, match="gauss_jordan_wide"):
                 TI.gauss_jordan_inv_select(torch.empty(n, n, 10, device="meta"))
-    assert TP.patch_wide_facets(45, torch.float64) == 32
-    assert TP.patch_wide_facets(200, torch.float64) == 16
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        TP.patch_wide_facets(700, torch.float64)
+    for d1 in (28, 36, 45, 55):
+        for dtype in (torch.float32, torch.float64):
+            assert TP.patch_wide_plan(d1, dtype)["CS"] <= TP.PATCH_WIDE_CLUSTER_MAX
+    assert TP.patch_wide_plan(91, torch.float64)["CS"] == 0
+    assert TP.patch_wide_plan(200, torch.float64)["F"] == 16
+    with pytest.raises(NotImplementedError, match="patch_solve_wide"):
+        TP.patch_wide_plan(700, torch.float64)
+    assert TI.wide_gj_plan(1000, torch.float64)["path"] == "device"
+    with pytest.raises(NotImplementedError, match="gauss_jordan_wide"):
+        TI.wide_gj_plan(8000, torch.float64)
 
 
 # ----------------------------------------------------------------------
@@ -687,7 +696,7 @@ def test_tile_facets(kernel):
     and (K3) a block's four tables under a third of the SM's shared memory
     at d1 <= 10 (three blocks an SM), under the 227 KB a block may use."""
     for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
-        for d1 in TP.CUDA_D1:
+        for d1 in TP.CUDA_D1 if kernel == "cross_pair" else TP.PATCH_D1:
             tc = TP.tile_facets(kernel, d1, dtype)
             assert (tc * size) % 16 == 0 and 16 <= tc * size <= 128
             nu = 2 * d1
@@ -736,14 +745,15 @@ def test_device_time_retries_then_falls_back(monkeypatch, empty_sessions):
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     monkeypatch.setattr(AB, "_profiled_us", profiled_us)
-    monkeypatch.setattr(AB, "_events_ms", lambda fn, reps: 0.75)
+    # within EVENTS_RATIO of the profiler's read, which the events check keeps
+    monkeypatch.setattr(AB, "_events_ms", lambda fn, reps: 0.55)
     calls = []
     ms, timer = AB.device_time(lambda: calls.append(1), reps=4, match="k_kernel")
     if empty_sessions < AB.PROFILER_ATTEMPTS:
         assert (ms, timer) == (0.5, "profiler")
         assert sessions == ["k_kernel"] * (empty_sessions + 1)
     else:
-        assert (ms, timer) == (0.75, "cuda events")
+        assert (ms, timer) == (0.55, "cuda events")
         assert sessions == ["k_kernel"] * AB.PROFILER_ATTEMPTS
     assert calls == [1]  # the warm-up call; the stubs make no calls of their own
 
@@ -756,5 +766,27 @@ def test_device_time_divides_by_recorded_launches(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     monkeypatch.setattr(AB, "_profiled_us", lambda fn, reps, match: (300.0 * (reps - 2), reps - 2))
+    monkeypatch.setattr(AB, "_events_ms", lambda fn, reps: 0.25)  # checked reads: close
     assert AB.device_time(lambda: None, reps=10, match="k_kernel") == (0.3, "profiler")
     assert AB.device_time(lambda: None, reps=10) == (0.24, "profiler")
+
+
+@pytest.mark.parametrize("events_ms, expected",
+                         [(0.75, (0.75, "cuda events (longer than the profiler's)")),
+                          (0.55, (0.5, "profiler"))])
+def test_device_time_checks_long_kernels_against_events(monkeypatch, events_ms, expected):
+    """A profiler read of 0.2 ms or more a call is checked against CUDA
+    events, with ``match`` or without: a session that kept part of a
+    launch's time (events more than 1.2 times longer) gives way to the
+    events; a close read stays the profiler's.  Shorter reads skip the
+    events."""
+    from incompressibleeulerhdg_tpu_torch.tools import ab_cross_patch as AB
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(AB, "_profiled_us", lambda fn, reps, match: (500.0 * reps, reps))
+    monkeypatch.setattr(AB, "_events_ms", lambda fn, reps: events_ms)
+    assert AB.device_time(lambda: None, reps=4, match="k_kernel") == expected
+    assert AB.device_time(lambda: None, reps=4) == expected
+    monkeypatch.setattr(AB, "_profiled_us", lambda fn, reps, match: (100.0 * reps, reps))
+    monkeypatch.setattr(AB, "_events_ms", lambda fn, reps: pytest.fail("events read"))
+    assert AB.device_time(lambda: None, reps=4, match="k_kernel") == (0.1, "profiler")

@@ -13,10 +13,11 @@ float64.
 - one SSP2 step at k = 5 on the 2^2 square from the same state: the stage
   states within 1e-10 and every Krylov count equal (k = 7:
   tests/test_torch_degree7.py);
-- on a CUDA card only: K1-K3 at d1 = 28, 36 and K5 at n = 56, 72 against
-  their plain versions, and the dispatch of n = 56, 72 blocks to K5; the
-  runtime-width kernels K1w-K3w at d1 = 45, 55 and K5w at n = 73, 90, 110
-  and (float64, blocks in device memory) 182, and the dispatch to them.
+- on a CUDA card only: K1, K2 and K3w at d1 = 28, 36 and K5 at n = 56, 72
+  against their plain versions, and the dispatch of n = 56, 72 blocks to
+  K5; the runtime-width kernels K1w-K3w at d1 = 45, 55 and K5w at n = 73,
+  90, 110, float64 182 (a cluster of thread blocks) and 506 (blocks in
+  device memory), and the dispatch to them.
 """
 
 import numpy as np
@@ -188,7 +189,8 @@ def _rel(a, b):
 
 
 def _check_kernels_width(d1, dtype, device):
-    """K1-K3 at width d1 against their plain versions: a colour offset, a
+    """K1, K2 and the patch solve (K3w from d1 = 28) at width d1 against
+    their plain versions: a colour offset, a
     column count that is not a multiple of a thread block or a tile, a padded
     table of an odd column count, a tile-aligned and an unaligned offset, and
     segments that start and end inside tiles."""
@@ -255,35 +257,46 @@ def test_cuda_gauss_jordan(cuda, dtype, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d1", [45, 55])
+@pytest.mark.parametrize("d1", [45, 55, 91])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernels_wide(cuda, dtype, d1):
-    """K1w-K3w at d1 = 45, 55 (k = 7, 8): an unaligned colour offset, a
-    segment edge inside a thread block, a padded table of an odd column
-    count."""
+    """K1w-K3w at d1 = 45, 55, 91 (k = 7, 8, 11; at 91 K3w's plan without a
+    cluster): an unaligned colour offset, a segment edge inside a thread
+    block, a padded table of an odd column count."""
     _check_kernels_width(d1, dtype, cuda)
+
+
+def _per_block_rel(got, ref):
+    """Largest over the batch-last blocks of each block's error relative to
+    its largest entry."""
+    return float(((got - ref).abs().amax(dim=(0, 1)) / ref.abs().amax(dim=(0, 1))).max())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, dtype", [(73, torch.float32), (90, torch.float32),
                                       (110, torch.float32), (73, torch.float64),
                                       (90, torch.float64), (110, torch.float64),
-                                      (182, torch.float64)])
+                                      (182, torch.float64), (506, torch.float64)])
 def test_cuda_gauss_jordan_wide(cuda, dtype, n):
     """K5w against its plain version on batches around its thread block's
-    (n = 182 in float64 takes the device-memory path), and the main-path
-    dispatch of the same blocks to K5w.  K5w rounds as the plain version
-    does, so the two agree to the last bit."""
+    (float64 n = 182 takes the cluster path, n = 506 the device-memory
+    path), and the main-path dispatch of the same blocks to K5w.  K5w's
+    updates are FMAs: float32 is held to twice the plain version's own
+    float32 error against the float64 plain inverse (per block), against
+    both; float64 to 1e-11."""
     g = torch.Generator().manual_seed(n)
     plan = TI.launch_plan("gauss_jordan_wide", dtype, n)
-    assert plan["in_smem"] == (n < 182)
+    assert plan["path"] == {182: "cluster", 506: "device"}.get(n, "tiles")
     blocks = lambda m: (0.1 * torch.randn(n, n, m, generator=g, dtype=dtype)
                         + 3.0 * torch.eye(n, dtype=dtype)[:, :, None]).to(cuda)
-    cases = [blocks(m) for m in (1, plan["G"] + 1, 77)] + [blocks(2 * 77)[:, :, 1::2]]
+    cases = [blocks(m) for m in (1, plan["BB"] + 1, 77)] + [blocks(2 * 77)[:, :, 1::2]]
     kernels.reset_launches()
     for A in cases:
         ref = TI.gauss_jordan_inv_plain(A)
-        assert torch.equal(TI.gauss_jordan_inv_wide(A), ref)
-        assert torch.equal(TI.gauss_jordan_inv_bl(A), ref)
+        ref64 = TI.gauss_jordan_inv_plain(A.double())
+        tol = 2.0 * _per_block_rel(ref.double(), ref64) if dtype == torch.float32 else 1e-11
+        for got in (TI.gauss_jordan_inv_wide(A), TI.gauss_jordan_inv_bl(A)):
+            assert _per_block_rel(got, ref) <= tol
+            assert _per_block_rel(got.double(), ref64) <= max(tol, 1e-11)
     assert kernels.LAUNCHES["gauss_jordan_wide"] == 2 * len(cases)
     assert kernels.LAUNCHES["gauss_jordan"] == kernels.LAUNCHES["gauss_jordan_select"] == 0
