@@ -32,8 +32,9 @@ Phases, each printing its own lines:
    initial trace, one warm-up step and three timed steps; validates
    finiteness, the L2 errors against the analytic vortex, the Krylov
    iteration counts, and that every kernel of the path launched during it;
-5. the k = 4 kernels: K1-K3 at d1 = 21 and K5 (the Gauss-Jordan entry
-   point for 32 < n <= 48) at n = 42 and n = 20 against their plain versions at the
+5. the k = 4 kernels: K1, K2c (the cross pair) and K3w (the patch solve)
+   at d1 = 21 and K5 (the Gauss-Jordan entry
+   point for 32 < n <= 72) at n = 42 and n = 20 against their plain versions at the
    128^2, k=4 shapes, float32 and float64, with the same offset and odd-size
    cases, K5 also on one colour's blocks; ptxas's registers and spills of
    every instantiation; the K4-vs-K5 A/B at n = 20 and K5 at n = 42 by
@@ -43,7 +44,11 @@ Phases, each printing its own lines:
    dt = 1/256, one step; (b) HDG implicit + projection at the same size,
    three steps; (c) ``--test_pressure_solver`` at 256^2, k=2, float32;
    (d) projection SSP2 at 128^2, k=4, float32, two steps, which must launch
-   K5 and the d1 = 21 kernels; (e) the double shear layer on the periodic
+   K5 and the kernels the dispatch takes at d1 = 21 (K1, K2c, K3w), its
+   first stage's own tables and blocks held to the plain versions as in
+   phase (n), then K3 (its template built at d1 = 21 by tools/ab_patch.py)
+   against K3w on one 128^2 colour, float32 and float64, failing if the
+   dispatch takes the slower; (e) the double shear layer on the periodic
    256^2 square, k=2, float32, projection SSP2, two steps, which must
    launch K1-K4; (f) Kelvin-Helmholtz on the refinement-7 unit disk, k=2,
    float32, projection SSP2, one step, which must launch K4 and none of
@@ -103,24 +108,33 @@ Phases, each printing its own lines:
    stage build a step instead of four); prints each run's counts, s/step
    and launches;
 6f. (n) k = 5 and k = 6 (d1 = 28, 36; Gauss-Jordan n = 56, 72): projection
-   SSP2 at 64^2, float32, two steps each, held to the velocity bound; K1-K3
-   and K5 must launch, and each is held to its plain version on the run's
+   SSP2 at 64^2, float32, two steps each, held to the velocity bound; K1,
+   K2c, K3w and K5 must launch, and each is held to its plain version on the run's
    own tables (K1-K3, random fields) and own-cell and Schur blocks (K5) in
    float32 and float64, with K5's float32 inverse also read against the
    float64 plain one; then phase 5's kernel comparison at 128^2 for k = 5
    and k = 6 (timing rows); then K3 (its template built at d1 = 28, 36 by
    tools/ab_patch.py beside the kernels) against K3w, which the dispatch
-   takes from d1 = 28, on one 128^2 colour in this process, in float32 and
+   takes from d1 = 21, on one 128^2 colour in this process, in float32 and
    float64: both held to the plain version, and the run fails if the
-   dispatch takes the slower;
+   dispatch takes the slower; then the cross pair by K2 (its template built
+   at d1 = 21, 28, 36 by tools/ab_cross.py), K2w and K2c at d1 = 21, 28,
+   36, 45 on one 128^2 colour and the full field, float32 and float64, in
+   turns in this process: every kernel held to the plain version, and the
+   run fails unless the dispatch takes the fastest on one colour (both
+   A/Bs time each kernel on a CUDA graph of its launches, the median of
+   five reads in turns: tools/ab_cross_patch.py ``graph_ms``, ``in_turns``);
 6g. (o) every degree: from k = 7 the widths dispatch to the runtime-width
    kernels K1w-K3w (csrc/wide_apply.cu, csrc/patch_solve_wide.cu: a
-   thread-block cluster a facet tile, K3w also from k = 5) and K5w
+   thread-block cluster a facet tile, K3w also from k = 4; K2c,
+   csrc/cross_pair_cluster.cu, takes the cross pair at k = 7, K2w from
+   k = 8) and K5w
    (csrc/gauss_jordan_wide.cu: register tiles at a run-time n, a cluster
    where one SM's registers do not hold a block, device memory past a
    cluster of 8).  (o7): projection SSP2 at k = 7 on 64^2,
    float32, two steps, and (o8) k = 8 on 32^2, one step, each held to the
-   velocity bound, launching the four wide kernels and no other, with the
+   velocity bound, launching the kernels the dispatch takes at its width
+   and no other, with the
    run's own tables and blocks held to the plain versions in float32 and
    float64 (from n = 90 the float32 inverse is held to twice the plain
    version's own float32 error against the float64 plain inverse); (o64):
@@ -129,15 +143,16 @@ Phases, each printing its own lines:
    (o7d): Kelvin-Helmholtz on the refinement-2 disk at k = 7, one step (K5w
    alone), K5w held on the disk's own-cell and Schur batches, identity
    blocks included; then the kernel comparison at 128^2, k = 7 (timing
-   rows), with K5w also at n = 110 (float32) and on a float64 n = 182
-   batch (the cluster path) beside ``torch.linalg.inv``, and held on a
-   float64 n = 420 batch (the device-memory path); K3w's plan without a
+   rows, K2w through its entry point beside K2c), with K5w also at n = 110
+   (float32) and on a float64 n = 182 batch (the cluster path) beside
+   ``torch.linalg.inv``, and held and timed beside it on a float64 n = 420
+   batch (the device-memory path); K3w's plan without a
    cluster (d1 >= 81) held at d1 = 91 in float32 and float64;
 6h. (p) one projection SSP2 step at k = 7 on 128^2, float32, after a
    warm-up step, under torch.profiler: device ms by kernel, the device
    busy share, the operators with the most device time;
-7. the launch check: every kernel K1-K5 and K1w-K3w, K5w launched on some
-   path.
+7. the launch check: every kernel K1-K5, K1w-K3w, K2c and K5w launched on
+   some path.
 
 The JSON line before the card's name and power limit has one entry per
 kernel (route, source, the TPU kernel it replaces, launches by path and per
@@ -147,13 +162,15 @@ shape, error, times, bound and launches a step over the ranks; K4 also
 ``*_partition_own`` / ``*_partition_schur``: phase (l)'s partition-local
 batches, and its launches a step over the ranks; K1-K3 ``*_d1_28``,
 ``*_d1_36`` and K5 ``*_n56``, ``*_n72``: phase (n)'s widths at 128^2, the
-errors on the run's own tables and the launches a step of runs (n5), (n6);
+errors on the run's own tables and the launches a step of runs (n5), (n6)
+(K2c the same at d1 = 28, 36, and phase (n)'s K2/K2w/K2c A/B, ``ab_*``);
 K3 also ``*_additive``: one additive patch application, every colour and
 the boundary tail, at 256^2; K1w-K3w and K5w: phase (o)'s 128^2, k = 7
 shapes, launches a step of (o7) and (o8), the errors on those runs' own
 tables, their device ms in phase (p)'s step (``k7_step_device_ms``), K5w
-``*_n110``, ``*_n182``, its device-memory plan and its holds on the k = 7
-disk's blocks, K3w the K3 A/B at d1 = 28, 36 (``ab_*``)); the last
+``*_n110``, ``*_n182``, its device-memory plan and time and its holds on
+the k = 7 disk's blocks, K3w the K3 A/B at d1 = 21, 28, 36 (``ab_*``));
+the last
 line is ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it.
 """
@@ -224,6 +241,7 @@ TRACER_L2_JAX = 0.5000003576
 TRACER_L2_RTOL = 1.0e-4
 CONFORMING_MONOLITHIC_NX = 16
 WIDE_NX, WIDE_DEGREE = 128, 4
+WIDE_DEGREE_D1 = (WIDE_DEGREE + 2) * (WIDE_DEGREE + 3) // 2  # 21
 DISK_REFINEMENT = 7  # the largest disk under the vertex-star gate (49,537 vertices)
 # runs (e) and (f): kinetic energy E(T)/E(0) and the divergence bound of the
 # JAX package's tests/test_integration_extra.py (shear: [0.5, 1.05]; the
@@ -320,7 +338,9 @@ WIDE_GJ_F32_RTOL = 1.0e-4
 # k = 7, one step: K5w alone, held on the disk's own-cell and Schur batches
 # (boundary identity blocks included).  The timing rows come from
 # compare_kernels(WIDE_NX, 7), with K5w also at WIDE_GJ_EXTRA.
-WIDE_KERNELS = ("fact_apply_wide", "cross_pair_wide", "patch_solve_wide", "gauss_jordan_wide")
+# the runtime-width kernels, whose rows carry phase (o)'s numbers
+WIDE_KERNELS = ("fact_apply_wide", "cross_pair_wide", "cross_pair_cluster", "patch_solve_wide",
+                "gauss_jordan_wide")
 DEG7_NX, O7_STEPS = 64, 2
 DEG8_NX = 32
 DEG7_F64_NX = 4
@@ -337,7 +357,7 @@ DEG7_DISK_REFINEMENT = 2
 WIDE_GJ_EXTRA = ((110, torch.float32, None), (182, torch.float64, 1024))
 # K5w's device-memory path (float64 past n = 384: no cluster of 8 holds a
 # block's tiles), held to its plain version on WIDE_GJ_DEVICE_BATCH blocks
-# of k = 18 (n = 420)
+# of k = 18 (n = 420) and timed beside torch.linalg.inv on them
 WIDE_GJ_DEVICE_N, WIDE_GJ_DEVICE_BATCH = 420, 32
 # K3w's plan without a cluster (d1 >= 81: no cluster of 8 stages its rows
 # of Dinv0), held to its plain version at k = 11 on one colour of this many
@@ -399,7 +419,8 @@ def work(name, dtype, d1, m, nseg=1, n=None):
     columns (facets, cells or blocks); ``nseg`` penalty blocks."""
     size = torch.empty((), dtype=dtype).element_size()
     nu = 2 * d1
-    name = name.removesuffix("_wide")  # K1w-K3w, K5w: the work of K1-K3, K5
+    # K1w-K3w, K2c, K5w: the work of K1-K3, K5
+    name = name.removesuffix("_wide").removesuffix("_cluster")
     if name == "fact_apply":  # A (d1, d1, m), P, x -> out
         return size * (d1 * d1 * m + nseg * nu * nu + 2 * nu * m), 2 * (2 * d1 * d1 + nu * nu) * m
     if name == "cross_pair":  # K01, K10, Bp, Cp, x0, x1 -> y0, y1
@@ -478,7 +499,7 @@ class Holds:
                 timers.append(u)
 
 
-def compare_kernels(nx, degree):
+def compare_kernels(nx, degree, with_k2w=False):
     """Phases 3 and 5: every kernel of the nx^2, k = degree path against its
     plain version at that path's shapes.  At k <= 3 the own-cell and Schur
     inverses go to K4 (gauss_jordan); at k = 4 .. 6 (n = 42 .. 72) to K5
@@ -495,7 +516,8 @@ def compare_kernels(nx, degree):
     same blocks (library_ms) and the launch plan."""
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
-    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
+    from incompressibleeulerhdg_tpu_torch.tools import ab_cross
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import SYMBOLS, device_time
 
     nc, nf, b = main_shapes(nx)
     d1 = (degree + 2) * (degree + 3) // 2
@@ -597,14 +619,28 @@ def compare_kernels(nx, degree):
                  lambda: smallinv.gauss_jordan_inv_select_plain(G20)),
             ]
         shape = {k1: (nc, 2), k2: (nf, 3), k3: (m_col, 1), gj: (nc, 1)}
+        if with_k2w and k2 != "cross_pair_wide":
+            # K2w through its entry point where the dispatch takes another
+            # kernel, so that it keeps a time at the width (full field, one colour)
+            k2w = lambda *case: ab_cross.runner("cross_pair_wide", case)()
+            xm0, xm1 = x0[:, :m_col].contiguous(), x1[:, :m_col].contiguous()
+            cases["cross_pair_wide"] = [
+                (lambda: k2w(K01, K10, Bp, Cp, b, x0, x1, 0), cases[k2][0][1]),
+                (lambda: k2w(K01, K10, Bp[k:k + 1], Cp[k:k + 1], (0, m_col), xm0, xm1, b0),
+                 cases[k2][1][1]),
+            ]
+            shape["cross_pair_wide"] = (nf, 3)
+        # the kernel each wrapper launches in this dtype (the cross pair's
+        # dispatch is by width and dtype)
+        alias = dict(zip((k1, k2, k3), P.width_kernels(d1, dtype)))
         for name, pairs in cases.items():
             for kern, plain in pairs:
-                check(name, dtype, kern(), plain())
+                check(alias.get(name, name), dtype, kern(), plain())
             if dtype == torch.float32:
                 m, nseg = shape[name]
                 timed(name, dtype, *pairs[0], *work(name, dtype, d1, m, nseg, n=nu),
                       reps=reps if name == gj else REPS)
-                if name == k2:  # one colour, as in the sweep
+                if name in (k2, "cross_pair_wide"):  # one colour, as in the sweep
                     timed(name, dtype, *pairs[1], *work(name, dtype, d1, m_col), suffix="_color")
                 if name == "patch_solve" and degree == DEGREE and nf > b[-1]:
                     # the additive patch preconditioner: every colour and the
@@ -665,10 +701,19 @@ def compare_kernels(nx, degree):
         Gx = spd(n_x, WIDE_GJ_DEVICE_BATCH, torch.float64)
         holds.check(gj, torch.float64, smallinv.gauss_jordan_inv_bl(Gx),
                     smallinv.gauss_jordan_inv_plain(Gx), per_block=True)
-        results[gj]["device_path"] = {"n": n_x, "batch": WIDE_GJ_DEVICE_BATCH, "plan": plan}
+        # one launch's device time beside its operations bound and
+        # torch.linalg.inv on the same blocks (the plain version takes seconds)
+        ms, timer = device_time(lambda: smallinv.gauss_jordan_inv_bl(Gx), WIDE_GJ_REPS,
+                                match=SYMBOLS[gj])
+        lib = device_time(lambda: torch.linalg.inv(Gx.permute(2, 0, 1)), WIDE_GJ_REPS)[0]
+        t_b, by = bound(torch.float64, *work(gj, torch.float64, 0, WIDE_GJ_DEVICE_BATCH, n=n_x))
+        results[gj]["device_path"] = {"n": n_x, "batch": WIDE_GJ_DEVICE_BATCH, "plan": plan,
+                                      "ms": ms, "library_ms": lib, "bound_ms": t_b,
+                                      "bound_by": by, "timer": timer}
         print(f"# kernel {gj} device-memory path, float64 {tuple(Gx.shape)}: held to its plain "
-              f"version (rel err f64 {results[gj]['rel']['float64']:.3e}); plan {plan}",
-              flush=True)
+              f"version (rel err f64 {results[gj]['rel']['float64']:.3e}); {ms:.4f} ms "
+              f"({timer}), bound {t_b:.4f} ms ({by}, {pct_bound(t_b, ms, gj):.1f}%), "
+              f"torch.linalg.inv {lib:.4f} ms; plan {plan}", flush=True)
         del Gx
         torch.cuda.empty_cache()
         # K3w's plan without a cluster (from d1 = 81), held only, on one
@@ -693,6 +738,10 @@ def compare_kernels(nx, degree):
         torch.cuda.empty_cache()
 
     for name, e in results.items():
+        if "ms" not in e:  # a kernel the dispatch takes in float64 only
+            print(f"# kernel {name} ({nx}^2, k={degree}, d1={d1}): rel err f64 "
+                  f"{e['rel']['float64']:.3e} (the float64 dispatch at this width)", flush=True)
+            continue
         lib = (f" | torch.linalg.inv {e['library_ms']:.4f} ms (contiguous copy "
                f"{e['library_ms_contiguous']:.4f} ms)" if "library_ms" in e else "")
         color = (f" | one colour {e['ms_color']:.4f} ms plain {e['plain_ms_color']:.4f} ms "
@@ -986,10 +1035,12 @@ def main_path(card):
 
 
 def driver_runs():
-    """Phase 6: the port's CLI driver in-process, runs (a)-(f), each with
-    the launch counts zeroed just before it and read just after.  Returns
-    the launches by run and the first two batches run (f)'s tentative
-    operator build handed to K4 (own cells, then Schur blocks)."""
+    """Phase 6: the port's CLI driver in-process, runs (a)-(j), each with
+    the launch counts zeroed just before it and read just after; run (d)'s
+    own tables and blocks (k = 4) held to the plain versions as phase (n)
+    holds k = 5, 6's.  Returns the launches by run, the first two batches
+    run (f)'s tentative operator build handed to K4 (own cells, then Schur
+    blocks) and run (d)'s table checks."""
     dt = 1.0 / NX
     runs = [
         ("a", f"monolithic SSP2 {NX}^2 k=2", ERROR_VELOCITY_MAX_MONOLITHIC,
@@ -1024,23 +1075,36 @@ def driver_runs():
                               "--use_projection_method", "--tracer_advection", "--animation",
                               "--checkpoint_every", 2, "--checkpoint_file", "tracer.npz"]),
     ]
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+
     launches = {}
     disk_k4 = []
+    ops_d, blocks_d = [], []
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)  # the driver writes solution.vtu (and run (j) its animation)
         try:
             for key, label, vel_max, argv in runs:
                 record = recording_k4_inputs(disk_k4) if key == "f" else None
+                if key == "d":  # its first stage's tables and blocks, held below
+                    record = contextlib.ExitStack()
+                    record.enter_context(recording_operator(ops_d))
+                    record.enter_context(recording_k4_inputs(blocks_d))
+                    record.enter_context(counting_cross_pair(key, 2))
                 res, wall, launches[key], timers = run_cli(key, argv, record=record)
                 check_driver_run(key, label, vel_max, res, wall, timers, launches[key])
+                if key == "d":
+                    d_checks = wide_table_checks(res["timestepper"].geom, ops_d[0], blocks_d,
+                                                 WIDE_DEGREE, "d")
                 if key == "j":
                     check_tracer_run(res)
+                del res
         finally:
             os.chdir(cwd)
+    d1 = WIDE_DEGREE_D1
     wide = launches["d"]
-    missing = [n for n in ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan_select")
-               if wide[n] == 0]
+    missing = [n for n in (*P.width_kernels(d1), smallinv.kernel_for(2 * d1)) if wide[n] == 0]
     if missing:
         fail(f"run (d) at k={WIDE_DEGREE} never launched {missing}")
     missing = [n for n in MAIN_PATH_KERNELS if launches["e"][n] == 0]
@@ -1055,7 +1119,7 @@ def driver_runs():
     for key in ("h", "i"):
         if any(launches[key].values()):
             fail(f"run ({key}), the conforming scheme, launched a kernel: {launches[key]}")
-    return launches, disk_k4
+    return launches, disk_k4, d_checks
 
 
 def check_driver_run(key, label, vel_max, res, wall, timers, launches):
@@ -1703,6 +1767,34 @@ def recording_operator(store):
         hdg_imex.build_tentative_operator = real
 
 
+# cross-pair launches by kind and run: run key -> {"colour": n, "full": n, "steps": n}
+CROSS_CALLS = {}
+
+
+@contextlib.contextmanager
+def counting_cross_pair(key, steps):
+    """Within the block, the run's cross-pair launches counted by kind into
+    CROSS_CALLS[key]: "full" (every colour and the boundary tail in one
+    launch, the tentative matvec) or "colour" (one colour at its offset, the
+    fused sweep's off-colour updates)."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+
+    real = P.cross_pair
+    calls = CROSS_CALLS[key] = {"colour": 0, "full": 0, "steps": steps}
+
+    def count(K01, K10, Bp, Cp, bounds, *a, **k):
+        calls["full" if len(bounds) > 2 else "colour"] += 1
+        return real(K01, K10, Bp, Cp, bounds, *a, **k)
+
+    P.cross_pair = count
+    try:
+        yield
+    finally:
+        P.cross_pair = real
+        print(f"# run ({key}) cross-pair launches a step: one colour "
+              f"{calls['colour'] / steps:g}, full field {calls['full'] / steps:g}", flush=True)
+
+
 def per_block_rel(got, ref):
     """Largest over the batch-last blocks of each block's error relative to
     its largest entry."""
@@ -1752,7 +1844,8 @@ def hold_gj_blocks(holds, blocks, tag):
 
 
 def wide_table_checks(geom, op, blocks, degree, tag):
-    """Phases (n), (o): K1-K3 (or K1w-K3w) on a k >= 5 run's own tables
+    """Runs (d), (n), (o): K1-K3 (or the kernels the dispatch takes at the
+    run's width and each dtype) on a k >= 4 run's own tables
     (random fields) and the Gauss-Jordan kernel (K5 or K5w) on its own-cell
     and first Schur blocks, each against its plain version in float32 (the
     run's) and float64 (the tables widened)."""
@@ -1760,10 +1853,10 @@ def wide_table_checks(geom, op, blocks, degree, tag):
 
     d1, nc, nf, b = geom.d1, geom.n_cells, geom.n_facets, geom.fcol_bounds
     nu = 2 * d1
-    k1, k2, k3 = P.width_kernels(d1)
     gen = torch.Generator(device=geom.device).manual_seed(degree)
     holds = Holds(f"run ({tag}) k={degree}")
     for dtype in (torch.float32, torch.float64):
+        k1, k2, k3 = P.width_kernels(d1, dtype)
         t = lambda a: a.to(dtype)
         tt = lambda a: P.pad_table(a.to(dtype))
         rnd = lambda *shape: torch.randn(shape, generator=gen, dtype=dtype, device=geom.device)
@@ -1785,8 +1878,8 @@ def wide_table_checks(geom, op, blocks, degree, tag):
     plain = "" if plain_err is None else f", the plain version's own {plain_err:.3e}"
     print(f"# phase ({tag[0]}) k={degree} kernels on the run's tables ({geom.n_cells} cells, "
           f"d1={d1}, blocks {[tuple(G.shape) for G in blocks]}): rel err f32/f64 "
-          + " | ".join(f"{n} {e['rel']['float32']:.3e}/{e['rel']['float64']:.3e}"
-                       for n, e in r.items())
+          + " | ".join(f"{n} {e['rel'].get('float32', float('nan')):.3e}/"
+                       f"{e['rel'].get('float64', float('nan')):.3e}" for n, e in r.items())
           + f" | the float32 inverse against the float64 plain inverse, per block "
           f"{f32_vs_f64:.3e}{plain} (bound {rtol:.3e})", flush=True)
     return r
@@ -1812,6 +1905,7 @@ def degree_runs(runs):
                 record = contextlib.ExitStack()
                 record.enter_context(recording_operator(ops))
                 record.enter_context(recording_k4_inputs(blocks))
+                record.enter_context(counting_cross_pair(key, steps))
                 res, wall, launches[key], timers = run_cli(
                     key, ["--nx", nx, "--degree", degree, "--tfinal", steps * dt,
                           "--use_projection_method"], record=record)
@@ -1840,28 +1934,60 @@ def wide_phase():
     return degree_runs([(f"n{k}", k, WIDE_K_NX, 2) for k in WIDE_K])
 
 
-def patch_ab(build):
-    """Phase (n): K3 (its template built at d1 = 28, 36 by
-    tools/ab_patch.py, started with the kernels) against K3w, the patch
-    solve the dispatch takes there, on one 128^2 colour in one process, in
-    float32 and float64; fails unless both hold the plain version and the
-    dispatch takes the faster.  Returns one row a width and dtype."""
+def patch_ab(k3, widths, phase):
+    """Phases (d), (n): K3 (its template built at d1 = 21, 28, 36 by
+    tools/ab_patch.py, started with the kernels; ``k3`` its entry point)
+    against K3w, the patch solve the dispatch takes from d1 = 21, on one
+    128^2 colour in one process at ``widths``, in float32 and float64;
+    fails unless both hold the plain version and the dispatch takes the
+    faster.  Returns one row a width and dtype."""
     from incompressibleeulerhdg_tpu_torch.tools import ab_patch
 
-    rows = ab_patch.compare(ab_patch.load(build))
+    rows = ab_patch.compare(k3, widths)
     for r in rows:
         faster = "patch_solve_wide" if r["k3w_ms"] <= r["k3_ms"] else "patch_solve"
-        print(f"# phase (n) K3 against K3w at d1={r['d1']} (one colour, {r['m']} facets, "
+        print(f"# phase ({phase}) K3 against K3w at d1={r['d1']} (one colour, {r['m']} facets, "
               f"{r['dtype']}): K3 {r['k3_ms']:.4f} ms ({100 * r['bound_ms'] / r['k3_ms']:.1f}% of "
               f"bound), K3w {r['k3w_ms']:.4f} ms ({100 * r['bound_ms'] / r['k3w_ms']:.1f}%; plan "
-              f"{r['k3w_plan']}) | rel err {r['k3_rel_err']:.2e}, {r['k3w_rel_err']:.2e} | the "
-              f"dispatch takes {r['dispatch']}", flush=True)
-        if max(r["k3_rel_err"], r["k3w_rel_err"]) > TOL[getattr(torch, r["dtype"])]:
-            fail(f"phase (n): K3 or K3w at d1 = {r['d1']} ({r['dtype']}) differs from the plain "
-                 f"version")
+              f"{r['k3w_plan']}) | rel err {r['k3_rel_err']:.2e}, {r['k3w_rel_err']:.2e}, the "
+              f"dispatch's {r['dispatch_rel_err']:.2e} | the dispatch takes {r['dispatch']}",
+              flush=True)
+        if max(r["k3_rel_err"], r["k3w_rel_err"], r["dispatch_rel_err"]) > \
+                TOL[getattr(torch, r["dtype"])]:
+            fail(f"phase ({phase}): K3 or K3w at d1 = {r['d1']} ({r['dtype']}) differs from the "
+                 f"plain version")
         if r["dispatch"] != faster:
-            fail(f"phase (n): at d1 = {r['d1']} ({r['dtype']}) the dispatch takes "
+            fail(f"phase ({phase}): at d1 = {r['d1']} ({r['dtype']}) the dispatch takes "
                  f"{r['dispatch']}, the slower")
+    return rows
+
+
+def cross_ab(k2):
+    """Phase (n): the cross pair by K2 (its template built at d1 = 21, 28,
+    36 by tools/ab_cross.py, started with the kernels; ``k2`` its entry
+    point), K2w and K2c at d1 = 21, 28, 36, 45 on the 128^2 mesh, one
+    colour and the full field, float32 and float64, in one process; fails
+    unless every kernel holds the plain version and, at each width and
+    dtype, the dispatch takes the fastest kernel on one colour (the kind
+    most launches are).  Returns one row a width, dtype and kind."""
+    from incompressibleeulerhdg_tpu_torch.tools import ab_cross
+
+    rows = ab_cross.compare(k2)
+    short = {"cross_pair": "K2", "cross_pair_wide": "K2w", "cross_pair_cluster": "K2c"}
+    for r in rows:
+        names = [n for n in short if f"{n}_ms" in r]
+        print(f"# phase (n) cross pair at d1={r['d1']} ({r['kind']}, {r['m']} facets, "
+              f"{r['dtype']}): " + ", ".join(
+                  f"{short[n]} {r[f'{n}_ms']:.4f} ms ({100 * r['bound_ms'] / r[f'{n}_ms']:.1f}% "
+                  f"of bound, rel err {r[f'{n}_rel_err']:.2e})" for n in names)
+              + f" | K2c plan {r['plan']} | fastest {r['fastest']}, the dispatch takes "
+              f"{r['dispatch']} (rel err {r['dispatch_rel_err']:.2e})", flush=True)
+        if max(r[f"{n}_rel_err"] for n in (*names, "dispatch")) > TOL[getattr(torch, r["dtype"])]:
+            fail(f"phase (n): the cross pair at d1 = {r['d1']} ({r['dtype']}, {r['kind']}) "
+                 f"differs from the plain version")
+        if r["kind"] == "colour" and r["dispatch"] != r["fastest"]:
+            fail(f"phase (n): at d1 = {r['d1']} ({r['dtype']}) the dispatch takes "
+                 f"{r['dispatch']}, not the fastest on one colour, {r['fastest']}")
     return rows
 
 
@@ -1892,6 +2018,8 @@ def degree7_phase():
     on the card against the CPU ((o64)) and on the disk ((o7d)).  Returns
     the launches by run, the table checks by degree and the disk's K5w
     holds."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+
     launches, checks = degree_runs([("o7", 7, DEG7_NX, O7_STEPS), ("o8", 8, DEG8_NX, 1)])
     dt = 1.0 / NX
     cwd = os.getcwd()
@@ -1916,8 +2044,9 @@ def degree7_phase():
                 fail("run (o64): the card's Krylov counts differ from the CPU's")
             if not diff <= DEG7_F64_RTOL:
                 fail(f"run (o64): the card's state differs from the CPU's by {diff:.3e}")
-            if any(launches["o64"][n] == 0 for n in WIDE_KERNELS):
-                fail(f"run (o64) must launch {list(WIDE_KERNELS)}: {launches['o64']}")
+            path = (*P.width_kernels(45, torch.float64), "gauss_jordan_wide")
+            if any(launches["o64"][n] == 0 for n in path):
+                fail(f"run (o64) must launch {list(path)}: {launches['o64']}")
             del res, cpu
             blocks = []
             res, wall, launches["o7d"], timers = run_cli(
@@ -1962,11 +2091,12 @@ def main():
     card = device_check()
 
     from incompressibleeulerhdg_tpu_torch import kernels
-    from incompressibleeulerhdg_tpu_torch.tools import ab_patch
+    from incompressibleeulerhdg_tpu_torch.tools import ab_cross, ab_patch
 
     t_build = time.perf_counter()
     kernels.start_builds()  # phases 3, 3b wait for K1-K4's libraries only
-    ab_build = ab_patch.start_build()  # K3 at d1 = 28, 36 for phase (n)'s A/B
+    ab_build = ab_patch.start_build()  # K3 at d1 = 21, 28, 36 for phases (d), (n)
+    cross_build = ab_cross.start_build()  # K2 at d1 = 21, 28, 36 for phase (n)
     print(f"# kernel build: nvcc started on {', '.join(kernels.all_sources())}", flush=True)
     main_cmp = compare_kernels(NX, DEGREE)
     new_cmp = compare_periodic_shapes()
@@ -1983,8 +2113,10 @@ def main():
     print(f"# ptxas: {spill} bytes of spill stores and loads over all instantiations", flush=True)
     ab = gauss_jordan_ab()
     stamp("phase 5")
-    runs, disk_k4 = driver_runs()
+    runs, disk_k4, d_checks = driver_runs()
     launches.update(runs)
+    k3_ab = ab_patch.load(ab_build)
+    ab_rows = patch_ab(k3_ab, (WIDE_DEGREE_D1,), "d")
     if len(disk_k4) != 2:
         fail(f"run (f) handed K4 {len(disk_k4)} batches to record, not 2")
     new_cmp.update(compare_disk_blocks(disk_k4))
@@ -2001,20 +2133,23 @@ def main():
     wide_launches, wide_checks = wide_phase()
     launches.update(wide_launches)
     wide_k = {k: compare_kernels(WIDE_NX, k) for k in WIDE_K}
-    ab_rows = patch_ab(ab_build)
+    ab_rows += patch_ab(k3_ab, tuple((k + 2) * (k + 3) // 2 for k in WIDE_K), "n")
+    cross_rows = cross_ab(ab_cross.load(cross_build))
     stamp("phase (n)")
     deg7_launches, deg7_checks, disk7 = degree7_phase()
     launches.update(deg7_launches)
-    deg7_cmp = compare_kernels(WIDE_NX, 7)
+    deg7_cmp = compare_kernels(WIDE_NX, 7, with_k2w=True)
     stamp("phase (o)")
     k7 = degree7_breakdown()
     stamp("phase (p)")
 
     rows = []
     for name in kernels.KERNELS:
-        # K1-K4 at the main path's shapes; K5 (not on the k = 2 path) at k = 4;
-        # K1w-K3w and K5w at k = 7
-        e = main_cmp.get(name) or wide_cmp.get(name) or deg7_cmp[name]
+        # K1-K4 at the main path's shapes; K1w-K3w, K5w (and K2c where the
+        # dispatch takes it at d1 = 45) at k = 7; K5 (not on the k = 2 path)
+        # at k = 4; K2c otherwise at k = 6
+        e = next(c[name] for c in (main_cmp, deg7_cmp, wide_cmp, wide_k[max(WIDE_K)])
+                 if "ms" in c.get(name, {}))
         row = dict(
             name=name, route="cuda", source=kernels.source_path(name),
             replaces=kernels.KERNELS[name][2],
@@ -2037,7 +2172,7 @@ def main():
                 row[f"pct_bound{sfx}"] = pct_bound(e[f"bound_ms{sfx}"], e[f"ms{sfx}"], name)
         for k in WIDE_K:  # k = 5, 6: the 128^2 shapes, the run's tables, launches a step
             w = wide_k[k].get(name)
-            if w is None:
+            if w is None or "ms" not in w:
                 continue
             d1 = (k + 2) * (k + 3) // 2
             tag = f"_n{2 * d1}" if name.startswith("gauss_jordan") else f"_d1_{d1}"
@@ -2053,7 +2188,7 @@ def main():
                 row[f"max_rel_err_run_tables{tag}"] = c["rel"]
                 if "f32_vs_f64" in c:
                     row[f"f32_vs_f64{tag}"] = c["f32_vs_f64"]
-        if name in main_cmp and name in wide_cmp:
+        if "ms" in wide_cmp.get(name, {}) and wide_cmp[name] is not e:  # the k = 4 path's
             w = wide_cmp[name]
             row.update(max_abs_err_d1_21=w["abs"]["float32"], max_rel_err_f64_d1_21=w["rel"]["float64"],
                        ms_d1_21=w["ms"], plain_ms_d1_21=w["plain_ms"], bound_ms_d1_21=w["bound_ms"])
@@ -2073,6 +2208,15 @@ def main():
                     row.update({f"ab_{key}_d1_{r['d1']}_{r['dtype']}": r[key] for key in (
                         "k3_ms", "k3w_ms", "bound_ms", "dispatch")})
                 row["device_plan"] = e["device_plan"]
+            if name == "cross_pair_cluster":
+                row["launches_per_step_by_kind"] = {
+                    key: {kind: c[kind] / c["steps"] for kind in ("colour", "full")}
+                    for key, c in CROSS_CALLS.items()}
+                for r in cross_rows:
+                    sfx = f"_d1_{r['d1']}_{r['dtype']}_{r['kind']}"
+                    row.update({f"ab_{key}{sfx}": r[key] for key in (
+                        "cross_pair_ms", "cross_pair_wide_ms", "cross_pair_cluster_ms", "bound_ms",
+                        "fastest", "dispatch", "plan") if key in r})
             if name == "gauss_jordan_wide":
                 row["device_path"] = e["device_path"]
                 d = disk7[name]

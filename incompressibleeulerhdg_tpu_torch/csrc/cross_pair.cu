@@ -32,10 +32,16 @@
 // - the tile's segments are found once per block; a tile that straddles a
 //   segment edge applies each segment's block to its own columns;
 // - a thread holds 2 VEC sums, so no width spills; its sums over j unroll
-//   whole up to 42 terms and 8 at a time above (d1 = 28, 36), where the
-//   whole sums' hoisted loads would crowd the register file;
-// - at d1 = 36 the two tables of a tile take 166 KB of shared memory, so a
-//   block runs alone on its SM.
+//   whole up to 42 terms and 8 at a time above.
+// Widths: the port dispatches d1 = 3 .. 15 (k = 0 .. 3) here.  From d1 = 21
+// the tile's two tables take 56 KB of shared memory or more (at d1 = 28,
+// 36: 100 and 166 KB, two blocks an SM, then one), the table phase waits
+// on the whole tile's load, and on one 128^2 colour on the H100 K2 reached
+// 52%, 36% and 32% of its bytes bound at d1 = 21, 28, 36, against K2c's
+// 54%, 62% and 65% in the same process (csrc/cross_pair_cluster.cu, which
+// the dispatch takes at d1 = 21 .. 45); from d1 = 45 the tables exceed a
+// block's shared memory.  tools/ab_cross.py builds this template at d1 =
+// 21, 28, 36 to time it against K2w and K2c in one process.
 // No tensor cores: in float32 they would round the inputs to TF32.
 #include "common.cuh"
 #include "tma.cuh"
@@ -202,9 +208,6 @@ static int dispatch_d1(int d1, const void* K01, const void* K10, long long ldk,
     case 6: return launch<T, 6>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
     case 10: return launch<T, 10>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
     case 15: return launch<T, 15>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
-    case 21: return launch<T, 21>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
-    case 28: return launch<T, 28>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
-    case 36: return launch<T, 36>(K01, K10, ldk, aoff, Bp, Cp, seg, x0, x1, y0, y1, m, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -36,15 +36,17 @@
 //   loop trip); Cp and Bp are read through L1.
 // No tensor cores: every facet has its own matrices (no reuse).
 //
-// Widths: instantiated for d1 = 3 .. 21 (k = 0 .. 4).  Above d1 = 15 a
-// tile is one 16-byte row of facets (TC = VEC, the TMA minimum), and the
-// four tables of that tile take 2 nu^2 + 2 d1^2 rows of 16 bytes: from
-// d1 = 28 (128,768 B) a block runs alone on its SM with nu threads and
-// nothing overlaps its loads (d1 = 28, 36 reached 29%, 19% of the bytes
-// bound on the H100), and d1 = 45 exceeds the 232,448 B a block may use.
-// Every wider d1 goes to K3w (csrc/patch_solve_wide.cu), which splits a
-// facet tile's rows over a thread-block cluster; tools/ab_patch.py builds
-// this template at d1 = 28, 36 to time it against K3w.
+// Widths: the port dispatches d1 = 3 .. 15 (k = 0 .. 3) here.  Above d1 =
+// 15 a tile is one 16-byte row of facets (TC = VEC, the TMA minimum), and
+// the four tables of that tile take 2 nu^2 + 2 d1^2 rows of 16 bytes: at
+// d1 = 21 a block has nu = 42 threads, its sums unroll 7 at a time to stay
+// under 255 registers, and it reached 35% of the bytes bound against K3w's
+// 59% in one process on the H100; from d1 = 28 (128,768 B) a block runs
+// alone on its SM (29%, 19% at d1 = 28, 36), and d1 = 45 exceeds the
+// 232,448 B a block may use.  Every wider d1 goes to K3w
+// (csrc/patch_solve_wide.cu), which splits a facet tile's rows over a
+// thread-block cluster; tools/ab_patch.py builds this template at d1 = 21,
+// 28, 36 to time it against K3w.
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -281,7 +283,6 @@ static int dispatch_d1(int d1, const void* Di, const void* Si, const void* K01,
     case 6: return launch<T, 6>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     case 10: return launch<T, 10>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     case 15: return launch<T, 15>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
-    case 21: return launch<T, 21>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,6 @@
 // K3w: the fused facet-pair patch solve of one facet colour (K3) at a width
-// d1 given at run time (the port launches it for every width from d1 = 28,
-// k = 5, on; patch_solve.cu serves d1 <= 21).
+// d1 given at run time (the port launches it for every width from d1 = 21,
+// k = 4, on; patch_solve.cu serves d1 <= 15).
 //
 // For every facet c of the colour (table column off + c) the exact 2x2
 // block-Schur solve of the [plus cell, minus cell] patch, in K3's five

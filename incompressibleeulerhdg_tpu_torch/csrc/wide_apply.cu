@@ -1,7 +1,10 @@
 // K1w and K2w: the factored block apply of K1 and the cross pair of K2 at a
-// width d1 given at run time (every degree; the port launches them for the
-// widths that fact_apply.cu and cross_pair.cu are not instantiated for,
-// d1 = 45 (k = 7) and up):
+// width d1 given at run time (every degree; the port launches K1w at the
+// widths fact_apply.cu is not instantiated for, d1 = 45 (k = 7) and up, and
+// K2w at the widths where neither cross_pair.cu (d1 <= 15) nor K2c
+// (csrc/cross_pair_cluster.cu, which was faster at d1 = 21 .. 45 on the
+// H100, preconditioners.CROSS_PAIR_MEASURED) takes the cross pair: d1 = 55
+// (k = 8) and up):
 //
 //     K1w:  out[:, c] = (I2 (x) A[:, :, aoff + c] + P[s(c)]) x[:, c]
 //     K2w:  y0[:, c]  = (I2 (x) K01[:, :, aoff + c] + Bp[s(c)]) x1[:, c]

@@ -81,7 +81,9 @@ KERNELS = {
         [_I, _I, _I, _P, _P, _L, _P],
         "tools/microbench_gj.py:79 _gj_old",
     ),
-    # the runtime-width kernels of d1 >= 45 (K3w: d1 >= 28) and n > 72
+    # the runtime-width kernels: K1w, K2w where K1, K2 are not instantiated
+    # and (K2w) K2c (cross_pair_cluster) is not measured faster
+    # (preconditioners.CROSS_PAIR_MEASURED), K3w from d1 = 21, K5w past n = 72
     "fact_apply_wide": (
         "iehdg_fact_apply_wide",
         [_I, _I, _I, _P, _L, _L, _P, _LP, _I, _P, _P, _L, _P],
@@ -90,6 +92,11 @@ KERNELS = {
     "cross_pair_wide": (
         "iehdg_cross_pair_wide",
         [_I, _I, _I, _P, _P, _L, _L, _P, _P, _LP, _I, _P, _P, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/preconditioners.py:1007 _cross_pair_pallas",
+    ),
+    "cross_pair_cluster": (
+        "iehdg_cross_pair_cluster",
+        [_I, _I, _I, _I, _I, _I, _L, _P, _P, _L, _L, _P, _P, _LP, _I, _P, _P, _P, _P, _L, _P],
         "incompressibleeulerhdg_tpu/linalg/preconditioners.py:1007 _cross_pair_pallas",
     ),
     "patch_solve_wide": (

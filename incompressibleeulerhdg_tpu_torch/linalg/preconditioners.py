@@ -36,13 +36,20 @@ CUDA here, each beside its plain PyTorch version (the JAX fallback):
 - K3 :func:`patch_solve` (csrc/patch_solve.cu) -- one colour's patch solves
 
 A CPU tensor goes to the plain version; a CUDA tensor launches a kernel,
-chosen by the width d1 = (k + 2)(k + 3)/2 alone: K1 and K2 are
-instantiated for the degrees k = 0 .. 6 (d1 in :data:`CUDA_D1`), K3 for
-k = 0 .. 4 (:data:`PATCH_D1`), and any other width launches their
+chosen by the width d1 = (k + 2)(k + 3)/2 and the dtype
+(:func:`width_kernels`): K1 is instantiated for the degrees k = 0 .. 6
+(d1 in :data:`CUDA_D1`), K2 and K3 for k = 0 .. 3 (:data:`CROSS_D1`,
+:data:`PATCH_D1`).  The cross pair at k = 4 .. 7 (d1 = 21 .. 45)
+launches K2c (csrc/cross_pair_cluster.cu: persistent thread-block
+clusters, each rank streaming its rows of the tables, planned by
+:func:`cross_pair_plan`), as :data:`CROSS_PAIR_MEASURED` records from a
+one-process A/B of K2, K2w and K2c; any other width launches the
 runtime-width counterparts K1w, K2w (csrc/wide_apply.cu) and K3w
-(csrc/patch_solve_wide.cu: a thread-block cluster a facet tile up to d1 =
-78, one thread block a tile past it, planned by :func:`patch_wide_plan`).  K2, K3 and K3w read their
-per-facet tables with TMA, which needs 16-byte rows: the operator's facet
+(csrc/patch_solve_wide.cu, from d1 = 21: a thread-block cluster a facet
+tile up to d1 = 80, one thread block a tile past it, planned by
+:func:`patch_wide_plan`).  K2, K3 and K3w read their per-facet tables
+with TMA and K2c with 16-byte loads, which need 16-byte rows: the
+operator's facet
 tables are allocated with a padded column stride (:func:`pad_table`; the
 plain versions and K1w, K2w read the same views).
 """
@@ -72,6 +79,7 @@ __all__ = [
     "pad_table",
     "tile_facets",
     "width_kernels",
+    "cross_pair_plan",
     "tentative_patch_apply",
     "tentative_colored_apply",
 ]
@@ -104,8 +112,9 @@ class TentativeOperator:
     Cx: torch.Tensor = None  # (nu, nu, nf) minus rows, plus columns
 
 
-CUDA_D1 = (3, 6, 10, 15, 21, 28, 36)  # k = 0 .. 6: K1 and K2's instantiations
-PATCH_D1 = (3, 6, 10, 15, 21)  # k = 0 .. 4: K3's; K3w takes every other width
+CUDA_D1 = (3, 6, 10, 15, 21, 28, 36)  # k = 0 .. 6: K1's instantiations
+CROSS_D1 = (3, 6, 10, 15)  # k = 0 .. 3: K2's
+PATCH_D1 = (3, 6, 10, 15)  # k = 0 .. 3: K3's; K3w takes every other width
 SMEM_MAX = 232448  # bytes of shared memory a thread block may use (H100)
 PATCH_WIDE_ROW_BYTES = (64, 128)  # K3w: bytes of a table row a cluster reads
 PATCH_WIDE_CLUSTER_MAX = 8  # the portable cluster size
@@ -116,20 +125,44 @@ PATCH_WIDE_DEV_THREADS = 256  # csrc/patch_solve_wide.cu PATCH_WIDE_DEV_THREADS
 # tools/ab_patch.py --sweep (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md
 # section 6); other widths take the rule in patch_wide_plan
 PATCH_WIDE_MEASURED = {
+    (21, torch.float32): (32, 3), (21, torch.float64): (16, 3),
     (28, torch.float32): (32, 4), (36, torch.float32): (16, 4),
     (45, torch.float32): (16, 5), (55, torch.float32): (32, 8),
     (28, torch.float64): (16, 4), (36, torch.float64): (16, 4),
     (45, torch.float64): (16, 5), (55, torch.float64): (16, 8),
 }
+CROSS_CLUSTER_ROW_BYTES = (64, 128, 256)  # K2c: bytes of a table row a tile reads
+CROSS_CLUSTER_MAX = 8  # csrc/cross_pair_cluster.cu CROSS_CLUSTER_MAX
+CROSS_CLUSTER_THREADS_MAX = 512  # csrc/cross_pair_cluster.cu CROSS_CLUSTER_THREADS_MAX
+# K2c's fastest (F, CS) by device time on one 128^2 colour, from
+# tools/ab_cross.py --sweep (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md
+# section 6); other widths take the rule in cross_pair_plan
+CROSS_CLUSTER_MEASURED = {
+    (21, torch.float32): (64, 2), (28, torch.float32): (64, 2),
+    (36, torch.float32): (64, 5), (45, torch.float32): (64, 3),
+    (21, torch.float64): (32, 3), (28, torch.float64): (32, 2),
+    (36, torch.float64): (32, 3), (45, torch.float64): (32, 3),
+}
+# the cross pair's kernel at a width and dtype where tools/ab_cross.py
+# measured K2, K2w and K2c in one process on the 128^2 mesh (the fastest
+# on one colour, the kind most launches are; NVIDIA H100 80GB HBM3,
+# 700.00 W, PERF.md section 6); other widths take K2 where it is
+# instantiated (CROSS_D1), else K2w
+CROSS_PAIR_MEASURED = {(d1, dtype): "cross_pair_cluster" for d1 in (21, 28, 36, 45)
+                       for dtype in (torch.float32, torch.float64)}
 
 
-def width_kernels(d1):
-    """Names of the kernels that K1, K2, K3's wrappers launch at width d1:
-    ``fact_apply``, ``cross_pair`` at their instantiated widths
-    (:data:`CUDA_D1`), ``patch_solve`` at its own (:data:`PATCH_D1`), their
-    ``*_wide`` counterparts at any other."""
-    return tuple(k if d1 in widths else f"{k}_wide" for k, widths in (
-        ("fact_apply", CUDA_D1), ("cross_pair", CUDA_D1), ("patch_solve", PATCH_D1)))
+def width_kernels(d1, dtype=torch.float32):
+    """Names of the kernels that K1, K2, K3's wrappers launch at width d1
+    and ``dtype``: ``fact_apply`` at its instantiated widths
+    (:data:`CUDA_D1`), else ``fact_apply_wide``; the cross pair's kernel
+    of :data:`CROSS_PAIR_MEASURED`, else ``cross_pair`` at its own widths
+    (:data:`CROSS_D1`), else ``cross_pair_wide``; ``patch_solve`` at its
+    own (:data:`PATCH_D1`), else ``patch_solve_wide``."""
+    cross = CROSS_PAIR_MEASURED.get((d1, dtype)) or \
+        ("cross_pair" if d1 in CROSS_D1 else "cross_pair_wide")
+    return ("fact_apply" if d1 in CUDA_D1 else "fact_apply_wide", cross,
+            "patch_solve" if d1 in PATCH_D1 else "patch_solve_wide")
 
 
 def _wide_tables(*tables):
@@ -202,6 +235,50 @@ def patch_wide_plan(d1, dtype, F=None, CS=None):
         f"at most {PATCH_WIDE_CLUSTER_MAX} thread blocks stages its rows of Dinv0, and the "
         f"three facet vectors of {min(PATCH_WIDE_DEV_FACETS)} facets exceed the {SMEM_MAX} B "
         f"a thread block may use")
+
+
+def cross_pair_smem(d1, F, CS, size):
+    """Shared bytes of a K2c thread block (csrc/cross_pair_cluster.cu
+    ``cross_cluster_layout``): two buffers of both inputs (NP rows x F
+    facets each, NP = nu rounded up to 16 bytes) and the rank's 2 RS rows
+    of both penalty blocks (NP each), RS = ceil(d1 / CS)."""
+    vec = 16 // size
+    np_, rs = -(-2 * d1 // vec) * vec, -(-d1 // CS)
+    return (4 * np_ * F + 4 * rs * np_) * size
+
+
+def cross_pair_plan(d1, dtype, F=None, CS=None):
+    """K2c's launch plan at width d1: F facets (table columns) a tile of a
+    cluster of CS thread blocks, rank r owning the scalar rows r d1 / CS ..
+    (r + 1) d1 / CS - 1 of both sides and components, ``RS`` = ceil(d1 /
+    CS) the most a rank holds, ``threads`` = 2 RS F / VEC (one row of one
+    side for VEC = 16 bytes of facets each) and ``smem_bytes``
+    (:func:`cross_pair_smem`).  F x the element size is one of
+    :data:`CROSS_CLUSTER_ROW_BYTES`; a plan needs
+    :data:`CROSS_CLUSTER_THREADS_MAX` threads and 232,448 shared bytes at
+    most, and CS <= min(d1, :data:`CROSS_CLUSTER_MAX`).  The default is the
+    measured fastest (:data:`CROSS_CLUSTER_MEASURED`) where there is one,
+    else the 256-byte rows (every measured width's choice) on the fewest
+    ranks, then the other rows, widest first.  ``F`` and ``CS`` fix a plan.  Raises
+    NotImplementedError where no plan fits."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // size
+    plans = []
+    clusters = (CS,) if CS else range(1, CROSS_CLUSTER_MAX + 1)
+    for f in (F,) if F else (b // size for b in CROSS_CLUSTER_ROW_BYTES):
+        for cs in clusters:
+            rs = -(-d1 // cs)
+            threads, smem = 2 * rs * (f // vec), cross_pair_smem(d1, f, cs, size)
+            if f * size not in CROSS_CLUSTER_ROW_BYTES or not 1 <= cs <= min(d1, CROSS_CLUSTER_MAX) \
+                    or threads > CROSS_CLUSTER_THREADS_MAX or smem > SMEM_MAX:
+                continue
+            plans.append({"F": f, "CS": cs, "RS": rs, "threads": threads, "smem_bytes": smem})
+    if not plans:
+        raise NotImplementedError(
+            f"cross_pair_cluster: no plan at d1 = {d1} ({dtype}, F = {F}, CS = {CS}) within "
+            f"{CROSS_CLUSTER_THREADS_MAX} threads and {SMEM_MAX} shared bytes a thread block")
+    best = [p for p in plans if (p["F"], p["CS"]) == CROSS_CLUSTER_MEASURED.get((d1, dtype))]
+    return best[0] if best else min(plans, key=lambda p: (-p["F"], p["CS"]))
 
 
 def pad_table(A):
@@ -298,7 +375,7 @@ def fact_apply(A, P, bounds, x, aoff=0):
     if A.shape[1] != d1 or nu != 2 * d1 or P.shape[1:] != (nu, nu) or \
             P.shape[0] != len(bounds) - 1 or aoff + m > A.shape[2]:
         raise ValueError(f"fact_apply: shapes A {tuple(A.shape)} P {tuple(P.shape)} x {tuple(x.shape)}")
-    name = width_kernels(d1)[0]
+    name = width_kernels(d1, x.dtype)[0]
     if name == "fact_apply":
         A = A.contiguous()
         lda = A.shape[2]
@@ -339,18 +416,22 @@ def cross_pair(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
             Bp.shape != Cp.shape or Bp.shape[1:] != (nu, nu) or \
             Bp.shape[0] != len(bounds) - 1 or aoff + m > K01.shape[2]:
         raise ValueError(f"cross_pair: shapes K {tuple(K01.shape)} P {tuple(Bp.shape)} x {tuple(x0.shape)}")
-    name = width_kernels(d1)[1]
+    name = width_kernels(d1, x0.dtype)[1]
     if name == "cross_pair_wide":
         (K01, K10), ld = _wide_tables(K01, K10)
     dev, code = kernels.check_cuda(name, Bp, Cp, x0, x1, tables=(K01, K10))
-    if name == "cross_pair":
+    if name != "cross_pair_wide":  # TMA tiles (K2) or 16-byte table loads (K2c)
         ld = kernels.table_ld(name, K01, K10)
+    plan = ()
+    if name == "cross_pair_cluster":
+        p = cross_pair_plan(d1, x0.dtype)
+        plan = (p["F"], p["CS"], p["threads"], p["smem_bytes"])
     y0 = torch.empty_like(x0)
     y1 = torch.empty_like(x0)
     if m == 0:
         return y0, y1
     seg, nseg = kernels.seg_array(bounds)
-    kernels.launch(name, dev, code, d1, K01.data_ptr(), K10.data_ptr(),
+    kernels.launch(name, dev, code, d1, *plan, K01.data_ptr(), K10.data_ptr(),
                    ld, aoff, Bp.data_ptr(), Cp.data_ptr(), seg, nseg,
                    x0.data_ptr(), x1.data_ptr(), y0.data_ptr(), y1.data_ptr(), m,
                    kernels.stream_ptr(x0))
@@ -397,7 +478,7 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
             Bp_k.shape != (nu, nu) or Cp_k.shape != (nu, nu) or \
             r1.shape != r0.shape or off + m > nf:
         raise ValueError(f"patch_solve: shapes Dinv0 {tuple(Dinv0.shape)} K {tuple(K01.shape)} r {tuple(r0.shape)}")
-    name = width_kernels(d1)[2]
+    name = width_kernels(d1, r0.dtype)[2]
     dev, code = kernels.check_cuda(name, *ts, tables=(Dinv0, Sinv, K01, K10))
     ld = kernels.table_ld(name, Dinv0, Sinv, K01, K10)
     plan = ()

@@ -23,17 +23,20 @@ change, change, parent), in one call on one card.  It prints one JSON line:
   and of all kernels, the device busy share and the PyTorch operators with
   the most device time;
 - the same for Taylor-Green at 128^2, k=4 (chip_smoke.py's run (d), which
-  runs K5), over one step after a warm-up step (``wide_``).
+  runs K5), over one step after a warm-up step (``wide_128_k4_``), or at
+  each ``--wide NX:K`` given instead (e.g. ``--wide 64:5 --wide 64:6``,
+  chip_smoke.py's runs (n5), (n6): ``wide_64_k5_``, ``wide_64_k6_``).
 
 The tree must have ``cli.driver.make_mesh`` (any tree that runs the shear
 layer and the disk).
 
 Usage:  python incompressibleeulerhdg_tpu_torch/tools/ab_cross_patch.py --root DIR [--label L]
-            [--problem taylorgreen|shear|kelvinhelmholtz] [--refinement R]
+            [--problem taylorgreen|shear|kelvinhelmholtz] [--refinement R] [--wide NX:K ...]
 """
 
 import argparse
 import json
+import statistics
 import sys
 import time
 
@@ -45,10 +48,12 @@ WIDE_NX, WIDE_DEGREE = 128, 4
 DISK_REFINEMENT = 7
 PROFILER_ATTEMPTS = 3
 EVENTS_CHECK_MS, EVENTS_RATIO = 0.2, 1.2  # device_time's check against CUDA events
+GRAPH_REPLAYS = 5  # graph_ms: replays of the captured calls between its two events
+AB_READS = 5  # in_turns: reads of each kernel of an A/B
 # each kernel's symbol, as torch.profiler names its launches
 SYMBOLS = {name: f"{name}_kernel" for name in
            ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan", "gauss_jordan_select",
-            "fact_apply_wide", "cross_pair_wide", "patch_solve_wide")}
+            "fact_apply_wide", "cross_pair_wide", "cross_pair_cluster", "patch_solve_wide")}
 SYMBOLS["gauss_jordan_wide"] = "gauss_jordan_wide"  # its register and device-memory kernels
 
 
@@ -100,6 +105,50 @@ def device_time(fn, reps=REPS, match=None, attempts=PROFILER_ATTEMPTS):
         print(f"# device_time: profiler session {attempt + 1} of {attempts} recorded no "
               f"device time{' for ' + match if match else ''}", file=sys.stderr, flush=True)
     return _events_ms(fn, reps), "cuda events"
+
+
+def graph_ms(fn, reps=REPS, replays=GRAPH_REPLAYS):
+    """Device milliseconds per call of ``fn()``, the timer of the A/Bs that
+    decide the port's dispatch (tools/ab_cross.py, tools/ab_patch.py):
+    ``reps`` calls captured in one CUDA graph, replayed ``replays`` times
+    between two CUDA events after a warm-up call and a warm-up replay.  The
+    replays launch the kernels back to back with no host work between them,
+    so the events read the card's time (with the graph's short gaps between
+    launches), however slow the host, and without torch.profiler, whose
+    sessions now and then lose launches or part of a launch's time (on the
+    H100, K2c's full field once read 0.0720 ms where every other read was
+    0.15; NVIDIA H100 80GB HBM3, 700.00 W): a kernel whose read comes out
+    too short would win an A/B it loses.  ``fn`` launches on PyTorch's
+    current stream and allocates through PyTorch, as the kernels' wrappers
+    and the tools' runners do."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    graph.reset()
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def in_turns(runs, timer, reads=AB_READS):
+    """Each of ``runs`` (name -> call) timed ``reads`` times by ``timer`` in
+    turns, the order reversed on every other turn, so that a drift of the
+    card's clock falls on every kernel alike: (the median read by name, the
+    reads by name)."""
+    names = list(runs)
+    got = {n: [] for n in names}
+    for turn in range(reads):
+        for n in names if turn % 2 == 0 else names[::-1]:
+            got[n].append(timer(runs[n]))
+    return {n: statistics.median(v) for n, v in got.items()}, got
 
 
 def _profiled_us(fn, reps, match):
@@ -179,7 +228,7 @@ def gauss_jordan_times(smallinv):
 
 
 def device_ms_by_kernel(fn, top=15):
-    """Device ms of each kernel K1-K5, K1w-K3w, K5w and of all kernels during ``fn()``,
+    """Device ms of each kernel K1-K5, K1w-K3w, K2c, K5w and of all kernels during ``fn()``,
     and the ``top`` PyTorch operators by device time (each with the kernels
     it launches itself: name, ms, calls), from torch.profiler."""
     from torch.autograd import DeviceType
@@ -259,7 +308,12 @@ def main(argv=None):
                         default="taylorgreen", help="the main path's problem and mesh")
     parser.add_argument("--refinement", type=int, default=DISK_REFINEMENT,
                         help="unit-disk refinement of --problem kelvinhelmholtz")
+    parser.add_argument("--wide", action="append", metavar="NX:K",
+                        help=f"Taylor-Green at NX^2, degree K, one profiled step (repeatable; "
+                             f"default {WIDE_NX}:{WIDE_DEGREE})")
     args = parser.parse_args(argv)
+    wide_runs = [tuple(int(v) for v in w.split(":")) for w in args.wide or
+                 [f"{WIDE_NX}:{WIDE_DEGREE}"]]
     if not torch.cuda.is_available():
         sys.exit("ab_cross_patch: needs a CUDA card (torch.cuda.is_available() is False)")
     sys.path.insert(0, args.root)
@@ -271,11 +325,12 @@ def main(argv=None):
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
 
     build_s = kernels.build_all()
-    wide = main_path(WIDE_NX, WIDE_DEGREE, steps=1)
+    wide = {f"wide_{nx}_k{k}_{key}": v for nx, k in wide_runs
+            for key, v in main_path(nx, k, steps=1).items()}
     res = {"label": args.label, "package": port.__file__, "build_s": build_s,
            **kernel_times(P), **gauss_jordan_times(smallinv),
            **main_path(problem=args.problem, refinement=args.refinement),
-           **{f"wide_{k}": v for k, v in wide.items()}, "card": torch.cuda.get_device_name(0)}
+           **wide, "card": torch.cuda.get_device_name(0)}
     print(json.dumps(res), flush=True)
 
 

@@ -1,26 +1,31 @@
-"""K3 against K3w at the widths K3w took over (d1 = 28, 36: k = 5, 6), in one
-process on a CUDA card.
+"""K3 against K3w at the widths K3w took over or may take (d1 = 21, 28, 36:
+k = 4, 5, 6), in one process on a CUDA card.
 
-K3 (``csrc/patch_solve.cu``) is instantiated for d1 <= 21; from d1 = 28 the
-port's patch solve launches K3w (``csrc/patch_solve_wide.cu``).  This tool
-compiles K3's template at d1 = 28 and 36 into its own library under
+K3 (``csrc/patch_solve.cu``) serves the narrow widths; the port's patch
+solve launches K3w (``csrc/patch_solve_wide.cu``) at every width K3's
+dispatch does not list.  This tool
+compiles K3's template at d1 = 21, 28 and 36 into its own library under
 ``build/ab_patch/`` (nvcc, the kernels' flags; a source that includes
 ``patch_solve.cu`` and exports one more entry point), and times it beside
-K3w on one colour of the 128^2 mesh (16,256 facets at offset 16,384,
-padded tables) in float32 and float64, both held to the plain version, by
-device time (``ab_cross_patch.device_time``) in turns: K3, K3w, K3w, K3.
-It prints one JSON line a width and dtype, with the kernel the port's
-dispatch takes.
-``chip_smoke.py`` calls :func:`start_build` and :func:`compare`.
+K3w (through its entry point, under its default plan) on one colour of
+the 128^2 mesh (16,256 facets at offset 16,384, padded tables) in float32
+and float64, both held to the plain version, as is the port's patch
+solve, by device time on a CUDA graph of the launches
+(``ab_cross_patch.graph_ms``) in turns, the median of five reads kept
+(``ab_cross_patch.in_turns``).  It prints one JSON line a width and dtype, with the kernel the
+port's dispatch takes.  ``chip_smoke.py`` calls :func:`start_build`,
+:func:`load` and :func:`compare`.
 
 With ``--sweep`` it times K3w instead under every plan
-``preconditioners.patch_wide_plan`` admits at d1 = 28, 36, 45, 55 (each
+``preconditioners.patch_wide_plan`` admits at d1 = 21, 28, 36, 45, 55 (each
 cluster plan (F, CS) and the plan without a cluster, CS = 0) and at d1 =
 91 (where only the latter fits), in float32 and float64, on the same
 colour, through the kernel's own entry point, each held to the plain
 version: one JSON line a plan, the default plan marked.
 
-Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_patch [--sweep]
+``--widths 21,28`` restricts either to those widths.
+
+Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_patch [--sweep] [--widths W,...]
 """
 
 import ctypes
@@ -30,14 +35,15 @@ import sys
 
 import torch
 
-WIDTHS = (28, 36)
-SWEEP_WIDTHS = (28, 36, 45, 55, 91)
+WIDTHS = (21, 28, 36)
+SWEEP_WIDTHS = (21, 28, 36, 45, 55, 91)
 DTYPES = (torch.float32, torch.float64)
 NX = 128
 
 SOURCE = """#include "{csrc}/patch_solve.cu"
 
-// K3 at the widths whose patch solve K3w took over
+// K3 at the widths of the patch-solve A/B, whether or not the port's
+// dispatch launches it there
 IEHDG_EXPORT int iehdg_patch_solve_k3_wide(int device, int dtype, int d1, const void* Di,
                                            const void* Si, const void* K01, const void* K10,
                                            long long ldt, long long off, const void* Bp,
@@ -46,10 +52,14 @@ IEHDG_EXPORT int iehdg_patch_solve_k3_wide(int device, int dtype, int d1, const 
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0 && d1 == 21)
+    return launch<float, 21>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
   if (dtype == 0 && d1 == 28)
     return launch<float, 28>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
   if (dtype == 0 && d1 == 36)
     return launch<float, 36>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+  if (dtype == 1 && d1 == 21)
+    return launch<double, 21>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
   if (dtype == 1 && d1 == 28)
     return launch<double, 28>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
   if (dtype == 1 && d1 == 36)
@@ -67,7 +77,7 @@ def _paths():
 
 
 def start_build():
-    """Start nvcc on K3 at d1 = 28, 36; returns the process (see :func:`load`)."""
+    """Start nvcc on K3 at d1 = 21, 28, 36; returns the process (see :func:`load`)."""
     from ..kernels import NVCC_FLAGS, NVCC_LIBS, _nvcc
 
     csrc, cu, so = _paths()
@@ -123,59 +133,72 @@ def _plans(d1, dtype):
     return plans + [P.patch_wide_plan(d1, dtype, CS=0)]
 
 
+def _k3w_runner(args, p):
+    """A call of K3w under plan ``p`` on ``args`` (``_colour``'s) through
+    its C entry point: returns (y0, y1)."""
+    from .. import kernels
+
+    Di, Si, K01, K10, Bk, Ck, r0, r1, off = args
+    code, d1, m = kernels.dtype_code(r0.dtype), K01.shape[0], r0.shape[1]
+
+    def run():
+        y0, y1 = torch.empty_like(r0), torch.empty_like(r0)
+        kernels.launch("patch_solve_wide", 0, code, d1, p["F"], p["CS"], p["threads"],
+                       p["smem_bytes"], Di.data_ptr(), Si.data_ptr(), K01.data_ptr(),
+                       K10.data_ptr(), K01.stride(1), off, Bk.data_ptr(), Ck.data_ptr(),
+                       r0.data_ptr(), r1.data_ptr(), y0.data_ptr(), y1.data_ptr(), m,
+                       kernels.stream_ptr(r0))
+        return y0, y1
+
+    return run
+
+
+def _rel_err(got, ref):
+    return max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
+
+
 def sweep(widths=SWEEP_WIDTHS, reps=10):
     """K3w under every admissible plan at each width and dtype: one dict a
     plan."""
-    from .. import kernels
     from ..linalg import preconditioners as P
-    from .ab_cross_patch import device_time
+    from .ab_cross_patch import graph_ms
 
     gen = torch.Generator(device="cuda:0").manual_seed(2029)
     rows = []
     for dtype in DTYPES:
-        code = kernels.dtype_code(dtype)
         for d1 in widths:
             args = _colour(d1, gen, dtype)
-            Di, Si, K01, K10, Bk, Ck, r0, r1, off = args
-            m = r0.shape[1]
+            m = args[6].shape[1]
             ref = P.patch_solve_plain(*args)
             default = P.patch_wide_plan(d1, dtype)
             for p in _plans(d1, dtype):
-
-                def run(p=p):
-                    y0, y1 = torch.empty_like(r0), torch.empty_like(r0)
-                    kernels.launch("patch_solve_wide", 0, code, d1, p["F"], p["CS"],
-                                   p["threads"], p["smem_bytes"], Di.data_ptr(), Si.data_ptr(),
-                                   K01.data_ptr(), K10.data_ptr(), K01.stride(1), off,
-                                   Bk.data_ptr(), Ck.data_ptr(), r0.data_ptr(), r1.data_ptr(),
-                                   y0.data_ptr(), y1.data_ptr(), m, kernels.stream_ptr(r0))
-                    return y0, y1
-
-                err = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(run(), ref))
-                ms = device_time(run, reps, match="patch_solve_wide")[0]
+                run = _k3w_runner(args, p)
+                err = _rel_err(run(), ref)
+                ms = graph_ms(run, reps)
                 rows.append({"d1": d1, "dtype": str(dtype).replace("torch.", ""), **p,
                              "default": p == default, "ms": ms,
                              "bound_ms": _bound_ms(d1, m, dtype), "rel_err": err})
-            del args, Di, Si, K01, K10, ref
+            del args, ref
             torch.cuda.empty_cache()
     return rows
 
 
-def compare(k3, reps=20):
-    """K3 (the entry point :func:`load` returns) and the port's patch solve
-    (K3w) at d1 = 28, 36 on one colour of the 128^2 mesh, in float32 and
-    float64: errors against the plain version, device ms per launch of each
-    (the faster of two reads, in turns), the bytes bound, and the kernel the
-    dispatch takes.  Returns one dict a width and dtype."""
+def compare(k3, widths=WIDTHS, reps=20):
+    """K3 (the entry point :func:`load` returns) and K3w (through its entry
+    point, under its default plan) at each of ``widths`` on one colour of
+    the 128^2 mesh, in float32 and float64: errors against the plain
+    version (and the error of the port's patch solve), device ms per launch
+    of each (the median of its reads in turns), the bytes bound, and the
+    kernel the dispatch takes.  Returns one dict a width and dtype."""
     from .. import kernels
     from ..linalg import preconditioners as P
-    from .ab_cross_patch import device_time
+    from .ab_cross_patch import graph_ms, in_turns
 
     gen = torch.Generator(device="cuda:0").manual_seed(2028)
     rows = []
     for dtype in DTYPES:
         code = kernels.dtype_code(dtype)
-        for d1 in WIDTHS:
+        for d1 in widths:
             args = _colour(d1, gen, dtype)
             Di, Si, K01, K10, Bk, Ck, r0, r1, off = args
             m = r0.shape[1]
@@ -192,19 +215,17 @@ def compare(k3, reps=20):
                 return y0, y1
 
             ref = P.patch_solve_plain(*args)
-            rel = lambda got: max(float((g - r).abs().max() / r.abs().max())
-                                  for g, r in zip(got, ref))
-            e3, ew = rel(run_k3()), rel(P.patch_solve(*args))
-            k3w = lambda: P.patch_solve(*args)
-            t3a, _ = device_time(run_k3, reps, match="patch_solve_kernel")
-            twa, _ = device_time(k3w, reps, match="patch_solve_wide")
-            twb, _ = device_time(k3w, reps, match="patch_solve_wide")
-            t3b, _ = device_time(run_k3, reps, match="patch_solve_kernel")
+            plan = P.patch_wide_plan(d1, dtype)
+            k3w = _k3w_runner(args, plan)
+            e3, ew, ed = _rel_err(run_k3(), ref), _rel_err(k3w(), ref), \
+                _rel_err(P.patch_solve(*args), ref)
+            ms, reads = in_turns({"k3": run_k3, "k3w": k3w}, lambda run: graph_ms(run, reps))
             rows.append({"d1": d1, "dtype": str(dtype).replace("torch.", ""), "m": m,
-                         "k3_ms": min(t3a, t3b), "k3w_ms": min(twa, twb), "k3_rel_err": e3,
-                         "k3w_rel_err": ew, "bound_ms": _bound_ms(d1, m, dtype),
-                         "dispatch": P.width_kernels(d1)[2],
-                         "k3w_plan": P.patch_wide_plan(d1, dtype)})
+                         "k3_ms": ms["k3"], "k3w_ms": ms["k3w"],
+                         "k3_reads": reads["k3"], "k3w_reads": reads["k3w"], "k3_rel_err": e3,
+                         "k3w_rel_err": ew, "dispatch_rel_err": ed,
+                         "bound_ms": _bound_ms(d1, m, dtype),
+                         "dispatch": P.width_kernels(d1, dtype)[2], "k3w_plan": plan})
             del args, Di, Si, K01, K10, ref
             torch.cuda.empty_cache()
     return rows
@@ -215,7 +236,14 @@ def main():
         sys.exit("ab_patch: needs a CUDA card (torch.cuda.is_available() is False)")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    rows = sweep() if "--sweep" in sys.argv[1:] else compare(load(start_build()))
+    argv = sys.argv[1:]
+    widths = None
+    if "--widths" in argv:
+        widths = tuple(int(w) for w in argv[argv.index("--widths") + 1].split(","))
+    if "--sweep" in argv:
+        rows = sweep(widths or SWEEP_WIDTHS)
+    else:
+        rows = compare(load(start_build()), widths or WIDTHS)
     for row in rows:
         print(json.dumps({**row, "card": card}), flush=True)
 

@@ -14,8 +14,9 @@ no nvcc).
   every (component, row, facet) of a rank once, within the same limits;
   where no (F, CS) fits (d1 = 91, 200) the plan without a cluster, whose
   row slots own every row once; NotImplementedError only past both;
-- the dispatch: ``width_kernels`` at d1 = 28, 36 sends the patch solve to
-  K3w and K1, K2 to their own instantiations; ``kernel_for`` by n;
+- the dispatch: ``width_kernels`` at d1 = 21, 28, 36 sends the patch
+  solve to K3w, K1 to its own instantiations and the cross pair to K2c
+  (at d1 = 45 too); ``kernel_for`` by n;
 - on a CUDA card only: K3w at d1 = 28, 36, 45, 55, 91 and K5w at n = 90,
   110 and float64 182 (the cluster path) against their plain versions are
   tests/test_torch_wide.py's ``cuda``-marked cases; here every plan K3w
@@ -173,14 +174,16 @@ def test_patch_wide_plan_fixed_and_past_every_plan():
 
 
 def test_width_dispatch():
-    """K1, K2 take their own instantiations up to d1 = 36 and K1w, K2w
-    above; the patch solve takes K3 up to d1 = 21 and K3w from d1 = 28;
-    the Gauss-Jordan inverse K4 to n = 32, K5 to 72, K5w above."""
-    assert TP.width_kernels(21) == ("fact_apply", "cross_pair", "patch_solve")
-    for d1 in (28, 36):
-        assert TP.width_kernels(d1) == ("fact_apply", "cross_pair", "patch_solve_wide")
-    assert TP.width_kernels(45) == ("fact_apply_wide", "cross_pair_wide", "patch_solve_wide")
-    assert TP.PATCH_D1 == tuple(d for d in TP.CUDA_D1 if d <= 21)
+    """K1 takes its own instantiations up to d1 = 36 and K1w above; the
+    cross pair K2 up to d1 = 15, K2c at d1 = 21 .. 45 and K2w above; the
+    patch solve K3 up to d1 = 15 and K3w from d1 = 21; the Gauss-Jordan
+    inverse K4 to n = 32, K5 to 72, K5w above."""
+    assert TP.width_kernels(15) == ("fact_apply", "cross_pair", "patch_solve")
+    for d1 in (21, 28, 36):
+        assert TP.width_kernels(d1) == ("fact_apply", "cross_pair_cluster", "patch_solve_wide")
+    assert TP.width_kernels(45) == ("fact_apply_wide", "cross_pair_cluster", "patch_solve_wide")
+    assert TP.width_kernels(55) == ("fact_apply_wide", "cross_pair_wide", "patch_solve_wide")
+    assert TP.PATCH_D1 == tuple(d for d in TP.CUDA_D1 if d <= 15)
     for n, name in ((20, "gauss_jordan"), (32, "gauss_jordan"), (42, "gauss_jordan_select"),
                     (72, "gauss_jordan_select"), (73, "gauss_jordan_wide"),
                     (90, "gauss_jordan_wide"), (182, "gauss_jordan_wide")):

@@ -234,10 +234,10 @@ def test_kernel_sources_and_metadata():
     root = pathlib.Path(__file__).resolve().parents[1]
     assert set(kernels.KERNELS) == {"fact_apply", "cross_pair", "patch_solve", "gauss_jordan",
                                     "gauss_jordan_select", "fact_apply_wide", "cross_pair_wide",
-                                    "patch_solve_wide", "gauss_jordan_wide"}
+                                    "cross_pair_cluster", "patch_solve_wide", "gauss_jordan_wide"}
     assert kernels.all_sources() == ["fact_apply", "cross_pair", "patch_solve", "gauss_jordan",
-                                     "gauss_jordan_select", "wide_apply", "patch_solve_wide",
-                                     "gauss_jordan_wide"]
+                                     "gauss_jordan_select", "wide_apply", "cross_pair_cluster",
+                                     "patch_solve_wide", "gauss_jordan_wide"]
     for name, (entry, argtypes, replaces) in kernels.KERNELS.items():
         src = (root / kernels.source_path(name)).read_text()
         fn = replaces.split()[-1]
@@ -341,8 +341,9 @@ def test_gauss_jordan_select_on_cpu():
 
 
 def test_card_refuses_widths_beyond_k4():
-    """On the card every width passes the width dispatch: d1 = 28, 36 (k =
-    5, 6) go to K1, K2 and K3w, d1 = 45, 55, 78 (k = 7, 8, 10) to K1w-K3w,
+    """On the card every width passes the width dispatch: d1 = 21, 28, 36
+    (k = 4 .. 6) go to K1, K2c and K3w, d1 = 45 (k = 7) to K1w, K2c and K3w,
+    d1 = 55, 78 (k = 8, 10) to K1w-K3w,
     n = 42 .. 72 to K5 and n = 90, 110, 182 (k = 7, 8, 11) to K5w, and each
     fails only for want of a CUDA tensor.  K5's own entry point still takes
     n <= 72; K3w has a plan at d1 = 91 and 200 (k = 11, 18: without a
@@ -359,9 +360,11 @@ def test_card_refuses_widths_beyond_k4():
                 lambda: TP.cross_pair(A, A, Pm, Pm, (0, 10), x, x),
                 lambda: TP.patch_solve(D, D, A, A, Pm[0], Pm[0], x, x, 0))
 
-    for d1 in (28, 36, 45, 55, 78):
+    for d1 in (21, 28, 36, 45, 55, 78):
         assert (d1 in TP.CUDA_D1) == (d1 <= 36)
-        assert (d1 in TP.PATCH_D1) == (d1 <= 21)
+        assert (d1 in TP.CROSS_D1) == (d1 <= 15)
+        assert (d1 in TP.PATCH_D1) == (d1 <= 15)
+        assert (TP.width_kernels(d1)[1] == "cross_pair_cluster") == (d1 <= 45)
         for call in tables(d1):
             with pytest.raises(ValueError, match="CUDA"):
                 call()
@@ -481,8 +484,9 @@ def test_cuda_gauss_jordan(cuda, dtype, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernels_d1_21(cuda, dtype):
-    """K1-K3 at the k = 4 width against their plain versions, with a colour
-    offset and a column count that is not a multiple of the thread block."""
+    """K1, the cross pair (K2c) and the patch solve (K3w) at the k = 4
+    width against their plain versions, with a colour offset and a column
+    count that is not a multiple of the thread block."""
     g = torch.Generator().manual_seed(5)
     d1, ld, m, off = 21, 1300, 1001, 150
     nu = 2 * d1
@@ -525,10 +529,12 @@ def test_cuda_gauss_jordan_select(cuda, dtype, n):
 @pytest.mark.parametrize("d1", [10, 21])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_tma_kernels_ragged(cuda, dtype, d1):
-    """K2 and K3 (TMA tiles) against their plain versions on a padded table
-    of an odd column count, a colour at an odd offset whose size is not a
-    multiple of the tile, and (K2) segments that start and end inside
-    tiles, one shorter than a tile, and a penalty-free tail."""
+    """The cross pair (K2 at d1 = 10, K2c at 21) and the patch solve (TMA
+    tiles: K3 at d1 = 10, K3w at 21) against their plain versions on a
+    padded table of an odd column count, a colour at an odd offset whose
+    size is not a multiple of the tile, and (the cross pair) segments that
+    start and end inside tiles, one shorter than a tile, and a
+    penalty-free tail."""
     g = torch.Generator().manual_seed(7 + d1)
     nu, nf = 2 * d1, 2 * 1001 + 1  # odd: the padded stride differs from nf
     rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype).to(cuda)
@@ -551,7 +557,8 @@ def test_cuda_tma_kernels_ragged(cuda, dtype, d1):
         got = TP.patch_solve(Di, Si, K01, K10, P4[0], Q4[0], x0[:, :mm], x1[:, :mm], off)
         ref = TP.patch_solve_plain(Di, Si, K01, K10, P4[0], Q4[0], x0[:, :mm], x1[:, :mm], off)
         assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
-    assert kernels.LAUNCHES["cross_pair"] == 2 and kernels.LAUNCHES["patch_solve"] == 3
+    assert kernels.LAUNCHES[TP.width_kernels(d1, dtype)[1]] == 2
+    assert kernels.LAUNCHES[TP.width_kernels(d1, dtype)[2]] == 3
 
 
 @pytest.mark.cuda
@@ -769,6 +776,74 @@ def test_device_time_divides_by_recorded_launches(monkeypatch):
     monkeypatch.setattr(AB, "_events_ms", lambda fn, reps: 0.25)  # checked reads: close
     assert AB.device_time(lambda: None, reps=10, match="k_kernel") == (0.3, "profiler")
     assert AB.device_time(lambda: None, reps=10) == (0.24, "profiler")
+
+
+@pytest.mark.parametrize("reads", [1, 4, 5])
+def test_in_turns_reverses_order_and_keeps_the_median(reads):
+    """The A/B timer of tools/ab_cross.py and tools/ab_patch.py reads every
+    kernel ``reads`` times, the order reversed on every other turn, and
+    keeps the median read: one short read (a profiler session that lost
+    part of a launch's time) does not decide the A/B."""
+    from incompressibleeulerhdg_tpu_torch.tools import ab_cross_patch as AB
+
+    order, times = [], {"a": [2.0, 0.5, 2.0, 2.0, 2.0], "b": [1.5] * 5}
+
+    def timer(run):
+        order.append(run)
+        return times[run][sum(r == run for r in order) - 1]
+
+    best, got = AB.in_turns({"a": "a", "b": "b"}, timer, reads)
+    assert order == [n for t in range(reads) for n in ("ab" if t % 2 == 0 else "ba")]
+    assert got == {n: v[:reads] for n, v in times.items()}
+    assert best == {"a": 2.0, "b": 1.5}
+
+
+def test_graph_ms_times_replays_of_captured_calls(monkeypatch):
+    """graph_ms makes one warm-up call, captures ``reps`` calls in one CUDA
+    graph, replays it once to warm up and ``replays`` times between two
+    events, and divides their interval by ``replays * reps``.  The graph
+    and the events are stubbed here, where there is no card."""
+    from incompressibleeulerhdg_tpu_torch.tools import ab_cross_patch as AB
+
+    log = []
+
+    class Graph:
+        def replay(self):
+            log.append("replay")
+
+        def reset(self):
+            log.append("reset")
+
+    class Capture:
+        def __init__(self, graph):
+            assert isinstance(graph, Graph)
+
+        def __enter__(self):
+            log.append("capture")
+
+        def __exit__(self, *exc):
+            log.append("captured")
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            log.append("event")
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return 60.0
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", Capture)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    assert AB.graph_ms(lambda: log.append("call"), reps=4, replays=3) == 5.0
+    assert log == ["call", "capture", *["call"] * 4, "captured", "replay", "event",
+                   *["replay"] * 3, "event", "reset"]
 
 
 @pytest.mark.parametrize("events_ms, expected",

@@ -189,8 +189,8 @@ def _rel(a, b):
 
 
 def _check_kernels_width(d1, dtype, device):
-    """K1, K2 and the patch solve (K3w from d1 = 28) at width d1 against
-    their plain versions: a colour offset, a
+    """K1, the cross pair (K2c at d1 = 28, 36) and the patch solve (K3w from
+    d1 = 21) at width d1 against their plain versions: a colour offset, a
     column count that is not a multiple of a thread block or a tile, a padded
     table of an odd column count, a tile-aligned and an unaligned offset, and
     segments that start and end inside tiles."""
@@ -216,7 +216,7 @@ def _check_kernels_width(d1, dtype, device):
         got = TP.patch_solve(Di, Si, K01, K10, P4[0], Q4[0], x0[:, :mm], x1[:, :mm], off)
         ref = TP.patch_solve_plain(Di, Si, K01, K10, P4[0], Q4[0], x0[:, :mm], x1[:, :mm], off)
         assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
-    k1, k2, k3 = TP.width_kernels(d1)
+    k1, k2, k3 = TP.width_kernels(d1, dtype)
     assert kernels.LAUNCHES[k1] == 2 and kernels.LAUNCHES[k2] == 2
     assert kernels.LAUNCHES[k3] == 3
     assert sum(kernels.LAUNCHES.values()) == 7
