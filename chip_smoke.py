@@ -79,7 +79,7 @@ Phases, each printing its own lines:
    with times, bytes and bounds (K4 also ``torch.linalg.inv`` on its
    own-cell batch); prints both runs' counts, each rank's peak
    memory, halo exchanges and all-reduces a step and s/step;
-6d. (l) run (f)'s flags on the refinement-6 disk (cut from 7 to keep the
+6d. (l) run (f)'s flags on the refinement-5 disk (cut from 7 to keep the
    script's time; k=2, float32, projection SSP2, one step), on one rank
    and then with ``--n_devices 2`` on the
    cell/facet partition, each rank through the CLI's ``driver.run`` as
@@ -124,6 +124,10 @@ Phases, each printing its own lines:
    run fails unless the dispatch takes the fastest on one colour (both
    A/Bs time each kernel on a CUDA graph of its launches, the median of
    five reads in turns: tools/ab_cross_patch.py ``graph_ms``, ``in_turns``);
+   then K5's two variants (PR 4's register-tiled template and the team
+   design, csrc/gauss_jordan_team.cuh) at n = 42, 48, 56, 72 on 32,768
+   blocks, float32 and float64, in turns (tools/ab_gj.py): both held to the
+   plain version, and the run fails unless the dispatch takes the faster;
 6g. (o) every degree: from k = 7 the widths dispatch to the runtime-width
    kernels K1w-K3w (csrc/wide_apply.cu, csrc/patch_solve_wide.cu: a
    thread-block cluster a facet tile, K3w also from k = 4; K2c,
@@ -144,15 +148,24 @@ Phases, each printing its own lines:
    alone), K5w held on the disk's own-cell and Schur batches, identity
    blocks included; then the kernel comparison at 128^2, k = 7 (timing
    rows, K2w through its entry point beside K2c), with K5w also at n = 110
-   (float32) and on a float64 n = 182 batch (the cluster path) beside
-   ``torch.linalg.inv``, and held and timed beside it on a float64 n = 420
-   batch (the device-memory path); K3w's plan without a
-   cluster (d1 >= 81) held at d1 = 91 in float32 and float64;
+   (float32) beside ``torch.linalg.inv``; K5b, K5w's blocked path past a cluster of 8
+   (``gauss_jordan_blocked``: panels of 32 pivots, each a rank-32 update
+   over the whole card, DMMA in float64), held to its plain version and its
+   blocked twin and timed beside ``torch.linalg.inv_ex`` on 32 float64
+   blocks of n = 420 (k = 18) and 32 float32 blocks of n = 552 (k = 21);
+   K3w's plan without a cluster (d1 >= 81) held at d1 = 91 in float32 and
+   float64; then K5w's tile and cluster plans against K5b at float32
+   n = 110 and float64 n = 182 in turns (tools/ab_gj.py; the run fails
+   unless the dispatch takes the faster); (o18): the k = 18 tentative
+   operator in float64 on the 2^2 square through
+   ``build_tentative_operator``, which must launch K5b, its own-cell and
+   Schur blocks held per block against a pivoted LU inverse within twice
+   the plain version's own error;
 6h. (p) one projection SSP2 step at k = 7 on 128^2, float32, after a
    warm-up step, under torch.profiler: device ms by kernel, the device
    busy share, the operators with the most device time;
-7. the launch check: every kernel K1-K5, K1w-K3w, K2c and K5w launched on
-   some path.
+7. the launch check: every kernel K1-K5, K1w-K3w, K2c, K5w and K5b
+   launched on some path.
 
 The JSON line before the card's name and power limit has one entry per
 kernel (route, source, the TPU kernel it replaces, launches by path and per
@@ -168,8 +181,11 @@ K3 also ``*_additive``: one additive patch application, every colour and
 the boundary tail, at 256^2; K1w-K3w and K5w: phase (o)'s 128^2, k = 7
 shapes, launches a step of (o7) and (o8), the errors on those runs' own
 tables, their device ms in phase (p)'s step (``k7_step_device_ms``), K5w
-``*_n110``, ``*_n182``, its device-memory plan and time and its holds on
-the k = 7 disk's blocks, K3w the K3 A/B at d1 = 21, 28, 36 (``ab_*``));
+``*_n110``, its A/B against K5b (``ab_blocked``) and its holds
+on the k = 7 disk's blocks, K3w the K3 A/B at
+d1 = 21, 28, 36 (``ab_*``); K5 its variants' A/B (``ab_variants``); K5b
+the float64 n = 420 shape, ``*_n552`` the float32 one, and its launches
+and holds in (o18));
 the last
 line is ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it.
@@ -269,9 +285,10 @@ SLAB_GJ_F32_RTOL = 2.0e-4
 # float32, projection SSP2, PART_STEPS steps) over 2 ranks
 # of the cell/facet partition, against one rank in the same call; the state
 # is held to the single rank's to 1e-4 of its largest entry, as phase
-# (k)'s.  Refinement 6, cut from run (f)'s 7: at 7 the partitioned run
-# took 93-120 s of the script and the script 632 s (PERF.md section 4)
-PART_REFINEMENT = 6
+# (k)'s.  Refinement 5, cut from run (f)'s 7: at 7 the partitioned run
+# took 93-120 s of the script and the script 632 s, at 6 the phase 70 s and
+# the script 654 s beside the Gauss-Jordan A/Bs (PERF.md section 4)
+PART_REFINEMENT = 5
 PART_STEPS = 1  # cut from 2 (one warm-up, one timed): 7.3-13.6 s a step over the ranks
 PART_RANKS = 2
 PART_STATE_RTOL = 1.0e-4
@@ -350,15 +367,20 @@ DEG7_F64_RTOL = 1.0e-10
 # geometry class) and took 37.7 s of the script at refinement 3 on the
 # H100's host (PERF.md section 4)
 DEG7_DISK_REFINEMENT = 2
-# K5w at n = 110 (k = 8) in float32 on the 128^2 own-cell batch, and in
-# float64 at n = 182 (k = 11) on 1024 blocks, where one block's register
-# tiles exceed an SM's registers and K5w splits them over a thread-block
-# cluster (timed beside torch.linalg.inv on the same blocks)
-WIDE_GJ_EXTRA = ((110, torch.float32, None), (182, torch.float64, 1024))
-# K5w's device-memory path (float64 past n = 384: no cluster of 8 holds a
-# block's tiles), held to its plain version on WIDE_GJ_DEVICE_BATCH blocks
-# of k = 18 (n = 420) and timed beside torch.linalg.inv on them
-WIDE_GJ_DEVICE_N, WIDE_GJ_DEVICE_BATCH = 420, 32
+# K5w at n = 110 (k = 8) in float32 on the 128^2 own-cell batch (timed
+# beside torch.linalg.inv on the same blocks); float64 n = 182 (k = 11), the
+# cluster path, which the dispatch leaves to K5b, is phase (o)'s A/B
+# (wide_ab)
+WIDE_GJ_EXTRA = ((110, torch.float32, None),)
+# K5b, K5w's blocked path (past a cluster of 8: float64 n > 384, float32
+# n > 540), held to its plain version and its blocked twin and timed beside
+# torch.linalg.inv_ex on (n, dtype, blocks): k = 18 in float64, k = 21 in
+# float32; the first is the row's, the second its "_n552" keys
+WIDE_GJ_BLOCKED = ((420, torch.float64, 32), (552, torch.float32, 32))
+# (o18): the first stage's tentative operator of k = 18 (n = 420) in
+# float64 on the O18_NX^2 square, built through build_tentative_operator
+# as a stage build does: K5b inverts its own-cell and Schur blocks
+O18_DEGREE, O18_NX = 18, 2
 # K3w's plan without a cluster (d1 >= 81: no cluster of 8 stages its rows
 # of Dinv0), held to its plain version at k = 11 on one colour of this many
 # facets
@@ -693,29 +715,9 @@ def compare_kernels(nx, degree, with_k2w=False):
             torch.cuda.empty_cache()
         print_new_shapes(results, [(gj, f"_n{n_x}", str(results[gj][f"shape_n{n_x}"]))
                                    for n_x, _, _ in WIDE_GJ_EXTRA])
-        # the device-memory path, held only (its plain version takes seconds)
-        n_x = WIDE_GJ_DEVICE_N
-        plan = smallinv.wide_gj_plan(n_x, torch.float64)
-        if plan["path"] != "device":
-            fail(f"K5w at float64 n = {n_x} does not take the device-memory path: {plan}")
-        Gx = spd(n_x, WIDE_GJ_DEVICE_BATCH, torch.float64)
-        holds.check(gj, torch.float64, smallinv.gauss_jordan_inv_bl(Gx),
-                    smallinv.gauss_jordan_inv_plain(Gx), per_block=True)
-        # one launch's device time beside its operations bound and
-        # torch.linalg.inv on the same blocks (the plain version takes seconds)
-        ms, timer = device_time(lambda: smallinv.gauss_jordan_inv_bl(Gx), WIDE_GJ_REPS,
-                                match=SYMBOLS[gj])
-        lib = device_time(lambda: torch.linalg.inv(Gx.permute(2, 0, 1)), WIDE_GJ_REPS)[0]
-        t_b, by = bound(torch.float64, *work(gj, torch.float64, 0, WIDE_GJ_DEVICE_BATCH, n=n_x))
-        results[gj]["device_path"] = {"n": n_x, "batch": WIDE_GJ_DEVICE_BATCH, "plan": plan,
-                                      "ms": ms, "library_ms": lib, "bound_ms": t_b,
-                                      "bound_by": by, "timer": timer}
-        print(f"# kernel {gj} device-memory path, float64 {tuple(Gx.shape)}: held to its plain "
-              f"version (rel err f64 {results[gj]['rel']['float64']:.3e}); {ms:.4f} ms "
-              f"({timer}), bound {t_b:.4f} ms ({by}, {pct_bound(t_b, ms, gj):.1f}%), "
-              f"torch.linalg.inv {lib:.4f} ms; plan {plan}", flush=True)
-        del Gx
-        torch.cuda.empty_cache()
+        # K5b, the blocked path (past a cluster of 8: float64 n > 384, float32
+        # n > 540), held and timed beside torch.linalg.inv_ex on the same blocks
+        results.update(blocked_checks())
         # K3w's plan without a cluster (from d1 = 81), held only, on one
         # colour of PATCH_WIDE_DEVICE_FACETS facets at an odd offset
         d1x, nux, mx = PATCH_WIDE_DEVICE_D1, 2 * PATCH_WIDE_DEVICE_D1, PATCH_WIDE_DEVICE_FACETS
@@ -738,6 +740,8 @@ def compare_kernels(nx, degree, with_k2w=False):
         torch.cuda.empty_cache()
 
     for name, e in results.items():
+        if name == "gauss_jordan_blocked":  # blocked_checks printed its own lines
+            continue
         if "ms" not in e:  # a kernel the dispatch takes in float64 only
             print(f"# kernel {name} ({nx}^2, k={degree}, d1={d1}): rel err f64 "
                   f"{e['rel']['float64']:.3e} (the float64 dispatch at this width)", flush=True)
@@ -1822,12 +1826,13 @@ def hold_gj_blocks(holds, blocks, tag):
     inverse, the plain version's own)."""
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
 
-    gj = smallinv.kernel_for(blocks[0].shape[0])
+    n = blocks[0].shape[0]
+    gj = smallinv.kernel_for(n, torch.float32)
     rtol, plain_err = gj_f32_rtol(blocks)
     for dtype in (torch.float32, torch.float64):
         for G in blocks:
             G = G.to(dtype)
-            holds.check(gj, dtype, smallinv.gauss_jordan_inv_bl(G),
+            holds.check(smallinv.kernel_for(n, dtype), dtype, smallinv.gauss_jordan_inv_bl(G),
                         smallinv.gauss_jordan_inv_plain(G), per_block=True,
                         rel_tol=rtol if dtype == torch.float32 else None)
     f32_vs_f64 = max(per_block_rel(smallinv.gauss_jordan_inv_bl(G.float()),
@@ -1912,7 +1917,7 @@ def degree_runs(runs):
                 check_driver_run(key, f"projection SSP2 {nx}^2 k={degree}",
                                  ERROR_VELOCITY_MAX, res, wall, timers, launches[key])
                 d1 = (degree + 2) * (degree + 3) // 2
-                path = (*P.width_kernels(d1), smallinv.kernel_for(2 * d1))
+                path = (*P.width_kernels(d1), smallinv.kernel_for(2 * d1, torch.float32))
                 check_path_kernels(key, launches[key], path[:3])
                 others = [n for n, v in launches[key].items() if v and n not in path]
                 if launches[key][path[3]] == 0 or others:
@@ -1989,6 +1994,193 @@ def cross_ab(k2):
             fail(f"phase (n): at d1 = {r['d1']} ({r['dtype']}) the dispatch takes "
                  f"{r['dispatch']}, not the fastest on one colour, {r['fastest']}")
     return rows
+
+
+AB_MARGIN = 1.03  # a dispatch A/B fails where the dispatch's kernel is slower by more
+
+
+def select_ab():
+    """Phase (n): K5's variants (0: PR 4's register-tiled template; 1: the
+    team design) at n = 42, 48, 56, 72 on 32,768 blocks, float32 and
+    float64, in one process (tools/ab_gj.py ``compare_select``: CUDA-graph
+    replays, the median of three reads in turns); fails unless both hold the
+    plain version per block and the dispatch takes the faster (within
+    AB_MARGIN of it).  Returns the rows."""
+    from incompressibleeulerhdg_tpu_torch.tools import ab_gj
+
+    rows = ab_gj.compare_select()
+    for r in rows:
+        ms = {v: r[f"v{v}_ms"] for v in (0, 1)}
+        print(f"# phase (n) K5 variants at n={r['n']} ({r['batch']} blocks, {r['dtype']}): "
+              + ", ".join(f"variant {v} {ms[v]:.4f} ms ({100 * r['bound_ms'] / ms[v]:.1f}% of "
+                          f"bound, rel err {r[f'v{v}_rel_err']:.2e})" for v in (0, 1))
+              + f" | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | faster {r['faster']}, the "
+              f"dispatch takes {r['dispatch']} | plans {r['plans']}", flush=True)
+        if max(r["v0_rel_err"], r["v1_rel_err"]) > TOL[getattr(torch, r["dtype"])]:
+            fail(f"phase (n): K5 at n = {r['n']} ({r['dtype']}) differs from the plain version")
+        if ms[r["dispatch"]] > AB_MARGIN * ms[r["faster"]]:
+            fail(f"phase (n): at n = {r['n']} ({r['dtype']}) K5's dispatch takes variant "
+                 f"{r['dispatch']}, the slower")
+    return rows
+
+
+def wide_ab():
+    """Phase (o): K5w's register-tile plan (float32 n = 110, 32,768 blocks)
+    and cluster plan (float64 n = 182, 1,024 blocks) against K5b in one
+    process (tools/ab_gj.py ``compare_wide``); fails unless both hold the
+    plain version (float32: WIDE_GJ_F32_MULT times its own error against
+    the float64 plain inverse) and the dispatch takes the faster (within
+    AB_MARGIN).  Returns the rows."""
+    from incompressibleeulerhdg_tpu_torch.tools import ab_gj
+
+    rows = ab_gj.compare_wide()
+    for r in rows:
+        dtype = getattr(torch, r["dtype"])
+        tol = TOL[dtype] if dtype == torch.float64 else WIDE_GJ_F32_MULT * r["plain_f32_vs_f64"]
+        ms = {r["tiles_path"]: r["tiles_ms"], "blocked": r["blocked_ms"]}
+        print(f"# phase (o) K5w {r['tiles_path']} against K5b at n={r['n']} ({r['batch']} blocks, "
+              f"{r['dtype']}): {r['tiles_path']} {r['tiles_ms']:.4f} ms "
+              f"({100 * r['bound_ms'] / r['tiles_ms']:.1f}% of bound, rel err "
+              f"{r['tiles_rel_err']:.2e}), blocked {r['blocked_ms']:.4f} ms "
+              f"({100 * r['bound_ms'] / r['blocked_ms']:.1f}%, rel err {r['blocked_rel_err']:.2e}; "
+              f"tolerance {tol:.2e}) | faster {r['faster']}, the dispatch takes {r['dispatch']}",
+              flush=True)
+        if max(r["tiles_rel_err"], r["blocked_rel_err"]) > tol:
+            fail(f"phase (o): K5w or K5b at n = {r['n']} ({r['dtype']}) differs from the plain "
+                 f"version")
+        if ms[r["dispatch"]] > AB_MARGIN * ms[r["faster"]]:
+            fail(f"phase (o): at n = {r['n']} ({r['dtype']}) the dispatch takes "
+                 f"{r['dispatch']}, the slower")
+    return rows
+
+
+def blocked_checks():
+    """Phase (o): K5b (gauss_jordan_blocked) at each WIDE_GJ_BLOCKED shape,
+    where the dispatch must take it: held per block to the plain version
+    (float64 to TOL; float32 to WIDE_GJ_F32_MULT times the plain version's
+    own error against the float64 plain inverse, against both) and to its
+    blocked twin, timed on a CUDA graph in turns (tools/ab_cross_patch.py
+    ``graph_ms``, ``in_turns``) beside one ``torch.linalg.inv_ex`` on the
+    same blocks (tools/ab_gj.py ``library_ms``), the plain version by CUDA
+    events.  Returns {"gauss_jordan_blocked": its entry}."""
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import _events_ms, graph_ms, in_turns
+    from incompressibleeulerhdg_tpu_torch.tools.ab_gj import library_ms
+    from incompressibleeulerhdg_tpu_torch.tools.microbench_gj import diag_dominant
+
+    name = "gauss_jordan_blocked"
+    holds = Holds("blocked path")
+    for idx, (n, dtype, batch) in enumerate(WIDE_GJ_BLOCKED):
+        plan = smallinv.wide_gj_plan(n, dtype)
+        if plan["path"] != "blocked" or smallinv.kernel_for(n, dtype) != name:
+            fail(f"K5w at n = {n} ({dtype}) does not take the blocked path: {plan}")
+        A = diag_dominant(n, batch, dtype, seed=n)
+        ref = smallinv.gauss_jordan_inv_plain(A)
+        twin = smallinv.gauss_jordan_inv_blocked_plain(A)
+        got = smallinv.gauss_jordan_inv_bl(A)
+        rtol, plain_err = None, None
+        if dtype == torch.float32:
+            ref64 = smallinv.gauss_jordan_inv_plain(A.double())
+            plain_err = per_block_rel(ref.double(), ref64)
+            rtol = WIDE_GJ_F32_MULT * plain_err
+            if not per_block_rel(got.double(), ref64) <= rtol:
+                fail(f"K5b at n = {n} float32 differs from the float64 plain inverse by "
+                     f"{per_block_rel(got.double(), ref64):.3e} (bound {rtol:.3e})")
+            del ref64
+        holds.check(name, dtype, got, ref, per_block=True, rel_tol=rtol)
+        twin_err = per_block_rel(got, twin)
+        if not twin_err <= (rtol or TOL[dtype]):
+            fail(f"K5b at n = {n} ({dtype}) differs from its blocked twin by {twin_err:.3e}")
+        ms, reads = in_turns({name: lambda: smallinv.gauss_jordan_inv_bl(A)},
+                             lambda f: graph_ms(f, 5))
+        lib, lib_timer = library_ms(lambda: torch.linalg.inv_ex(A.permute(2, 0, 1))[0])
+        plain_ms = _events_ms(lambda: smallinv.gauss_jordan_inv_plain(A), 1)
+        nbytes, flops = work(name, dtype, 0, batch, n=n)
+        t_b, by = bound(dtype, nbytes, flops)
+        sfx = "" if idx == 0 else f"_n{n}"
+        e = holds.results[name]
+        e.update({f"ms{sfx}": ms[name], f"reads{sfx}": reads[name], f"plain_ms{sfx}": plain_ms,
+                  f"bytes{sfx}": nbytes, f"bound_ms{sfx}": t_b, f"bound_by{sfx}": by,
+                  f"library_ms{sfx}": lib, f"library_timer{sfx}": lib_timer, f"plan{sfx}": plan,
+                  f"shape{sfx}": tuple(A.shape), f"dtype{sfx}": str(dtype).replace("torch.", ""),
+                  f"twin_rel_err{sfx}": twin_err, "timers": ["cuda-graph", "cuda-events"]})
+        if plain_err is not None:
+            e[f"plain_f32_vs_f64{sfx}"] = plain_err
+        print(f"# kernel {name} {tuple(A.shape)} {e[f'dtype{sfx}']}: rel err "
+              f"{e['rel'][e[f'dtype{sfx}']]:.3e} (the blocked twin {twin_err:.3e}"
+              + ("" if plain_err is None else f", the plain version's own {plain_err:.3e}")
+              + f") | kernel {ms[name]:.4f} ms (cuda-graph, reads {[round(v, 4) for v in reads[name]]}) "
+              f"plain {plain_ms:.4f} ms | bound {t_b:.4f} ms ({by}, "
+              f"{pct_bound(t_b, ms[name], name):.2f}%) | torch.linalg.inv_ex {lib:.4f} ms "
+              f"({lib_timer}; the kernel {lib / ms[name]:.1f}x faster) | plan {plan}", flush=True)
+        del A, ref, twin, got
+        torch.cuda.empty_cache()
+    return holds.results
+
+
+def blocked_build_phase():
+    """Phase (o18): the first stage's tentative operator of projection SSP2
+    at k = 18 (n = 420) in float64 on the O18_NX^2 square (the Taylor-Green
+    velocity at t = 0, c = a_11 dt), through ``star_fields`` and
+    ``build_tentative_operator`` as a stage build calls them, the launch
+    counts zeroed just before and read just after: K5b must launch and no
+    other Gauss-Jordan kernel.  Its own-cell and Schur blocks (recorded) are
+    held per block against a pivoted LU inverse (``torch.linalg.inv``):
+    K5b's error at most WIDE_GJ_F32_MULT times the plain version's own
+    (never below TOL[float64]; at k = 18 the blocks' conditioning sets both,
+    as float32's does from n = 90); K5b against the plain version and the
+    blocked twin is printed.  Returns (launches, holds)."""
+    from incompressibleeulerhdg_tpu_torch import kernels
+    from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+    from incompressibleeulerhdg_tpu_torch.mesh import unit_square_mesh
+    from incompressibleeulerhdg_tpu_torch.models.problems import TaylorGreen
+    from incompressibleeulerhdg_tpu_torch.ops.forms import star_fields
+    from incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex import ALPHA_PENALTY
+    from incompressibleeulerhdg_tpu_torch.timesteppers.tableaus import TABLEAUS
+
+    dev = torch.device("cuda:0")
+    name, dtype = "gauss_jordan_blocked", torch.float64
+    t0 = time.perf_counter()
+    disc = HDGDiscretisation(unit_square_mesh(O18_NX), O18_DEGREE, dtype=dtype, device=dev)
+    Q0 = disc.interpolate_velocity(TaylorGreen(disc).initial_condition()[0])
+    star = star_fields(disc.geom, Q0)
+    c = float(TABLEAUS["imex_ssp2_332"].a_impl[1][1]) / NX
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    blocks = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with recording_k4_inputs(blocks, n=4):
+        P.build_tentative_operator(disc.geom, star, c, ALPHA_PENALTY, True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    gj = [n for n in launches if n.startswith("gauss_jordan") and launches[n]]
+    if launches[name] == 0 or gj != [name]:
+        fail(f"phase (o18): the k = 18 float64 build must launch K5b and no other "
+             f"Gauss-Jordan kernel: {launches}")
+    lu = [torch.linalg.inv(G.permute(2, 0, 1)).permute(1, 2, 0) for G in blocks]
+    own = max(per_block_rel(smallinv.gauss_jordan_inv_plain(G), r) for G, r in zip(blocks, lu))
+    rtol = max(TOL[dtype], WIDE_GJ_F32_MULT * own)
+    holds = Holds(f"k={O18_DEGREE} build")
+    plain_err = twin_err = 0.0
+    for G, r in zip(blocks, lu):
+        got = smallinv.gauss_jordan_inv_bl(G)
+        holds.check(name, dtype, got, r, per_block=True, rel_tol=rtol)
+        plain_err = max(plain_err, per_block_rel(got, smallinv.gauss_jordan_inv_plain(G)))
+        twin_err = max(twin_err, per_block_rel(got, smallinv.gauss_jordan_inv_blocked_plain(G)))
+    e = holds.results[name]
+    e.update(plain_own_rel_err=own, rtol=rtol, plain_rel_err=plain_err, twin_rel_err=twin_err)
+    print(f"# phase (o18) k={O18_DEGREE} float64 stage operator on {O18_NX}^2 (set-up "
+          f"{setup_s:.2f} s, build {build_s:.3f} s): launches "
+          f"{dict((k, v) for k, v in launches.items() if v)} | blocks "
+          f"{[tuple(G.shape) for G in blocks]} | per block against the pivoted LU inverse: "
+          f"K5b {e['rel']['float64']:.3e}, the plain version {own:.3e} (bound {rtol:.3e}) | "
+          f"K5b against the plain version {plain_err:.3e}, the blocked twin {twin_err:.3e}",
+          flush=True)
+    return launches, holds.results
 
 
 def degree7_breakdown():
@@ -2135,10 +2327,13 @@ def main():
     wide_k = {k: compare_kernels(WIDE_NX, k) for k in WIDE_K}
     ab_rows += patch_ab(k3_ab, tuple((k + 2) * (k + 3) // 2 for k in WIDE_K), "n")
     cross_rows = cross_ab(ab_cross.load(cross_build))
+    select_rows = select_ab()
     stamp("phase (n)")
     deg7_launches, deg7_checks, disk7 = degree7_phase()
     launches.update(deg7_launches)
     deg7_cmp = compare_kernels(WIDE_NX, 7, with_k2w=True)
+    wide_rows = wide_ab()
+    launches["o18"], o18 = blocked_build_phase()
     stamp("phase (o)")
     k7 = degree7_breakdown()
     stamp("phase (p)")
@@ -2218,7 +2413,8 @@ def main():
                         "cross_pair_ms", "cross_pair_wide_ms", "cross_pair_cluster_ms", "bound_ms",
                         "fastest", "dispatch", "plan") if key in r})
             if name == "gauss_jordan_wide":
-                row["device_path"] = e["device_path"]
+                row["ab_blocked"] = [{k: v for k, v in r.items() if not k.endswith("plan")}
+                                     for r in wide_rows]
                 d = disk7[name]
                 row.update(max_rel_err_disk_k7=d["rel"], f32_vs_f64_disk_k7=d["f32_vs_f64"],
                            plain_f32_vs_f64_disk_k7=d["plain_f32_vs_f64"],
@@ -2232,6 +2428,15 @@ def main():
         if name == "gauss_jordan_select":
             row.update(ab_k4_n20_ms=ab["k4_n20_ms"], ab_k5_n20_ms=ab["k5_n20_ms"],
                        ab_k5_n42_ms=ab["k5_n42_ms"], ab_timer=ab["timer"])
+            row["ab_variants"] = [{k: v for k, v in r.items() if k != "plans"}
+                                  for r in select_rows]
+        if name == "gauss_jordan_blocked":  # phase (o): n = 420 float64; 552 float32; (o18)
+            sfx = f"_n{WIDE_GJ_BLOCKED[1][0]}"
+            row.update({k: v for k, v in e.items() if k not in ("abs", "rel", "timers")})
+            row["pct_bound" + sfx] = pct_bound(e["bound_ms" + sfx], e["ms" + sfx], name)
+            row.update(max_rel_err=e["rel"], launches_o18=launches["o18"][name],
+                       **{f"{key}_o18": o18[name][key] for key in (
+                           "rel", "plain_own_rel_err", "rtol", "plain_rel_err", "twin_rel_err")})
         n = new_cmp.get(name, {})
         for key, v in n.items():
             if key in ("abs", "rel"):

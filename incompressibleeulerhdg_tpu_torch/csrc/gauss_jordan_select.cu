@@ -40,7 +40,19 @@
 // float64 (2 blocks), the fastest of tools/tune_gj.py's plans without a
 // spill on the H100; the pivot loop is unrolled over N, which sets nvcc's
 // time for this library.
+//
+// That design (variant 0) is bound by its shared-memory issue and its
+// thread-block-wide barrier a pivot, not by its FMAs.  Variant 1, the team
+// design of csrc/gauss_jordan_team.cuh, gives each block a team of two
+// warps on a named barrier of its own, publishes the pivot row and column
+// so a thread reads its fragments as 16-byte vectors (5 shared loads for 49
+// FMAs at n = 56), and stages the thread block's blocks through shared
+// memory so device memory still moves in runs of consecutive batch
+// entries.  The port takes whichever variant was faster on the card at the
+// width and dtype (linalg/smallinv.py SELECT_MEASURED); both stay built, so
+// one process can time both.
 #include "gauss_jordan.cuh"
+#include "gauss_jordan_team.cuh"
 
 template <typename T, int N>
 __global__ void __launch_bounds__(GjPlan<T, N>::THREADS) gauss_jordan_select_kernel(
@@ -50,33 +62,65 @@ __global__ void __launch_bounds__(GjPlan<T, N>::THREADS) gauss_jordan_select_ker
 }
 
 template <typename T, int N>
-static int run(const void* A, void* out, int n, long long B, cudaStream_t st, int* plan) {
+__global__ void __launch_bounds__(GtShape<T, N, GtPlan<T, N>::BB>::THREADS)
+    gauss_jordan_select_kernel_team(const T* __restrict__ A, T* __restrict__ out, int n,
+                                    long long B) {
+  gt_tile<T, N, GtPlan<T, N>::BB, GtPlan<T, N>::G>(A, out, n, B);
+}
+
+// Variant 1 (the team design) at N: launch, or (plan != nullptr) describe it:
+// plan = {N, R, R, BB, threads, shared bytes, G}.
+template <typename T, int N>
+static int run_team(const void* A, void* out, int n, long long B, cudaStream_t st, int* plan) {
+  constexpr int BB = GtPlan<T, N>::BB, G = GtPlan<T, N>::G;
+  using S = GtShape<T, N, BB, G>;
+  if (plan) {
+    const int p[7] = {N, S::R, S::R, BB, S::THREADS, S::SMEM, G};
+    for (int i = 0; i < 7; ++i) plan[i] = p[i];
+    return 0;
+  }
+  static bool attr = false;
+  return gt_launch<T, N, BB, G>(gauss_jordan_select_kernel_team<T, N>, attr, A, out, n, B, st);
+}
+
+template <typename T, int N>
+static int run(int variant, const void* A, void* out, int n, long long B, cudaStream_t st,
+               int* plan) {
+  if (variant == 1) return run_team<T, N>(A, out, n, B, st, plan);
   return gj_launch<T, N>(gauss_jordan_select_kernel<T, N>, A, out, n, B, st, plan);
 }
 
 template <typename T>
-static int dispatch(int n, const void* A, void* out, long long B, cudaStream_t st, int* plan) {
-  if (n <= 20) return run<T, 20>(A, out, n, B, st, plan);
-  if (n <= 42) return run<T, 42>(A, out, n, B, st, plan);
-  if (n <= 48) return run<T, 48>(A, out, n, B, st, plan);
-  if (n <= 56) return run<T, 56>(A, out, n, B, st, plan);
-  return run<T, 72>(A, out, n, B, st, plan);
+static int dispatch(int variant, int n, const void* A, void* out, long long B, cudaStream_t st,
+                    int* plan) {
+  if (n <= 20) return run<T, 20>(variant, A, out, n, B, st, plan);
+  if (n <= 42) return run<T, 42>(variant, A, out, n, B, st, plan);
+  if (n <= 48) return run<T, 48>(variant, A, out, n, B, st, plan);
+  if (n <= 56) return run<T, 56>(variant, A, out, n, B, st, plan);
+  return run<T, 72>(variant, A, out, n, B, st, plan);
 }
 
 // dtype: 0 float32, 1 float64.  A and out (n, n, B) contiguous, n <= 72.
+// variant: 0 PR 4's register-tiled template (csrc/gauss_jordan.cuh), 1 the
+// team design (csrc/gauss_jordan_team.cuh); the port chooses it by n and
+// dtype from a measured table (linalg/smallinv.py SELECT_MEASURED).
 IEHDG_EXPORT int iehdg_gauss_jordan_select(int device, int dtype, int n, const void* A,
-                                           void* out, long long B, void* stream) {
-  if (n < 1 || n > 72 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+                                           void* out, long long B, int variant, void* stream) {
+  if (n < 1 || n > 72 || (dtype != 0 && dtype != 1) || (variant != 0 && variant != 1))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  return dtype == 0 ? dispatch<float>(n, A, out, B, st, nullptr)
-                    : dispatch<double>(n, A, out, B, st, nullptr);
+  return dtype == 0 ? dispatch<float>(variant, n, A, out, B, st, nullptr)
+                    : dispatch<double>(variant, n, A, out, B, st, nullptr);
 }
 
-// The launch plan of block size n: {N, R, C, BB, threads, shared bytes}.
-IEHDG_EXPORT int iehdg_gauss_jordan_select_plan(int dtype, int n, int* plan) {
-  if (n < 1 || n > 72 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  return dtype == 0 ? dispatch<float>(n, nullptr, nullptr, 0, nullptr, plan)
-                    : dispatch<double>(n, nullptr, nullptr, 0, nullptr, plan);
+// The launch plan of block size n under `variant`: {N, R, C, BB, threads,
+// shared bytes, G} (variant 0: static shared memory, G left as it is; 1:
+// dynamic shared memory, G groups of BB blocks staged at once).
+IEHDG_EXPORT int iehdg_gauss_jordan_select_plan(int dtype, int n, int variant, int* plan) {
+  if (n < 1 || n > 72 || (dtype != 0 && dtype != 1) || (variant != 0 && variant != 1))
+    return (int)cudaErrorInvalidValue;
+  return dtype == 0 ? dispatch<float>(variant, n, nullptr, nullptr, 0, nullptr, plan)
+                    : dispatch<double>(variant, n, nullptr, nullptr, 0, nullptr, plan);
 }

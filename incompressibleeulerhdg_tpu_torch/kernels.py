@@ -78,7 +78,7 @@ KERNELS = {
     ),
     "gauss_jordan_select": (
         "iehdg_gauss_jordan_select",
-        [_I, _I, _I, _P, _P, _L, _P],
+        [_I, _I, _I, _P, _P, _L, _I, _P],
         "tools/microbench_gj.py:79 _gj_old",
     ),
     # the runtime-width kernels: K1w, K2w where K1, K2 are not instantiated
@@ -109,10 +109,18 @@ KERNELS = {
         [_I, _I, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
         "incompressibleeulerhdg_tpu/linalg/smallinv.py:89 gauss_jordan_inv_bl",
     ),
+    # K5b: K5w's blocked path (panels of b pivots, a rank-b update over the
+    # card), past a cluster of 8 and where smallinv.WIDE_GJ_MEASURED says so
+    "gauss_jordan_blocked": (
+        "iehdg_gauss_jordan_blocked",
+        [_I, _I, _I, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "incompressibleeulerhdg_tpu/linalg/smallinv.py:89 gauss_jordan_inv_bl",
+    ),
 }
 
 # kernel -> its source's name, where that differs from the kernel's
-SOURCES = {"fact_apply_wide": "wide_apply", "cross_pair_wide": "wide_apply"}
+SOURCES = {"fact_apply_wide": "wide_apply", "cross_pair_wide": "wide_apply",
+           "gauss_jordan_blocked": "gauss_jordan_wide"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 

@@ -54,7 +54,8 @@ AB_READS = 5  # in_turns: reads of each kernel of an A/B
 SYMBOLS = {name: f"{name}_kernel" for name in
            ("fact_apply", "cross_pair", "patch_solve", "gauss_jordan", "gauss_jordan_select",
             "fact_apply_wide", "cross_pair_wide", "cross_pair_cluster", "patch_solve_wide")}
-SYMBOLS["gauss_jordan_wide"] = "gauss_jordan_wide"  # its register and device-memory kernels
+SYMBOLS["gauss_jordan_wide"] = "gauss_jordan_wide"  # its register-tile and cluster kernels
+SYMBOLS["gauss_jordan_blocked"] = "gauss_jordan_blocked"  # its copy, panel and update kernels
 
 
 def device_ms(fn, reps=REPS, match=None):

@@ -12,6 +12,16 @@ times a copy kernel with the plan's map of threads to table entries and no
 pivots (``copy_ms``): the least time of the plan's access pattern.  One
 JSON line a plan.
 
+With ``--team`` it compiles plans (N, BB, G) of K5's team design
+(``gt_tile<T, N, BB, G>``, ``csrc/gauss_jordan_team.cuh``: BB teams a
+thread block, G groups of BB blocks staged at once) into
+``build/tune_gj/`` and times
+each beside K5's variant 0 (PR 4's template, through the port's library)
+on the same blocks, by CUDA-graph replays in turns
+(``ab_cross_patch.graph_ms``, ``in_turns``), each held to the plain version,
+and the same plan's staging alone and panels alone (``part``); one JSON line
+a plan and part, with ptxas's registers and spills.
+
 With ``--wide`` it times K5w (``csrc/gauss_jordan_wide.cu``), whose plan
 is a run-time argument: every plan ``smallinv.wide_gj_plan`` admits for
 the block size (an R x R tile of ``WIDE_GJ_TILES``, BB batch entries a
@@ -24,6 +34,8 @@ blocks.
 Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.tune_gj [--dtype float32]
         [--plan N,R,C,BB,MINB ...]
         python -m incompressibleeulerhdg_tpu_torch.tools.tune_gj --wide [N,BATCH ...]
+        [--dtype float32]
+        python -m incompressibleeulerhdg_tpu_torch.tools.tune_gj --team [N,BB,G ...]
         [--dtype float32]
 """
 
@@ -139,6 +151,139 @@ def build(plans, T):
     return fn, report
 
 
+# K5's team plans (N, BB, G) by dtype; the batch: 32768 blocks
+TEAM_PLANS = {
+    "float32": [(N, bb, g) for N in (42, 48, 56, 72) for bb, g in ((4, 1), (8, 1), (4, 2), (2, 4))],
+    "float64": [(N, bb, g) for N in (42, 48, 56, 72) for bb, g in ((2, 1), (4, 1), (2, 2), (4, 2))],
+}
+TEAM_PARTS = ("inverse", "staging only", "panels only")  # gt_tile's MODE
+
+
+def team_source(plans, T, header):
+    cases = "\n".join(
+        f"    case {v + k * len(plans)}: return run<{T}, {N}, {BB}, {G}, {k}>(A, out, n, B, st, "
+        f"info);" for k in range(len(TEAM_PARTS)) for v, (N, BB, G) in enumerate(plans))
+    return f"""#include "{header}"
+
+template <typename T, int N, int BB, int G, int MODE>
+__global__ void __launch_bounds__(GtShape<T, N, BB, G>::THREADS) tune_team_kernel(
+    const T* __restrict__ A, T* __restrict__ out, int n, long long B) {{
+  gt_tile<T, N, BB, G, MODE>(A, out, n, B);
+}}
+
+template <typename T, int N, int BB, int G, int MODE>
+static int run(const void* A, void* out, int n, long long B, cudaStream_t st, int* info) {{
+  using S = GtShape<T, N, BB, G>;
+  if (info) {{
+    info[0] = S::THREADS;
+    info[1] = S::SMEM;
+    return 0;
+  }}
+  static bool attr = false;
+  return gt_launch<T, N, BB, G>(tune_team_kernel<T, N, BB, G, MODE>, attr, A, out, n, B, st);
+}}
+
+IEHDG_EXPORT int tune_team(int variant, const void* A, void* out, int n, long long B,
+                           void* stream, int* info) {{
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (variant) {{
+{cases}
+    default: return (int)cudaErrorInvalidValue;
+  }}
+}}
+"""
+
+
+def team(plans, dtype, card, batch=32768, reps=10):
+    """Time every team plan beside K5's variant 0 at each plan's N."""
+    from ..kernels import _CSRC, BUILD_DIR, NVCC_FLAGS, NVCC_LIBS, _nvcc, stream_ptr
+    from ..linalg import smallinv
+    from .ab_cross_patch import graph_ms, in_turns
+    from .ab_gj import bound_ms, per_block_rel
+    from .microbench_gj import diag_dominant
+
+    # plans whose staged blocks pass a thread block's shared memory do not launch
+    plans = [p for p in plans
+             if smallinv.team_shape(*p[:1], dtype, *p[1:])["smem_bytes"] <= smallinv.SMEM_MAX]
+
+    out_dir = BUILD_DIR.parent / "tune_gj"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, so = out_dir / "tune_team.cu", out_dir / f"libtune_team_{dtype}.so"
+    T = "float" if dtype == torch.float32 else "double"
+    cu.write_text(team_source(plans, T, _CSRC / "gauss_jordan_team.cuh"))
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu), *NVCC_LIBS],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        sys.exit(f"tune_gj: nvcc failed:\n{proc.stderr}")
+    report, key = {}, None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+tune_team_kernelI[fd]((?:Li\d+E)+)E", line)
+        if m:
+            key = tuple(map(int, re.findall(r"Li(\d+)E", m.group(1))))
+            key = key[:3] if key[3] == 0 else None  # the inverse (MODE 0) only
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and key:
+            report[key] = {"spill": int(m.group(1)) + int(m.group(2))}
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            report[key]["registers"] = int(m.group(1))
+            key = None
+    fn = ctypes.CDLL(str(so)).tune_team
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for N in sorted({p[0] for p in plans}):
+        A = diag_dominant(N, batch, dtype, seed=N)
+        ref = smallinv.gauss_jordan_inv_plain(A)
+        runs = {"v0": lambda: smallinv.gauss_jordan_inv_select(A, variant=0)}
+        for v, plan in enumerate(plans):
+            if plan[0] != N:
+                continue
+
+            def launch(v=v, plan=plan):
+                out = torch.empty_like(A)
+                rc = fn(v, A.data_ptr(), out.data_ptr(), N, batch, stream_ptr(A), None)
+                if rc:
+                    raise RuntimeError(f"tune_gj: team plan {plan} failed to launch ({rc})")
+                return out
+
+            runs[plan] = launch
+            for mode in range(1, len(TEAM_PARTS)):  # the staging alone, the panels alone
+                def part(v=v, plan=plan, mode=mode):
+                    out = torch.empty_like(A)
+                    rc = fn(v + mode * len(plans), A.data_ptr(), out.data_ptr(), N, batch,
+                            stream_ptr(A), None)
+                    if rc:
+                        raise RuntimeError(f"tune_gj: team plan {plan} mode {mode} failed ({rc})")
+                    return out
+
+                runs[(*plan, mode)] = part
+        # the inverse's error (the parts' outputs are no inverse)
+        errs = {k: per_block_rel(f(), ref) for k, f in runs.items() if k == "v0" or len(k) == 3}
+        del ref
+        ms, reads = in_turns(runs, lambda f: graph_ms(f, reps))
+        t_b, by = bound_ms(N, batch, dtype)
+        for k in runs:
+            info = (ctypes.c_int * 2)()
+            if k != "v0":
+                fn(plans.index(k[:3]), None, None, N, 0, None, info)
+            print(json.dumps({"N": N, "dtype": str(dtype).replace("torch.", ""), "batch": batch,
+                              "plan": "variant 0" if k == "v0" else
+                              {"N": N, "BB": k[1], "G": k[2],
+                               "part": TEAM_PARTS[k[3] if len(k) == 4 else 0]},
+                              "threads": info[0] if k != "v0" else None,
+                              "smem_bytes": info[1] if k != "v0" else None,
+                              "ms": ms[k], "reads": reads[k], "pct_bound": 100 * t_b / ms[k],
+                              "bound_ms": t_b, "bound_by": by, "rel_err": errs.get(k),
+                              **(report.get(k, {}) if k != "v0" and len(k) == 3 else {}),
+                              "card": card}),
+                  flush=True)
+        del A
+        torch.cuda.empty_cache()
+
+
 # K5w's blocks: (n, batch) of the 128^2 own cells at k = 7, 8 (float32) and
 # of 1024 k = 11 blocks (float64: the cluster path)
 WIDE_DEFAULT = {"float32": [(90, 32768), (110, 32768)], "float64": [(182, 1024)]}
@@ -202,9 +347,18 @@ def main(argv=None):
     parser.add_argument("--wide", nargs="*", default=None, metavar="N,BATCH",
                         help="time K5w's plans (default sizes: the k = 7, 8 own cells at 128^2 "
                              "in float32, 1024 k = 11 blocks in float64)")
+    parser.add_argument("--team", nargs="*", default=None, metavar="N,BB,G",
+                        help="time K5's team plans beside its variant 0 (default: a built-in list)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("tune_gj: needs a CUDA card (torch.cuda.is_available() is False)")
+    if args.team is not None:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"],
+                              capture_output=True, text=True).stdout.strip()
+        plans = [tuple(int(v) for v in p.split(",")) for p in args.team] or TEAM_PLANS[args.dtype]
+        team(plans, getattr(torch, args.dtype), card)
+        return
     if args.wide is not None:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"],

@@ -6,9 +6,10 @@ no nvcc).
 - ``smallinv.wide_gj_plan`` at n = 90, 110, 132, 182, 506 in float32 and
   float64: the threads of every rank, mapped to (batch entry, tile row,
   tile column) as the kernel maps them, own every tile of every batch entry
-  exactly once (the device-memory path: every entry (i, j) of every block
-  once); shared bytes, threads and the cluster size stay within the
-  H100's limits; a plan raises only past every plan;
+  exactly once (the blocked path, K5b: in every panel every entry (i, j)
+  of every block is owned by exactly one update tile and one thread's
+  accumulator); shared bytes, threads, the cluster size and the grid stay
+  within the H100's limits; a plan raises only past every plan;
 - ``preconditioners.patch_wide_plan`` at d1 = 28, 36, 45, 55, 78, 91, 200
   in float32 and float64: the ranks own every scalar row once, the threads
   every (component, row, facet) of a rank once, within the same limits;
@@ -50,23 +51,54 @@ def _gj_tile_owners(plan):
     return np.concatenate(owners)
 
 
+def _blocked_owners(plan, n, batch):
+    """(block, i, j) of every accumulator of every thread of every update
+    tile of K5b's update kernel, as it maps them (float64: four warps of
+    4 x 4 DMMA tiles, accumulator rows lane / 4, columns 2 (lane % 4) + h;
+    float32: a 4 x 4 register tile a thread), past-n entries dropped."""
+    T = plan["tile"]
+    tid = np.arange(plan["threads"])
+    if plan["threads"] == 128:
+        warp, lane = tid // 32, tid % 32
+        wi, wj, g, t = (warp // 2) * 32, (warp % 2) * 32, lane // 4, lane % 4
+        parts = [(wi + mi * 8 + g, wj + ni * 8 + 2 * t + h)
+                 for mi in range(4) for ni in range(4) for h in range(2)]
+    else:
+        ri, cj = 4 * (tid // 16), 4 * (tid % 16)
+        parts = [(ri + a, cj + b) for a in range(4) for b in range(4)]
+    r = np.concatenate([p[0] for p in parts])
+    c = np.concatenate([p[1] for p in parts])
+    owners = []
+    for blk in range(batch):
+        for ti in range(plan["tiles"]):
+            for tj in range(plan["tiles"]):
+                i, j = ti * T + r, tj * T + c
+                keep = (i < n) & (j < n)
+                owners.append(np.stack([np.full(keep.sum(), blk), i[keep], j[keep]], axis=1))
+    return np.concatenate(owners)
+
+
 @pytest.mark.parametrize("n", [90, 110, 132, 182, 506])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_wide_gj_plan_owns_every_tile_once(n, dtype):
     plan = TI.wide_gj_plan(n, dtype)
     assert plan["smem_bytes"] <= TI.SMEM_MAX
-    assert plan["CS"] <= TI.WIDE_GJ_CLUSTER_MAX
-    if plan["path"] == "device":
-        G, RS = plan["BB"], plan["RS"]
-        assert plan["threads"] <= TI.WIDE_GJ_DEV_THREADS
-        assert plan["smem_bytes"] == 4 * n * G * SIZE[dtype]
-        count = np.zeros((n, n, G), dtype=int)  # work items (j, g) over rows r, r + RS, ...
-        for r in range(RS):
-            count[r::RS] += 1
+    if plan["path"] == "blocked":
+        assert plan["threads"] <= 1024 and plan["panel_threads"] <= 1024
+        assert plan["smem_bytes"] == 2 * plan["b"] * (plan["tile"] + 4) * SIZE[dtype]
+        assert plan["panel_smem_bytes"] == (3 * plan["b"] ** 2 + plan["b"]) * SIZE[dtype]
+        assert plan["panel_smem_bytes"] <= TI.SMEM_MAX
+        assert plan["tiles"] == -(-n // plan["tile"]) and plan["tiles"] <= 65535
+        assert 1 <= plan["chunk"] <= TI.WIDE_GJ_GRID_Z
+        count = np.zeros((3, n, n), dtype=int)  # the same update tiles in every panel
+        for blk, i, j in _blocked_owners(plan, n, 3):
+            count[blk, i, j] += 1
         assert (count == 1).all()
-        with pytest.raises(ValueError):  # no register tile holds this block on 8 ranks
-            TI.wide_gj_plan(n, dtype, R=max(TI.WIDE_GJ_TILES[dtype]), CS=8)
+        if TI.WIDE_GJ_MEASURED.get((n, dtype)) != "blocked":  # past a cluster of 8:
+            with pytest.raises(ValueError):  # no register tile holds this block on 8 ranks
+                TI.wide_gj_plan(n, dtype, R=max(TI.WIDE_GJ_TILES[dtype]), CS=8)
         return
+    assert plan["CS"] <= TI.WIDE_GJ_CLUSTER_MAX
     R, TR = plan["R"], plan["TR"]
     assert R in TI.WIDE_GJ_TILES[dtype] and TR == -(-n // R)
     assert plan["threads"] <= TI.WIDE_GJ_TILES[dtype][R]
@@ -80,15 +112,17 @@ def test_wide_gj_plan_owns_every_tile_once(n, dtype):
 
 def test_wide_gj_plan_paths():
     """float32 n = 90, 110 on one thread block; float64 n = 182 (66,248
-    registers for the block alone) split over a cluster of 2 to 4; float64
-    n = 506 in device memory, float32 n = 506 still on a cluster; a fixed
-    plan that does not fit raises ValueError, a block past every plan
-    NotImplementedError."""
+    registers for the block alone) on the blocked path, which the A/B
+    measured faster than its register tiles split over a cluster of 2 to 4
+    (the plan with R = 8 fixed); float64 n = 506 on the blocked path,
+    float32 n = 506 still on a cluster; a fixed plan that does not fit
+    raises ValueError, a block past every plan NotImplementedError."""
     for n in (90, 110):
         assert TI.wide_gj_plan(n, torch.float32)["path"] == "tiles"
-    p = TI.wide_gj_plan(182, torch.float64)
+    assert TI.wide_gj_plan(182, torch.float64)["path"] == "blocked"
+    p = TI.wide_gj_plan(182, torch.float64, R=8)
     assert p["path"] == "cluster" and 2 <= p["CS"] <= 4
-    assert TI.wide_gj_plan(506, torch.float64)["path"] == "device"
+    assert TI.wide_gj_plan(506, torch.float64)["path"] == "blocked"
     assert TI.wide_gj_plan(506, torch.float32)["path"] == "cluster"
     assert TI.launch_plan("gauss_jordan_wide", torch.float32, 90) == \
         TI.wide_gj_plan(90, torch.float32)

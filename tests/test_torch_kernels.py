@@ -234,7 +234,8 @@ def test_kernel_sources_and_metadata():
     root = pathlib.Path(__file__).resolve().parents[1]
     assert set(kernels.KERNELS) == {"fact_apply", "cross_pair", "patch_solve", "gauss_jordan",
                                     "gauss_jordan_select", "fact_apply_wide", "cross_pair_wide",
-                                    "cross_pair_cluster", "patch_solve_wide", "gauss_jordan_wide"}
+                                    "cross_pair_cluster", "patch_solve_wide", "gauss_jordan_wide",
+                                    "gauss_jordan_blocked"}
     assert kernels.all_sources() == ["fact_apply", "cross_pair", "patch_solve", "gauss_jordan",
                                      "gauss_jordan_select", "wide_apply", "cross_pair_cluster",
                                      "patch_solve_wide", "gauss_jordan_wide"]
@@ -386,7 +387,7 @@ def test_card_refuses_widths_beyond_k4():
     assert TP.patch_wide_plan(200, torch.float64)["F"] == 16
     with pytest.raises(NotImplementedError, match="patch_solve_wide"):
         TP.patch_wide_plan(700, torch.float64)
-    assert TI.wide_gj_plan(1000, torch.float64)["path"] == "device"
+    assert TI.wide_gj_plan(1000, torch.float64)["path"] == "blocked"
     with pytest.raises(NotImplementedError, match="gauss_jordan_wide"):
         TI.wide_gj_plan(8000, torch.float64)
 

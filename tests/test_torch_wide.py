@@ -16,8 +16,8 @@ float64.
 - on a CUDA card only: K1, K2 and K3w at d1 = 28, 36 and K5 at n = 56, 72
   against their plain versions, and the dispatch of n = 56, 72 blocks to
   K5; the runtime-width kernels K1w-K3w at d1 = 45, 55 and K5w at n = 73,
-  90, 110, float64 182 (a cluster of thread blocks) and 506 (blocks in
-  device memory), and the dispatch to them.
+  90, 110, float64 182 (a cluster of thread blocks) and 506 (the blocked
+  path, K5b), and the dispatch to them.
 """
 
 import numpy as np
@@ -279,17 +279,19 @@ def _per_block_rel(got, ref):
                                       (182, torch.float64), (506, torch.float64)])
 def test_cuda_gauss_jordan_wide(cuda, dtype, n):
     """K5w against its plain version on batches around its thread block's
-    (float64 n = 182 takes the cluster path, n = 506 the device-memory
-    path), and the main-path dispatch of the same blocks to K5w.  K5w's
+    (float64 n = 182 and 506 take the blocked path, K5b: at 182 measured
+    faster than the cluster), and the main-path dispatch of the same
+    blocks to K5w (K5b at 182, 506).  K5w's
     updates are FMAs: float32 is held to twice the plain version's own
     float32 error against the float64 plain inverse (per block), against
     both; float64 to 1e-11."""
     g = torch.Generator().manual_seed(n)
     plan = TI.launch_plan("gauss_jordan_wide", dtype, n)
-    assert plan["path"] == {182: "cluster", 506: "device"}.get(n, "tiles")
+    assert plan["path"] == {182: "blocked", 506: "blocked"}.get(n, "tiles")
+    name = TI.kernel_for(n, dtype)
     blocks = lambda m: (0.1 * torch.randn(n, n, m, generator=g, dtype=dtype)
                         + 3.0 * torch.eye(n, dtype=dtype)[:, :, None]).to(cuda)
-    cases = [blocks(m) for m in (1, plan["BB"] + 1, 77)] + [blocks(2 * 77)[:, :, 1::2]]
+    cases = [blocks(m) for m in (1, plan.get("BB", 1) + 1, 77)] + [blocks(2 * 77)[:, :, 1::2]]
     kernels.reset_launches()
     for A in cases:
         ref = TI.gauss_jordan_inv_plain(A)
@@ -298,5 +300,5 @@ def test_cuda_gauss_jordan_wide(cuda, dtype, n):
         for got in (TI.gauss_jordan_inv_wide(A), TI.gauss_jordan_inv_bl(A)):
             assert _per_block_rel(got, ref) <= tol
             assert _per_block_rel(got.double(), ref64) <= max(tol, 1e-11)
-    assert kernels.LAUNCHES["gauss_jordan_wide"] == 2 * len(cases)
+    assert kernels.LAUNCHES[name] == 2 * len(cases)
     assert kernels.LAUNCHES["gauss_jordan"] == kernels.LAUNCHES["gauss_jordan_select"] == 0
