@@ -52,15 +52,19 @@
 //   across a slot's lanes, while the K10 and K01 loads are in flight.
 // Staging all four tables' rows with TMA instead (so every load is
 // asynchronous), and a persistent cluster that double-buffers Dinv0's
-// rows, were both slower at every width tried on the H100.
+// rows, were both slower at every width tried on the H100.  So were, at d1 =
+// 91 .. 120 against the plan without a cluster below, non-portable
+// clusters of up to 16 and 32-byte table rows, which would keep Dinv0 on
+// chip to d1 = 128 but leave a rank too few rows to keep loads in flight.
 //
-// Past every cluster plan (from d1 = 79: a rank's rows of Dinv0 for 16
+// Past every cluster plan (from d1 = 81: a rank's rows of Dinv0 for 16
 // facets no longer fit one SM on 8 ranks) the plan has CS = 0 and
 // patch_solve_wide_kernel_dev runs instead: one thread block of 256
 // threads owns F facets (32, or 16 or 8 where the vectors do not fit) and
 // stages only their three vectors ([nu][F]: r0 then u, w then y1, t); F
 // lanes by 256 / F row slots, a slot computing the rows slot, slot + 256 /
-// F, ... of each phase; every table is read once from device memory but
+// F, ... of each phase, each row's table terms streamed in K3W_U load
+// groups into eight sums; every table is read once from device memory but
 // Dinv0, which phases 1 and 5 both read.  One __syncthreads between
 // phases.  It takes any width whose vectors fit a block (float64 d1 <= 605).
 // Tiles are aligned in table columns (TMA reads from a 16-byte aligned
@@ -139,11 +143,11 @@ __device__ __forceinline__ void load_group(T (&v)[K3W_U], const T* __restrict__ 
   }
 }
 
-// sum_j A[j * ld] x[j][lane] over n terms, with group 0 already in v: each
+// sum_j A[j * ld] x[j * F] over n terms, with group 0 already in v: each
 // group's FMAs run while the next group's loads are in flight
-template <typename T, int F>
+template <typename T>
 __device__ __forceinline__ T stream_dot(T (&v)[K3W_U], const T* __restrict__ A, long long ld,
-                                        int n, const T* x) {
+                                        int n, const T* x, int F) {
   T acc[8];
 #pragma unroll
   for (int u = 0; u < 8; ++u) acc[u] = T(0);
@@ -180,7 +184,7 @@ __device__ __forceinline__ T cross_dot(T (&v)[K3W_U], const T* __restrict__ K, l
     for (int u = 0; u < 4; ++u) acc[u] += __ldg(p + j + u) * x[(j + u) * F];
   }
   for (; j < nu; ++j) acc[0] += __ldg(p + j) * x[j * F];
-  return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + stream_dot<T, F>(v, K, ld, d1, x + a * d1 * F);
+  return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + stream_dot(v, K, ld, d1, x + a * d1 * F, F);
 }
 
 // this thread's value of the rank's row `row` (of F facets) into every
@@ -266,7 +270,7 @@ __global__ void __launch_bounds__(K3W_THREADS_MAX) patch_solve_wide_kernel(
 
   // y1 = Sinv t (into w: every rank has read w)
   if (act) {
-    v = stream_dot<T, F>(v0, Sr, ld, nu, sx + lane);
+    v = stream_dot(v0, Sr, ld, nu, sx + lane, F);
     load_group(v0, K01r, ld, 0, d1);
     if (in) y1[row * m + c] = v;
     push_row(cl, sw, row, lane, F, CS, v);
@@ -288,35 +292,40 @@ __global__ void __launch_bounds__(K3W_THREADS_MAX) patch_solve_wide_kernel(
 }
 
 // acc = sum_j A[row, j, col] x[j] over an nu x nu table (column stride ld)
-// and a staged vector x ([j][F], the thread's lane)
+// and a staged vector x ([j][F], the thread's lane): K3W_U loads in flight
+// and eight sums (stream_dot)
 template <typename T>
 __device__ __forceinline__ T table_dot(const T* __restrict__ A, long long ld, int nu, int row,
                                        const T* x, int F) {
-  T acc = T(0);
   const T* a = A + (long long)row * nu * ld;
-#pragma unroll 8
-  for (int j = 0; j < nu; ++j) acc += __ldg(a + j * ld) * x[j * F];
-  return acc;
+  T v[K3W_U];
+  load_group(v, a, ld, 0, nu);
+  return stream_dot(v, a, ld, nu, x, F);
 }
 
 // (I2 (x) K + P)[row, :] x for the facet of the thread's lane (K the d1 x d1
-// table at the facet's column, P the colour's nu x nu block)
+// table at the facet's column, P the colour's nu x nu block, summed while
+// K's first group of loads is in flight)
 template <typename T>
 __device__ __forceinline__ T cross_dot_dev(const T* __restrict__ K, long long ld,
                                            const T* __restrict__ P, int d1, int row, const T* x,
                                            int F) {
-  const int nu = 2 * d1;
   const int a = row >= d1 ? 1 : 0;
-  const int i = row - a * d1;
-  T acc = T(0);
+  const T* k = K + (long long)(row - a * d1) * d1 * ld;
+  T v[K3W_U];
+  load_group(v, k, ld, 0, d1);
+  const int nu = 2 * d1;
+  T acc[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) acc[u] = T(0);
   const T* p = P + (long long)row * nu;
-#pragma unroll 8
-  for (int j = 0; j < nu; ++j) acc += __ldg(p + j) * x[j * F];
-  const T* k = K + (long long)i * d1 * ld;
-  const T* xa = x + a * d1 * F;
-#pragma unroll 8
-  for (int j = 0; j < d1; ++j) acc += __ldg(k + j * ld) * xa[j * F];
-  return acc;
+  int j = 0;
+  for (; j + 4 <= nu; j += 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[u] += __ldg(p + j + u) * x[(j + u) * F];
+  }
+  for (; j < nu; ++j) acc[0] += __ldg(p + j) * x[j * F];
+  return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + stream_dot(v, k, ld, d1, x + a * d1 * F, F);
 }
 
 template <typename T>

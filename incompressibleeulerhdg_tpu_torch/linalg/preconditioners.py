@@ -43,14 +43,16 @@ chosen by the width d1 = (k + 2)(k + 3)/2 and the dtype
 launches K2c (csrc/cross_pair_cluster.cu: persistent thread-block
 clusters, each rank streaming its rows of the tables, planned by
 :func:`cross_pair_plan`), as :data:`CROSS_PAIR_MEASURED` records from a
-one-process A/B of K2, K2w and K2c; any other width launches the
+one-process A/B of K2, K2w and K2c, and so does k = 8 .. 11 (d1 = 55 ..
+91, K2c against K2w); any other width launches the
 runtime-width counterparts K1w, K2w (csrc/wide_apply.cu) and K3w
 (csrc/patch_solve_wide.cu, from d1 = 21: a thread-block cluster a facet
-tile up to d1 = 80, one thread block a tile past it, planned by
-:func:`patch_wide_plan`).  K2, K3 and K3w read their per-facet tables
-with TMA and K2c with 16-byte loads, which need 16-byte rows: the
-operator's facet
-tables are allocated with a padded column stride (:func:`pad_table`; the
+tile up to d1 = 80, one thread block a tile past it (measured faster at
+d1 = 91 .. 120 than clusters of up to 16 on 32-byte table rows, which
+would hold Dinv0 on chip there), planned by :func:`patch_wide_plan`).
+K2, K3 and K3w read their per-facet tables with TMA and K2c with
+16-byte loads, which need 16-byte rows: the operator's facet tables are
+allocated with a padded column stride (:func:`pad_table`; the
 plain versions and K1w, K2w read the same views).
 """
 
@@ -142,13 +144,17 @@ CROSS_CLUSTER_MEASURED = {
     (36, torch.float32): (64, 5), (45, torch.float32): (64, 3),
     (21, torch.float64): (32, 3), (28, torch.float64): (32, 2),
     (36, torch.float64): (32, 3), (45, torch.float64): (32, 3),
+    (55, torch.float32): (64, 4), (66, torch.float32): (64, 5),
+    (78, torch.float32): (64, 5), (91, torch.float32): (32, 3),
+    (55, torch.float64): (32, 4), (66, torch.float64): (32, 5),
+    (78, torch.float64): (16, 4), (91, torch.float64): (16, 4),
 }
 # the cross pair's kernel at a width and dtype where tools/ab_cross.py
 # measured K2, K2w and K2c in one process on the 128^2 mesh (the fastest
 # on one colour, the kind most launches are; NVIDIA H100 80GB HBM3,
 # 700.00 W, PERF.md section 6); other widths take K2 where it is
 # instantiated (CROSS_D1), else K2w
-CROSS_PAIR_MEASURED = {(d1, dtype): "cross_pair_cluster" for d1 in (21, 28, 36, 45)
+CROSS_PAIR_MEASURED = {(d1, dtype): "cross_pair_cluster" for d1 in (21, 28, 36, 45, 55, 66, 78, 91)
                        for dtype in (torch.float32, torch.float64)}
 
 
@@ -204,7 +210,8 @@ def patch_wide_plan(d1, dtype, F=None, CS=None):
     "device", ``CS`` = 0, ``RS`` = d1: F of :data:`PATCH_WIDE_DEV_FACETS`
     facets a thread block of :data:`PATCH_WIDE_DEV_THREADS` threads, the
     widest whose three vectors (3 nu F elements) fit its shared memory,
-    Dinv0 read from device memory in phases 1 and 5.  ``F`` and ``CS`` (0
+    each row's terms streamed in load groups, Dinv0 read from device
+    memory in phases 1 and 5.  ``F`` and ``CS`` (0
     for the device plan) fix a plan.  Raises NotImplementedError past every
     plan (float64 from d1 = 606, float32 from 1,211)."""
     size = torch.empty((), dtype=dtype).element_size()

@@ -25,7 +25,11 @@ With ``--sweep`` it times the cluster kernel instead under every plan
 ``cross_pair_plan`` admits, at the same widths, dtypes and kinds, each
 held to the plain version: one JSON line a plan, the default plan marked.
 
-Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_cross [--sweep]
+``--widths 55,66,78,91`` sets the widths of either (K2 takes part only at
+d1 = 21, 28, 36; ``chip_smoke.py`` runs both :data:`WIDTHS` and
+:data:`WIDE_WIDTHS`, k = 8 .. 11, where K2w and K2c compete).
+
+Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_cross [--sweep] [--widths W,...]
 """
 
 import ctypes
@@ -36,11 +40,13 @@ import sys
 import torch
 
 WIDTHS = (21, 28, 36, 45)
+WIDE_WIDTHS = (55, 66, 78, 91)  # k = 8 .. 11: K2w against K2c
 K2_WIDTHS = (21, 28, 36)  # K2's two tables of a tile fit a block's shared memory
 DTYPES = (torch.float32, torch.float64)
 KINDS = ("colour", "full")
 NX = 128
 REPS = 20
+PLAIN_REPS = 3  # calls of the plain version a timing (not in turns)
 NAMES = ("cross_pair", "cross_pair_wide", "cross_pair_cluster")  # K2, K2w, K2c
 
 SOURCE = """#include "{csrc}/cross_pair.cu"
@@ -166,13 +172,14 @@ def _rel_err(got, ref):
 
 
 def compare(k2, widths=WIDTHS, reps=REPS):
-    """K2 (the entry point :func:`load` returns; d1 <= 36), K2w and the
-    cluster kernel at each width, dtype and kind: errors against the plain
+    """K2 (the entry point :func:`load` returns, at d1 <= 36; None where no
+    width needs it), K2w and the cluster kernel at each width, dtype and kind: errors against the plain
     version, device ms per launch of each (the median of its reads in
-    turns), the bytes bound, the fastest kernel and the kernel the
-    dispatch takes.  Returns one dict a width, dtype and kind."""
+    turns), the plain version's ms (CUDA events, ``plain_ms``),
+    the bytes bound, the fastest kernel and the kernel the dispatch takes.
+    Returns one dict a width, dtype and kind."""
     from ..linalg import preconditioners as P
-    from .ab_cross_patch import graph_ms, in_turns
+    from .ab_cross_patch import graph_ms, in_turns, plain_ms
 
     gen = torch.Generator(device="cuda:0").manual_seed(2030)
     rows = []
@@ -189,8 +196,10 @@ def compare(k2, widths=WIDTHS, reps=REPS):
                 err = {n: _rel_err(run(), ref) for n, run in runs.items()}
                 err["dispatch"] = _rel_err(P.cross_pair(*case[:7], aoff=case[7]), ref)
                 best, ms = in_turns(runs, lambda run: graph_ms(run, reps))
+                plain = plain_ms(lambda: P.cross_pair_plain(*case[:7], aoff=case[7]), PLAIN_REPS)
                 rows.append({"d1": d1, "dtype": str(dtype).replace("torch.", ""), "kind": kind,
-                             "m": m, "nseg": nseg, **{f"{n}_ms": best[n] for n in here},
+                             "m": m, "nseg": nseg, "plain_ms": plain,
+                             **{f"{n}_ms": best[n] for n in here},
                              **{f"{n}_reads": ms[n] for n in here},
                              **{f"{n}_rel_err": err[n] for n in here},
                              "dispatch_rel_err": err["dispatch"],
@@ -252,7 +261,15 @@ def main():
         sys.exit("ab_cross: needs a CUDA card (torch.cuda.is_available() is False)")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    rows = sweep() if "--sweep" in sys.argv[1:] else compare(load(start_build()))
+    argv = sys.argv[1:]
+    widths = WIDTHS
+    if "--widths" in argv:
+        widths = tuple(int(w) for w in argv[argv.index("--widths") + 1].split(","))
+    if "--sweep" in argv:
+        rows = sweep(widths)
+    else:
+        k2 = load(start_build()) if set(widths) & set(K2_WIDTHS) else None
+        rows = compare(k2, widths)
     for row in rows:
         print(json.dumps({**row, "card": card}), flush=True)
 

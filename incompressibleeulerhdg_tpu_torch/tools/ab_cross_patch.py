@@ -167,6 +167,17 @@ def _profiled_us(fn, reps, match):
     return sum(_self_device_us(ev) for ev in events), sum(ev.count for ev in events)
 
 
+def plain_ms(fn, reps):
+    """Milliseconds per call of a plain version ``fn`` (many kernels and
+    host work between them): CUDA events around ``reps`` calls after a
+    warm-up call.  A torch.profiler read of such a call can keep only part
+    of its kernels' time (on the H100 the one-colour cross pair's plain
+    version once read 0.04 ms, a thirtieth of its time)."""
+    fn()
+    torch.cuda.synchronize()
+    return _events_ms(fn, reps)
+
+
 def _events_ms(fn, reps):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -228,14 +239,18 @@ def gauss_jordan_times(smallinv):
     return out
 
 
-def device_ms_by_kernel(fn, top=15):
+def device_ms_by_kernel(fn, top=15, operators=True):
     """Device ms of each kernel K1-K5, K1w-K3w, K2c, K5w and of all kernels during ``fn()``,
     and the ``top`` PyTorch operators by device time (each with the kernels
-    it launches itself: name, ms, calls), from torch.profiler."""
+    it launches itself: name, ms, calls), from torch.profiler; with
+    ``operators`` False the host's operators are not traced (a long ``fn``,
+    such as a whole CLI run, then costs the profiler far less) and the list
+    is empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if operators else [])
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     per = dict.fromkeys(SYMBOLS, 0.0)

@@ -3,7 +3,8 @@
 - ``select``: K5's two variants (``csrc/gauss_jordan_select.cu``: 0, PR 4's
   register-tiled template; 1, the team design of
   ``csrc/gauss_jordan_team.cuh``) at n = 42, 48, 56, 72 on 32,768 blocks
-  (the 128^2 own cells of k = 4, 5, 6), float32 and float64;
+  (the 128^2 own cells of k = 4, 5, 6), float32 and float64, with
+  ``torch.linalg.inv`` on the same blocks beside them;
 - ``wide``: K5w's register-tile or cluster plan against K5b (the blocked
   path, ``gauss_jordan_blocked``) at float64 n = 182 (1,024 blocks, the
   cluster path) and float32 n = 110 (32,768 blocks);
@@ -86,10 +87,13 @@ def _blocks(n, batch, dtype, seed):
 def compare_select(ns=SELECT_N, dtypes=(torch.float32, torch.float64), batch=SELECT_BATCH,
                    reps=5, reads=3):
     """K5's variants 0 and 1 at each n and dtype: per-block errors against
-    the plain version, device ms (median of reads in turns), the bytes
-    bound, the faster variant and the dispatch's.  One dict a case."""
+    the plain version, device ms (median of reads in turns), one
+    ``torch.linalg.inv`` on the same blocks (``library_ms``: CUDA events,
+    not in turns),
+    the bytes bound, the faster variant and the dispatch's.  One dict a
+    case."""
     from ..linalg import smallinv
-    from .ab_cross_patch import graph_ms, in_turns
+    from .ab_cross_patch import graph_ms, in_turns, plain_ms
 
     rows = []
     for dtype in dtypes:
@@ -101,8 +105,12 @@ def compare_select(ns=SELECT_N, dtypes=(torch.float32, torch.float64), batch=SEL
             err = {v: per_block_rel(runs[v](), ref) for v in runs}
             del ref
             ms, got = in_turns(runs, lambda run: graph_ms(run, reps), reads)
+            # CUDA events: a graph capture of torch.linalg.inv fails on its
+            # error check, and a failed capture keeps its memory pool
+            lib = plain_ms(lambda: torch.linalg.inv(A.permute(2, 0, 1)), 2)
             t_b, by = bound_ms(n, batch, dtype)
             rows.append({"n": n, "batch": batch, "dtype": _name(dtype),
+                         "library_ms": lib,
                          "v0_ms": ms[0], "v1_ms": ms[1], "v0_reads": got[0],
                          "v1_reads": got[1], "v0_rel_err": err[0], "v1_rel_err": err[1],
                          "bound_ms": t_b, "bound_by": by,

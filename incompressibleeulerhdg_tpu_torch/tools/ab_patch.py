@@ -17,13 +17,15 @@ port's dispatch takes.  ``chip_smoke.py`` calls :func:`start_build`,
 :func:`load` and :func:`compare`.
 
 With ``--sweep`` it times K3w instead under every plan
-``preconditioners.patch_wide_plan`` admits at d1 = 21, 28, 36, 45, 55 (each
-cluster plan (F, CS) and the plan without a cluster, CS = 0) and at d1 =
-91 (where only the latter fits), in float32 and float64, on the same
-colour, through the kernel's own entry point, each held to the plain
-version: one JSON line a plan, the default plan marked.
+``preconditioners.patch_wide_plan`` admits at d1 = 21, 28, 36, 45, 55, 91,
+105, 120 (each cluster plan (F, CS) and the plan without a cluster, CS =
+0, at each F that fits; from d1 = 81 only the latter), in float32 and
+float64, on the same colour, through the kernel's own entry point, each
+held to the plain version: one JSON line a plan, the default plan marked.
 
-``--widths 21,28`` restricts either to those widths.
+``--widths 21,28`` restricts either to those widths.  From d1 = 105 in
+float64 the four tables hold only the columns up to the colour's end
+(their full 128^2 width, 49,408 columns, would take 57 GB).
 
 Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_patch [--sweep] [--widths W,...]
 """
@@ -36,7 +38,8 @@ import sys
 import torch
 
 WIDTHS = (21, 28, 36)
-SWEEP_WIDTHS = (21, 28, 36, 45, 55, 91)
+SWEEP_WIDTHS = (21, 28, 36, 45, 55, 91, 105, 120)
+TABLE_BYTES_MAX = 40e9  # the four tables of _colour on the full 128^2 width, at most
 DTYPES = (torch.float32, torch.float64)
 NX = 128
 
@@ -102,11 +105,16 @@ def load(proc):
 
 
 def _colour(d1, gen, dtype):
-    """The tables and sides of one 128^2 colour at width d1."""
+    """The tables and sides of one 128^2 colour at width d1: tables of the
+    mesh's nf facet columns, or of the columns up to the colour's end where
+    those would exceed TABLE_BYTES_MAX."""
     from ..linalg import preconditioners as P
 
     nu, nf = 2 * d1, 3 * NX * NX + 2 * NX
     off, m = NX * NX, NX * (NX - 1)  # colour 1
+    if (2 * nu * nu + 2 * d1 * d1) * nf * torch.empty((), dtype=dtype).element_size() > \
+            TABLE_BYTES_MAX:
+        nf = off + m
     rnd = lambda *s: torch.randn(*s, generator=gen, dtype=dtype, device="cuda:0")
     K01, K10 = P.pad_table(rnd(d1, d1, nf)), P.pad_table(rnd(d1, d1, nf))
     Di, Si = P.pad_table(rnd(nu, nu, nf)), P.pad_table(rnd(nu, nu, nf))
@@ -119,7 +127,8 @@ def _bound_ms(d1, m, dtype):
 
 
 def _plans(d1, dtype):
-    """Every plan K3w admits at d1: each cluster plan, then the one without."""
+    """Every plan K3w admits at d1: each cluster plan, then each F of the
+    plan without a cluster."""
     from ..linalg import preconditioners as P
 
     size = torch.empty((), dtype=dtype).element_size()
@@ -130,7 +139,12 @@ def _plans(d1, dtype):
                 plans.append(P.patch_wide_plan(d1, dtype, F=rb // size, CS=cs))
             except NotImplementedError:
                 pass
-    return plans + [P.patch_wide_plan(d1, dtype, CS=0)]
+    for f in P.PATCH_WIDE_DEV_FACETS:
+        try:
+            plans.append(P.patch_wide_plan(d1, dtype, F=f, CS=0))
+        except NotImplementedError:
+            pass
+    return plans
 
 
 def _k3w_runner(args, p):

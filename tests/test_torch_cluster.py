@@ -10,19 +10,21 @@ no nvcc).
   of every block is owned by exactly one update tile and one thread's
   accumulator); shared bytes, threads, the cluster size and the grid stay
   within the H100's limits; a plan raises only past every plan;
-- ``preconditioners.patch_wide_plan`` at d1 = 28, 36, 45, 55, 78, 91, 200
-  in float32 and float64: the ranks own every scalar row once, the threads
-  every (component, row, facet) of a rank once, within the same limits;
-  where no (F, CS) fits (d1 = 91, 200) the plan without a cluster, whose
-  row slots own every row once; NotImplementedError only past both;
+- ``preconditioners.patch_wide_plan`` at d1 = 28, 36, 45, 55, 78, 81, 91,
+  105, 120, 128, 200 in float32 and float64: the ranks own every scalar
+  row once, the threads every (component, row, facet) of a rank once,
+  within the same limits (every cluster plan at each width); where no
+  (F, CS) fits (from d1 = 81: k = 11 .. 14, and past a TMA box's 256 rows)
+  the plan without a cluster, whose row slots own every row once;
+  NotImplementedError only past both;
 - the dispatch: ``width_kernels`` at d1 = 21, 28, 36 sends the patch
   solve to K3w, K1 to its own instantiations and the cross pair to K2c
   (at d1 = 45 too); ``kernel_for`` by n;
-- on a CUDA card only: K3w at d1 = 28, 36, 45, 55, 91 and K5w at n = 90,
-  110 and float64 182 (the cluster path) against their plain versions are
-  tests/test_torch_wide.py's ``cuda``-marked cases; here every plan K3w
-  may take at d1 = 45 (the plan without a cluster too) against the plain
-  version.
+- on a CUDA card only: K3w at d1 = 28, 36, 45, 55, 91, 105, 136 and K5w
+  at n = 90, 110 and float64 182 (the cluster path) against their plain
+  versions are tests/test_torch_wide.py's ``cuda``-marked cases; here every
+  plan K3w may take at d1 = 45 and 91 (the plan without a cluster too)
+  against the plain version.
 """
 
 import numpy as np
@@ -147,29 +149,27 @@ def _patch_fits(d1, dtype):
     return False
 
 
-@pytest.mark.parametrize("d1", [28, 36, 45, 55, 78, 91, 200])
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
-def test_patch_wide_plan_owns_every_row_once(d1, dtype):
-    plan = TP.patch_wide_plan(d1, dtype)
+def _patch_plans(d1, dtype):
+    """Every cluster plan K3w admits at d1 (each F and CS asked for)."""
+    plans = []
+    for rb in TP.PATCH_WIDE_ROW_BYTES:
+        for cs in range(1, TP.PATCH_WIDE_CLUSTER_MAX + 1):
+            try:
+                plans.append(TP.patch_wide_plan(d1, dtype, F=rb // SIZE[dtype], CS=cs))
+            except NotImplementedError:
+                continue
+    return plans
+
+
+def _check_patch_cluster_plan(plan, d1, dtype):
+    """The ranks own every scalar row once, the threads every (component,
+    row, facet) of a rank once, within the H100's limits."""
     F, CS, RS = plan["F"], plan["CS"], plan["RS"]
-    assert plan["smem_bytes"] <= TP.SMEM_MAX
-    if not _patch_fits(d1, dtype):  # one thread block a tile, Dinv0 from device memory
-        assert plan["path"] == "device" and CS == 0 and RS == d1 and d1 > 78
-        assert F in TP.PATCH_WIDE_DEV_FACETS and plan["threads"] == TP.PATCH_WIDE_DEV_THREADS
-        assert plan["smem_bytes"] == 3 * 2 * d1 * F * SIZE[dtype]
-        assert all(3 * 2 * d1 * f * SIZE[dtype] > TP.SMEM_MAX
-                   for f in TP.PATCH_WIDE_DEV_FACETS if f > F)
-        slots = plan["threads"] // F  # rows slot, slot + slots, ... of every lane
-        count = np.zeros((2 * d1, F), dtype=int)
-        for slot in range(slots):
-            count[slot::slots] += 1
-        assert (count == 1).all()
-        return
     assert plan["path"] == "cluster"
     assert F * SIZE[dtype] in TP.PATCH_WIDE_ROW_BYTES
-    assert CS <= TP.PATCH_WIDE_CLUSTER_MAX and RS == -(-d1 // CS)
+    assert 1 <= CS <= TP.PATCH_WIDE_CLUSTER_MAX == 8 and RS == -(-d1 // CS)
     assert plan["threads"] == 2 * RS * F <= TP.PATCH_WIDE_THREADS_MAX
-    assert plan["smem_bytes"] == TP.patch_wide_smem(d1, F, CS, SIZE[dtype])
+    assert plan["smem_bytes"] == TP.patch_wide_smem(d1, F, CS, SIZE[dtype]) <= TP.SMEM_MAX
     rows = []
     for rank in range(CS):  # as patch_solve_wide_kernel splits d1 and maps threadIdx.x
         i0, i1 = rank * d1 // CS, (rank + 1) * d1 // CS
@@ -181,8 +181,40 @@ def test_patch_wide_plan_owns_every_row_once(d1, dtype):
         act = il < i1 - i0
         rows.append(np.stack([a[act], i0 + il[act], lane[act]], axis=1))
     rows = np.concatenate(rows)
-    assert len(rows) == 2 * d1 * F
+    assert len(rows) == 2 * d1 * F  # every (component, row, facet) one thread
     assert len(np.unique(rows, axis=0)) == len(rows)
+
+
+@pytest.mark.parametrize("d1", [28, 36, 45, 55, 78, 81, 91, 105, 120, 128, 200])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_patch_wide_plan_owns_every_row_once(d1, dtype):
+    """The default plan and every cluster plan at d1: up to d1 = 80 the
+    default is one of the cluster plans; past it no cluster of 8 holds a
+    rank's rows of Dinv0 and the default is the plan without a cluster
+    (measured faster at d1 = 91 .. 120 than clusters of up to 16 on
+    32-byte table rows), whose row slots own every row once."""
+    plan = TP.patch_wide_plan(d1, dtype)
+    assert plan["smem_bytes"] <= TP.SMEM_MAX == 232448
+    assert plan["threads"] <= TP.PATCH_WIDE_THREADS_MAX
+    assert _patch_fits(d1, dtype) == (d1 <= 80)
+    plans = _patch_plans(d1, dtype)
+    assert bool(plans) == (d1 <= 80)
+    for p in plans:
+        _check_patch_cluster_plan(p, d1, dtype)
+    if d1 > 80:  # one thread block a tile, Dinv0 from device memory
+        F = plan["F"]
+        assert plan["path"] == "device" and plan["CS"] == 0 and plan["RS"] == d1
+        assert F in TP.PATCH_WIDE_DEV_FACETS and plan["threads"] == TP.PATCH_WIDE_DEV_THREADS
+        assert plan["smem_bytes"] == 3 * 2 * d1 * F * SIZE[dtype]
+        assert all(3 * 2 * d1 * f * SIZE[dtype] > TP.SMEM_MAX
+                   for f in TP.PATCH_WIDE_DEV_FACETS if f > F)
+        slots = plan["threads"] // F  # rows slot, slot + slots, ... of every lane
+        count = np.zeros((2 * d1, F), dtype=int)
+        for slot in range(slots):
+            count[slot::slots] += 1
+        assert (count == 1).all()
+        return
+    assert plan in plans
 
 
 def test_patch_wide_plan_fixed_and_past_every_plan():
@@ -193,7 +225,16 @@ def test_patch_wide_plan_fixed_and_past_every_plan():
     measured fastest on the H100 (PATCH_WIDE_MEASURED)."""
     with pytest.raises(NotImplementedError, match="patch_solve_wide"):
         TP.patch_wide_plan(45, torch.float32, F=32, CS=1)
+    with pytest.raises(NotImplementedError, match="patch_solve_wide"):
+        TP.patch_wide_plan(45, torch.float32, F=16, CS=9)  # past a portable cluster
+    with pytest.raises(NotImplementedError, match="patch_solve_wide"):
+        TP.patch_wide_plan(45, torch.float32, F=8, CS=5)  # 32-byte rows
     assert TP.patch_wide_plan(129, torch.float32)["path"] == "device"
+    for dtype in DTYPES:
+        assert TP.patch_wide_plan(200, dtype)["path"] == "device"
+        for d1 in (91, 200):
+            p = TP.patch_wide_plan(d1, dtype, CS=0)
+            assert (p["path"], p["CS"], p["RS"]) == ("device", 0, d1)
     assert TP.patch_wide_plan(45, torch.float32, CS=0)["path"] == "device"
     assert TP.patch_wide_plan(45, torch.float64, F=8, CS=0)["smem_bytes"] == 3 * 90 * 8 * 8
     for d1, dtype in ((606, torch.float64), (1211, torch.float32)):
@@ -209,14 +250,15 @@ def test_patch_wide_plan_fixed_and_past_every_plan():
 
 def test_width_dispatch():
     """K1 takes its own instantiations up to d1 = 36 and K1w above; the
-    cross pair K2 up to d1 = 15, K2c at d1 = 21 .. 45 and K2w above; the
-    patch solve K3 up to d1 = 15 and K3w from d1 = 21; the Gauss-Jordan
-    inverse K4 to n = 32, K5 to 72, K5w above."""
+    cross pair K2 up to d1 = 15, K2c at d1 = 21 .. 91 (measured) and K2w
+    above; the patch solve K3 up to d1 = 15 and K3w from d1 = 21; the
+    Gauss-Jordan inverse K4 to n = 32, K5 to 72, K5w above."""
     assert TP.width_kernels(15) == ("fact_apply", "cross_pair", "patch_solve")
     for d1 in (21, 28, 36):
         assert TP.width_kernels(d1) == ("fact_apply", "cross_pair_cluster", "patch_solve_wide")
     assert TP.width_kernels(45) == ("fact_apply_wide", "cross_pair_cluster", "patch_solve_wide")
-    assert TP.width_kernels(55) == ("fact_apply_wide", "cross_pair_wide", "patch_solve_wide")
+    assert TP.width_kernels(55) == ("fact_apply_wide", "cross_pair_cluster", "patch_solve_wide")
+    assert TP.width_kernels(105) == ("fact_apply_wide", "cross_pair_wide", "patch_solve_wide")
     assert TP.PATCH_D1 == tuple(d for d in TP.CUDA_D1 if d <= 15)
     for n, name in ((20, "gauss_jordan"), (32, "gauss_jordan"), (42, "gauss_jordan_select"),
                     (72, "gauss_jordan_select"), (73, "gauss_jordan_wide"),
@@ -253,13 +295,15 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d1", [45, 91])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
-def test_cuda_patch_wide_every_plan(cuda, dtype):
-    """K3w at d1 = 45 under every plan that fits (each F and cluster size,
-    and each F without a cluster), launched through its C entry point, against the plain version on a
+def test_cuda_patch_wide_every_plan(cuda, dtype, d1):
+    """K3w at d1 = 45 and 91 under every plan that fits (each F and cluster
+    size, and each F without a cluster; at d1 = 91 only the latter fit),
+    launched through its C entry point, against the plain version on a
     colour at an unaligned offset."""
-    d1, nu, nf = 45, 90, 2 * 301 + 1
-    g = torch.Generator().manual_seed(45)
+    nu, nf = 2 * d1, 2 * 301 + 1
+    g = torch.Generator().manual_seed(d1)
     rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype).to(cuda)
     K01, K10 = TP.pad_table(rnd(d1, d1, nf)), TP.pad_table(rnd(d1, d1, nf))
     Di, Si = TP.pad_table(rnd(nu, nu, nf)), TP.pad_table(rnd(nu, nu, nf))
@@ -269,7 +313,8 @@ def test_cuda_patch_wide_every_plan(cuda, dtype):
     ref = TP.patch_solve_plain(Di, Si, K01, K10, Bk, Ck, r0, r1, off)
     tol = 1e-4 if dtype == torch.float32 else 1e-11
     code = kernels.dtype_code(dtype)
-    plans = [TP.patch_wide_plan(d1, dtype, F=f, CS=0) for f in TP.PATCH_WIDE_DEV_FACETS]
+    plans = [TP.patch_wide_plan(d1, dtype, F=f, CS=0) for f in TP.PATCH_WIDE_DEV_FACETS
+             if 3 * nu * f * SIZE[dtype] <= TP.SMEM_MAX]
     for rb in TP.PATCH_WIDE_ROW_BYTES:
         for cs in range(1, TP.PATCH_WIDE_CLUSTER_MAX + 1):
             try:
@@ -285,4 +330,6 @@ def test_cuda_patch_wide_every_plan(cuda, dtype):
                        kernels.stream_ptr(r0))
         for got, want in zip((y0, y1), ref):
             assert float((got - want).abs().max() / want.abs().max()) <= tol, p
-    assert len(plans) >= 5
+    assert len(plans) >= (5 if d1 <= 80 else 3)
+    default = TP.patch_wide_plan(d1, dtype)  # past d1 = 80 the plan without a cluster
+    assert default["path"] == ("device" if d1 > 80 else "cluster")

@@ -12,10 +12,10 @@ dispatch, on the CPU (no card, no nvcc).
 - a fixed (F, CS) that does not fit raises NotImplementedError naming the
   kernel;
 - the dispatch: ``width_kernels`` names the kernel of
-  ``CROSS_PAIR_MEASURED`` at the measured widths (K2c at d1 = 21 .. 45),
+  ``CROSS_PAIR_MEASURED`` at the measured widths (K2c at d1 = 21 .. 91),
   K2 at its own instantiations and K2w elsewhere; the wrapper refuses
   tensors off the card before it plans;
-- on a CUDA card only: K2c at d1 = 21, 28, 36, 45 against
+- on a CUDA card only: K2c at d1 = 21, 28, 36, 45, 55, 66, 78, 91 against
   ``cross_pair_plain`` in float32 and float64 (a misaligned column offset,
   an odd facet count, one colour, the full field with its tail, a segment
   edge inside a tile), every plan at d1 = 28, and K3w at d1 = 21 against
@@ -109,7 +109,7 @@ def test_cross_pair_plan_fixed_and_limits():
 
 def test_cross_pair_dispatch():
     """The cross pair takes the measured kernel where the one-process A/B
-    measured one (K2c at d1 = 21 .. 45 in both dtypes), K2 at its other
+    measured one (K2c at d1 = 21 .. 91 in both dtypes), K2 at its other
     instantiated widths and K2w elsewhere; K1 keeps d1 <= 36 and the patch
     solve takes K3 only up to d1 = 15."""
     for (d1, dtype), name in TP.CROSS_PAIR_MEASURED.items():
@@ -123,9 +123,27 @@ def test_cross_pair_dispatch():
             assert (d1, dtype) in TP.CROSS_CLUSTER_MEASURED
         assert TP.width_kernels(10, dtype) == ("fact_apply", "cross_pair", "patch_solve")
         assert TP.width_kernels(21, dtype)[2] == "patch_solve_wide"
-        for d1 in (55, 78):
+        for d1 in (105, 120):  # k = 12, 13: not measured
             assert TP.width_kernels(d1, dtype)[1] == "cross_pair_wide"
     assert TP.CROSS_D1 == TP.PATCH_D1 == tuple(d for d in TP.CUDA_D1 if d <= 15)
+
+
+@pytest.mark.parametrize("d1", [55, 66, 78, 91])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_cross_pair_dispatch_k8_to_k11(d1, dtype):
+    """k = 8 .. 11: the one-process A/B of K2w and K2c (tools/ab_cross.py
+    --widths 55,66,78,91) measured K2c faster on one colour in both
+    dtypes, under its measured plan, which fits the H100's limits and owns
+    every row once."""
+    assert TP.width_kernels(d1, dtype) == ("fact_apply_wide", "cross_pair_cluster",
+                                           "patch_solve_wide")
+    plan = TP.cross_pair_plan(d1, dtype)
+    assert (plan["F"], plan["CS"]) == TP.CROSS_CLUSTER_MEASURED[(d1, dtype)]
+    assert plan["threads"] <= TP.CROSS_CLUSTER_THREADS_MAX and plan["smem_bytes"] <= TP.SMEM_MAX
+    rows, pushes = _owners(plan, d1, dtype)
+    Q = plan["F"] // (16 // SIZE[dtype])
+    assert len(rows) == 2 * d1 * Q and len(np.unique(rows, axis=0)) == len(rows)
+    assert len(pushes) == 4 * d1 * Q and len(np.unique(pushes, axis=0)) == len(pushes)
 
 
 def test_cross_pair_cluster_refuses_cpu_free_tensors():
@@ -190,7 +208,7 @@ def _rel(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d1", [21, 28, 36, 45])
+@pytest.mark.parametrize("d1", [21, 28, 36, 45, 55, 66, 78, 91])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_cuda_cross_pair_cluster(cuda, dtype, d1):
     tol = 1e-4 if dtype == torch.float32 else 1e-11

@@ -343,8 +343,8 @@ def test_gauss_jordan_select_on_cpu():
 
 def test_card_refuses_widths_beyond_k4():
     """On the card every width passes the width dispatch: d1 = 21, 28, 36
-    (k = 4 .. 6) go to K1, K2c and K3w, d1 = 45 (k = 7) to K1w, K2c and K3w,
-    d1 = 55, 78 (k = 8, 10) to K1w-K3w,
+    (k = 4 .. 6) go to K1, K2c and K3w, d1 = 45, 55, 78 (k = 7, 8, 10) to
+    K1w, K2c and K3w,
     n = 42 .. 72 to K5 and n = 90, 110, 182 (k = 7, 8, 11) to K5w, and each
     fails only for want of a CUDA tensor.  K5's own entry point still takes
     n <= 72; K3w has a plan at d1 = 91 and 200 (k = 11, 18: without a
@@ -365,7 +365,7 @@ def test_card_refuses_widths_beyond_k4():
         assert (d1 in TP.CUDA_D1) == (d1 <= 36)
         assert (d1 in TP.CROSS_D1) == (d1 <= 15)
         assert (d1 in TP.PATCH_D1) == (d1 <= 15)
-        assert (TP.width_kernels(d1)[1] == "cross_pair_cluster") == (d1 <= 45)
+        assert TP.width_kernels(d1)[1] == "cross_pair_cluster"  # measured faster to d1 = 91
         for call in tables(d1):
             with pytest.raises(ValueError, match="CUDA"):
                 call()
@@ -383,7 +383,11 @@ def test_card_refuses_widths_beyond_k4():
     for d1 in (28, 36, 45, 55):
         for dtype in (torch.float32, torch.float64):
             assert TP.patch_wide_plan(d1, dtype)["CS"] <= TP.PATCH_WIDE_CLUSTER_MAX
+    # k = 11: the plan without a cluster (no cluster of 8 holds a rank's
+    # rows of Dinv0 there)
     assert TP.patch_wide_plan(91, torch.float64)["CS"] == 0
+    with pytest.raises(NotImplementedError, match="patch_solve_wide"):
+        TP.patch_wide_plan(91, torch.float64, F=8, CS=8)
     assert TP.patch_wide_plan(200, torch.float64)["F"] == 16
     with pytest.raises(NotImplementedError, match="patch_solve_wide"):
         TP.patch_wide_plan(700, torch.float64)

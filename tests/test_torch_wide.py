@@ -257,12 +257,14 @@ def test_cuda_gauss_jordan(cuda, dtype, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d1", [45, 55, 91])
+@pytest.mark.parametrize("d1", [45, 55, 91, 105, 136])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernels_wide(cuda, dtype, d1):
-    """K1w-K3w at d1 = 45, 55, 91 (k = 7, 8, 11; at 91 K3w's plan without a
-    cluster): an unaligned colour offset, a segment edge inside a thread
-    block, a padded table of an odd column count."""
+    """K1w-K3w at d1 = 45, 55, 91, 105, 136 (k = 7, 8, 11, 12, 14; K3w's
+    cluster plan up to d1 = 80, past that its plan without a cluster): an
+    unaligned colour offset, a segment edge inside a thread block, a padded
+    table of an odd column count."""
+    assert TP.patch_wide_plan(d1, dtype)["path"] == ("device" if d1 > 80 else "cluster")
     _check_kernels_width(d1, dtype, cuda)
 
 
