@@ -167,8 +167,8 @@ Phases, each printing its own lines:
    warm-up step, under torch.profiler: device ms by kernel, the device
    busy share, the operators with the most device time;
 6i. (o11) k = 11 (d1 = 91, Gauss-Jordan n = 182): projection SSP2 at
-   64^2, float32, one step through the CLI under torch.profiler (device ms
-   of each kernel a step, launches a step), which must launch K1w, K2c,
+   64^2, float32, one step through the CLI (launches a step; no longer
+   under torch.profiler, cut for the script's time), which must launch K1w, K2c,
    K3w and K5w and no other kernel, their inputs from the run's own tables
    and blocks held to the plain versions in float64 and, in float32, to
    the float64 plain version within float32's error bound for their sums
@@ -180,13 +180,36 @@ Phases, each printing its own lines:
    the JAX package too; (o11c): k = 11 in float64 on 4^2, one step on the
    card against ``--device cpu``, every Krylov count equal and the state
    within 3e-8 of its largest entry (ten times its move under a one-ulp
-   change of the initial velocity); (o12): k = 12 likewise on 2^2 (K2w's
-   width; within 3e-7, ten times its reading); then K1w at d1 = 91, K3w
+   change of the initial velocity); (o12): k = 12 in float64 on 2^2, one
+   step on the card (K2w's width), held to a finite state and its launches
+   (its run on the CPU, which it read within 3e-7 of, cut for the
+   script's time); then K1w at d1 = 91, K3w
    at d1 = 91 (its plan without a cluster, on one 128^2 colour, float32
    and float64) and K5w at float32 n = 182 held and timed beside their
    plain versions (K5w also beside ``torch.linalg.inv``);
-7. the launch check: every kernel K1-K5, K1w-K3w, K2c, K5w and K5b
-   launched on some path (K2w on (o12)'s).
+6j. (q) bfloat16 patch factors (``IEHDG_PC_BF16=1``): projection SSP2 at
+   run (d)'s configuration (128^2, k = 4) and run (o7)'s (64^2, k = 7),
+   one step each, held to a finite state (their tentative solves stall, as
+   at the main path's 256^2: ROADMAP Queue 3), and at 32^2 (k = 4) and
+   16^2 (k = 7), where they converge, held to the velocity bound; each
+   launching K3w's bfloat16-factor variant (``patch_solve_wide_bf16``) and
+   neither float32 patch solve, its counts printed (the first two beside
+   the float32 run's first step); then K3's variant (``patch_solve_bf16``)
+   on one 256^2 colour at d1 = 10 and K3w's on one 128^2 colour at d1 = 21
+   and 45, each held to the plain version within 1e-4 and timed in turns
+   beside the float32 kernel on the same values and the plain version
+   (CUDA graphs of 20 launches, the median of five reads), with the
+   bfloat16 bytes bound.  Phase (m) runs the same knob at the main path's
+   configuration: (m6) at 80^2, the largest mesh measured where the
+   tentative solve converges in both packages, held to the bench bounds
+   beside (m6f), the
+   same mesh with float32 factors, launching K3's variant and never K3;
+   (m6s) at 256^2, held to a finite state, its stall printed; and
+   ``IEHDG_TENT_FUSED=2`` ((m7), 256^2) beside the main path's first
+   step; (m6) and (m7) count the fused sweep's K1 and full-field K2
+   launches an application, one each in (m6), none in (m7);
+7. the launch check: every kernel K1-K5, K1w-K3w, K2c, K5w, K5b and the
+   two bfloat16-factor variants launched on some path (K2w on (o12)'s).
 
 The JSON line before the card's name and power limit has one entry per
 kernel (route, source, the TPU kernel it replaces, launches by path and per
@@ -201,14 +224,17 @@ errors on the run's own tables and the launches a step of runs (n5), (n6)
 K3 also ``*_additive``: one additive patch application, every colour and
 the boundary tail, at 256^2; K1w-K3w and K5w: phase (o)'s 128^2, k = 7
 shapes, launches a step of (o7) and (o8), the errors on those runs' own
-tables, their device ms in phase (p)'s step (``k7_step_device_ms``) and
-in (o11)'s (``o11_step_device_ms``), (o11)'s launches and tables
+tables, their device ms in phase (p)'s step (``k7_step_device_ms``),
+(o11)'s launches and tables
 (``*_k11``), K1w and K3w ``*_d1_91`` (K3w also ``*_d1_91_f64``), K5w
 ``*_n182`` (float32), K5w ``*_n110``, its A/B against K5b (``ab_blocked``) and its holds
 on the k = 7 disk's blocks, K3w the K3 A/B at
 d1 = 21, 28, 36 (``ab_*``); K5 its variants' A/B (``ab_variants``); K5b
 the float64 n = 420 shape, ``*_n552`` the float32 one, and its launches
-and holds in (o18));
+and holds in (o18)); the bfloat16-factor variants phase (q)'s rows (K3's
+at 256^2, d1 = 10; K3w's at d1 = 45 and ``*_d1_21``), each with the
+float32 kernel's time on the same values (``f32_kernel_ms``) and bound,
+their launches in (m6), (d_bf16) and (o7_bf16);
 the last
 line is ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it.
@@ -335,12 +361,47 @@ PART_F64_STEPS = 1  # cut from 2 (5.6-5.9 s a step over the ranks) for phase (o)
 # its largest entry (float32 Krylov tolerances, as phases (k), (l)) and K4
 # launches a step falling from four builds' 16 (own cells and one Schur
 # batch a colour) to one build's 4
+# (m6): IEHDG_PC_BF16=1, the patch factors stored in bfloat16: K3's
+# bfloat16-factor variant and never K3 itself.  At the main path's NX^2 the
+# tentative solve stalls (relative residual 1.0 after 56 iterations, velocity
+# error 0.71 on the H100); at 96^2 it ends at relative residual 0.51 after
+# 154 iterations a solve, velocity error 0.0196, and the JAX package's on the
+# CPU likewise (154 a solve, 0.0199; ROADMAP Queue 3).  So (m6) runs at
+# BF16_NX^2, the largest main-path mesh measured where both packages
+# converge (80^2: 40.0 and 39.75 iterations a solve on the CPU), held to the
+# bench bounds beside (m6f), the
+# same mesh with float32 factors; (m6s) runs at NX^2, held to a finite
+# state, and prints the stall.  (m7): IEHDG_TENT_FUSED=2, the fused sweep's
+# free A z, at NX^2, beside the main path's first step.  The fused sweep's
+# K1 and full-field K2 launches an application: one each in (m6) (the
+# default exact A z), none in (m7)
+BF16_PATH_KERNELS = ("fact_apply", "cross_pair", "patch_solve_bf16", "gauss_jordan")
+BF16_NX = 80
 KNOB_RUNS = (
     ("m1", {"IEHDG_TENT_SWEEPS": "2"}, MAIN_PATH_KERNELS),
     ("m2", {"IEHDG_TENT_SYM": "0"}, MAIN_PATH_KERNELS),
     ("m3", {"IEHDG_TENT_FUSED": "0"}, MAIN_PATH_KERNELS),
     ("m4", {"IEHDG_FACT": "0"}, DENSE_PATH_KERNELS),
+    ("m6f", {}, MAIN_PATH_KERNELS),
+    ("m6", {"IEHDG_PC_BF16": "1"}, BF16_PATH_KERNELS),
+    ("m6s", {"IEHDG_PC_BF16": "1"}, BF16_PATH_KERNELS),
+    ("m7", {"IEHDG_TENT_FUSED": "2"}, MAIN_PATH_KERNELS),
 )
+KNOB_NX = {"m6f": BF16_NX, "m6": BF16_NX}  # other runs: NX
+KNOB_STALLS = ("m6s",)  # held to a finite state, not to the bench bounds
+# the fused sweep's (K1, full-field K2) launches an application, by run
+SWEEP_LAUNCHES = {"m6": (1, 1), "m7": (0, 0)}
+# phase (q): IEHDG_PC_BF16=1 at run (d)'s configuration (k = 4) and run
+# (o7)'s (k = 7), one step each, where the tentative solve stalls as (m6s)'s
+# does (held to a finite state), and at 32^2 (k = 4) and 16^2 (k = 7),
+# where it converges (held to the velocity bound): (key, degree, nx, the
+# float32 run or None, the velocity bound or None); then K3's
+# bfloat16-factor variant on one NX^2 colour at the main path's width and
+# K3w's on one WIDE_NX^2 colour at BF16_WIDE_D1
+BF16_RUNS = (("d_bf16", 4, 128, "d", None), ("d_bf16_32", 4, 32, None, ERROR_VELOCITY_MAX),
+             ("o7_bf16", 7, 64, "o7", None), ("o7_bf16_16", 7, 16, None, ERROR_VELOCITY_MAX))
+DEGREE_D1 = (DEGREE + 2) * (DEGREE + 3) // 2  # 10
+BF16_WIDE_D1 = (21, 45)
 LAG_SCHEME = "imex_ars3_443"
 # the two runs precondition with other factors, and each tentative solve
 # stops at its float32 tolerance (1e-6) inside two fixed Richardson sweeps,
@@ -426,9 +487,10 @@ PATCH_WIDE_DEVICE_D1, PATCH_WIDE_DEVICE_FACETS = 136, 4099
 # these flags ends at 1.2e-3 to 1.4e-3 in the port and in the JAX package
 # alike (1.4074e-3 in both on one CPU).
 DEG11_NX, DEG11_F64_NX = 64, 4
-# (o12): k = 12 (d1 = 105, no A/B of the cross pair there: K2w) in float64
-# on DEG12_NX^2, one step, card against --device cpu as (o11c): the one
-# path of the script that launches K2w.  Its errors against the vortex
+# (o12): k = 12 (d1 = 105: K2w in float64) in float64 on DEG12_NX^2, one
+# step on the card only (its CPU run, against which the card's state read
+# 2.991e-8, is cut for the script's time): the one path of the
+# script that launches K2w, held to a finite state.  Its errors against the vortex
 # are not held: one step of these flags ends at velocity error 5.0 in the
 # port and in the JAX package alike (4.99936 and 4.99937, float64 on one
 # CPU), and at 2.820e-2 on the H100's host, on its card and its CPU alike
@@ -439,10 +501,8 @@ DEG12, DEG12_NX = 12, 2
 # 5.5e-5 of the state's largest entry when the initial velocity moves by
 # one unit in the last place (at k = 7, (o64)'s, by 3.6e-13;
 # tools/ulp_sensitivity.py --device cpu): a card whose sums run in another
-# order is held to ten times that at k = 11.  At k = 12 the card's state
-# read 2.991e-8 from the CPU's in two runs (NVIDIA H100 80GB HBM3,
-# 700.00 W), far inside that move, and is held to ten times its reading
-F64_CPU_RTOL_K11, F64_CPU_RTOL_K12 = 3.0e-8, 3.0e-7
+# order is held to ten times that at k = 11
+F64_CPU_RTOL_K11 = 3.0e-8
 # calls a timing of the Gauss-Jordan inverse from n = 56 (k = 5): its plain
 # version takes 40-300 ms a call there
 WIDE_GJ_REPS = 3
@@ -1191,11 +1251,15 @@ def driver_runs():
     return launches, disk_k4, d_checks
 
 
+# the Krylov counts of each driver run, by key (check_driver_run)
+RUN_COUNTS = {}
+
+
 def check_driver_run(key, label, vel_max, res, wall, timers, launches):
     """Print one driver run's numbers and fail on non-finite state, errors
     above their bounds (``vel_max``: the velocity bound, or a (velocity,
     pressure) pair, or None: printed, not held) or a solve that took no
-    iterations."""
+    iterations.  Keeps the run's counts in RUN_COUNTS."""
     setup_s = sum(timers.get("setup", []))
     if key == "c":
         its = res["iterations"]
@@ -1207,6 +1271,7 @@ def check_driver_run(key, label, vel_max, res, wall, timers, launches):
         return
     steps = timers["timestep"]
     counts = res["timestepper"].step_counts
+    RUN_COUNTS[key] = strip_relres(counts)
     its = [n for c in counts for k, v in c.items() if k != "max_relres"
            for n in (v if isinstance(v, list) else [v])]
     finite = all(bool(torch.isfinite(res[f]).all()) for f in ("Q", "p"))
@@ -1776,11 +1841,47 @@ def check_path_kernels(key, launches, kernels_of_path):
              f"{launches}")
 
 
-def knob_phase():
+@contextlib.contextmanager
+def counting_sweeps(store):
+    """Within the block, the fused sweep's applications (``store["sweeps"]``)
+    and the K1 and full-field cross-pair launches made inside them
+    (``store["k1"]``, ``store["k2_full"]``)."""
+    from incompressibleeulerhdg_tpu_torch import kernels
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.linalg import tentative
+
+    real_sweep, real_cross = tentative._colored_apply_fused_bl, P.cross_pair
+    store.update(sweeps=0, k1=0, k2_full=0)
+    inside = [False]
+
+    def cross(K01, K10, Bp, Cp, bounds, *a, **k):
+        if inside[0] and len(bounds) > 2:
+            store["k2_full"] += 1
+        return real_cross(K01, K10, Bp, Cp, bounds, *a, **k)
+
+    def sweep(*a, **k):
+        store["sweeps"] += 1
+        k1 = kernels.LAUNCHES["fact_apply"]
+        inside[0] = True
+        try:
+            return real_sweep(*a, **k)
+        finally:
+            inside[0] = False
+            store["k1"] += kernels.LAUNCHES["fact_apply"] - k1
+
+    tentative._colored_apply_fused_bl, P.cross_pair = sweep, cross
+    try:
+        yield
+    finally:
+        tentative._colored_apply_fused_bl, P.cross_pair = real_sweep, real_cross
+
+
+def knob_phase(default_counts):
     """Phase (m): the IEHDG_* knobs through the CLI at the main path's
     configuration (NX^2, k = DEGREE, float32, projection SSP2), one step
     each, then ARS3(4,4,3) with and without the lagged preconditioner.
-    Returns the launches by run."""
+    ``default_counts``: the main path's first step's, printed beside (m6)'s
+    and (m7)'s.  Returns the launches by run."""
     dt = 1.0 / NX
     base = ["--nx", NX, "--degree", DEGREE, "--tfinal", dt, "--use_projection_method"]
     launches = {}
@@ -1789,11 +1890,32 @@ def knob_phase():
         os.chdir(tmp)
         try:
             for key, env, path in KNOB_RUNS:
-                res, wall, launches[key], timers = run_cli(key, base, env)
-                label = " ".join(f"{k}={v}" for k, v in env.items())
-                check_driver_run(key, f"{label}, {NX}^2 k={DEGREE}", ERROR_VELOCITY_MAX, res,
+                sweeps = {}
+                record = counting_sweeps(sweeps) if key in SWEEP_LAUNCHES else None
+                nx = KNOB_NX.get(key, NX)
+                argv = base[:1] + [nx] + base[2:]
+                res, wall, launches[key], timers = run_cli(key, argv, env, record=record)
+                label = " ".join(f"{k}={v}" for k, v in env.items()) or "no knob"
+                check_driver_run(key, f"{label}, {nx}^2 k={DEGREE}",
+                                 None if key in KNOB_STALLS else ERROR_VELOCITY_MAX, res,
                                  wall, timers, launches[key])
                 check_path_kernels(key, launches[key], path)
+                if key in ("m6", "m6s", "m7"):
+                    ref, ref_label = (RUN_COUNTS["m6f"], f"(m6f)'s, {nx}^2") if key == "m6" \
+                        else (strip_relres([default_counts]), "the main path's first step")
+                    relres = max(c["max_relres"] for c in res["timestepper"].step_counts)
+                    print(f"# phase (m) ({key}) {label} {nx}^2: counts {RUN_COUNTS[key]} (max "
+                          f"relres {relres:.3e}, velocity error {res['velocity_error']:.3e}) "
+                          f"against {ref_label} {ref}", flush=True)
+                if key in SWEEP_LAUNCHES:
+                    n = sweeps["sweeps"]
+                    per = (sweeps["k1"] / max(n, 1), sweeps["k2_full"] / max(n, 1))
+                    print(f"# phase (m) ({key}): fused sweep applications {n}, K1 and "
+                          f"full-field K2 launches an application {per[0]:g}, {per[1]:g} "
+                          f"(expected {SWEEP_LAUNCHES[key]})", flush=True)
+                    if n == 0 or per != SWEEP_LAUNCHES[key]:
+                        fail(f"run ({key}): the fused sweep's K1 and full-field K2 launches an "
+                             f"application are {per}, not {SWEEP_LAUNCHES[key]}")
             lag = {}
             for flag in ("0", "1"):
                 key = f"m5_lag{flag}"
@@ -2089,23 +2211,15 @@ def wide_table_checks(geom, op, blocks, degree, tag):
     return r
 
 
-# device ms of each kernel a step by run key, from torch.profiler over the
-# whole CLI run (degree_runs' ``profiled``)
-RUN_PROFILES = {}
-
-
-def degree_runs(runs, profiled=(), bounds=None):
+def degree_runs(runs, bounds=None):
     """Phases (n), (o): projection SSP2 through the CLI at each (key, k, nx,
     steps) of ``runs``, held to the velocity bound (``bounds``: key -> its
     own), each run's path launching its kernels (K1-K3 and K5 at k = 5, 6;
     K1w-K3w and K5w, and no other, from k = 7), with the run's own tables
-    and blocks held to the plain versions.  The runs whose key is in
-    ``profiled`` run under torch.profiler: the device ms of each kernel a
-    step into RUN_PROFILES.  Returns the launches by run and the table
-    checks by degree."""
+    and blocks held to the plain versions.  Returns the launches by run and
+    the table checks by degree."""
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
-    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_ms_by_kernel
 
     dt = 1.0 / NX
     launches, checks = {}, {}
@@ -2121,20 +2235,7 @@ def degree_runs(runs, profiled=(), bounds=None):
                 record.enter_context(counting_cross_pair(key, steps))
                 argv = ["--nx", nx, "--degree", degree, "--tfinal", steps * dt,
                         "--use_projection_method"]
-                if key in profiled:
-                    out = []
-                    prof = device_ms_by_kernel(lambda: out.append(run_cli(key, argv, record=record)),
-                                               operators=False)
-                    (res, wall, launches[key], timers), = out
-                    RUN_PROFILES[key] = {n: v / steps for n, v in prof["kernel_device_ms"].items()
-                                         if v > 0}
-                    print(f"# run ({key}) device ms a step by kernel (torch.profiler over the "
-                          f"run): {RUN_PROFILES[key]}, all kernels {prof['device_ms'] / steps:.1f} "
-                          f"| launches a step "
-                          f"{dict((n, v / steps) for n, v in launches[key].items() if v)}",
-                          flush=True)
-                else:
-                    res, wall, launches[key], timers = run_cli(key, argv, record=record)
+                res, wall, launches[key], timers = run_cli(key, argv, record=record)
                 t_checks = time.perf_counter()
                 check_driver_run(key, f"projection SSP2 {nx}^2 k={degree}",
                                  (bounds or {}).get(key, ERROR_VELOCITY_MAX), res, wall, timers,
@@ -2173,7 +2274,7 @@ def patch_ab(k3, widths, phase):
     faster.  Returns one row a width and dtype."""
     from incompressibleeulerhdg_tpu_torch.tools import ab_patch
 
-    rows = ab_patch.compare(k3, widths)
+    rows = ab_patch.compare(k3, widths, reads=SMOKE_AB_READS)
     for r in rows:
         faster = "patch_solve_wide" if r["k3w_ms"] <= r["k3_ms"] else "patch_solve"
         print(f"# phase ({phase}) K3 against K3w at d1={r['d1']} (one colour, {r['m']} facets, "
@@ -2203,7 +2304,7 @@ def cross_ab(k2):
     most launches are).  Returns one row a width, dtype and kind."""
     from incompressibleeulerhdg_tpu_torch.tools import ab_cross
 
-    rows = ab_cross.compare(k2, ab_cross.WIDTHS + ab_cross.WIDE_WIDTHS)
+    rows = ab_cross.compare(k2, ab_cross.WIDTHS + ab_cross.WIDE_WIDTHS, reads=SMOKE_AB_READS)
     short = {"cross_pair": "K2", "cross_pair_wide": "K2w", "cross_pair_cluster": "K2c"}
     for r in rows:
         names = [n for n in short if f"{n}_ms" in r]
@@ -2224,6 +2325,9 @@ def cross_ab(k2):
 
 
 AB_MARGIN = 1.03  # a dispatch A/B fails where the dispatch's kernel is slower by more
+# reads in turns of each kernel of the patch-solve and cross-pair A/Bs
+# (the tools' default five, cut to three for the script's time)
+SMOKE_AB_READS = 3
 
 
 def select_ab():
@@ -2433,13 +2537,14 @@ def degree7_breakdown():
     return r
 
 
-def card_against_cpu(key, degree, nx, rtol=F64_CPU_RTOL, vel_max=ERROR_VELOCITY_MAX):
-    """Runs (o64), (o11c): one projection SSP2 step at ``degree`` on nx^2 in
-    float64 through the CLI on the card and with ``--device cpu``: held to
-    the velocity bound ``vel_max`` (None: printed only), every Krylov count
-    equal, the state within ``rtol`` of its largest entry, the card's run
-    launching the kernels the float64 dispatch takes at its width (the
-    CPU's none).  Returns the card run's launches."""
+def card_against_cpu(key, degree, nx, rtol=F64_CPU_RTOL, vel_max=ERROR_VELOCITY_MAX, cpu=True):
+    """Runs (o64), (o11c), (o12): one projection SSP2 step at ``degree`` on
+    nx^2 in float64 through the CLI on the card and (``cpu``) with
+    ``--device cpu``: held to the velocity bound ``vel_max`` (None: printed
+    only), every Krylov count equal, the state within ``rtol`` of its
+    largest entry, the card's run launching the kernels the float64
+    dispatch takes at its width (the CPU's none).  Returns the card run's
+    launches."""
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
 
@@ -2448,19 +2553,20 @@ def card_against_cpu(key, degree, nx, rtol=F64_CPU_RTOL, vel_max=ERROR_VELOCITY_
     res, wall, launches, timers = run_cli(key, argv)
     check_driver_run(key, f"projection SSP2 {nx}^2 k={degree} float64", vel_max, res, wall,
                      timers, launches)
-    cpu, _, cpu_launches, _ = run_cli(f"{key}cpu", argv + ["--device", "cpu"])
-    if any(cpu_launches.values()):
-        fail(f"run ({key}) on the CPU launched a kernel: {cpu_launches}")
-    diff = max(float((res[f].cpu() - cpu[f]).abs().max()) / float(cpu[f].abs().max())
-               for f in ("Q", "p"))
-    c_card, c_cpu = (strip_relres(r["timestepper"].step_counts) for r in (res, cpu))
-    print(f"# phase ({key}) k={degree} {nx}^2 float64, card against CPU: counts "
-          f"{c_card} against {c_cpu} | max|state_card - state_cpu| / max|state_cpu| "
-          f"{diff:.3e} (bound {rtol:.1e})", flush=True)
-    if c_card != c_cpu:
-        fail(f"run ({key}): the card's Krylov counts differ from the CPU's")
-    if not diff <= rtol:
-        fail(f"run ({key}): the card's state differs from the CPU's by {diff:.3e}")
+    if cpu:
+        cpu, _, cpu_launches, _ = run_cli(f"{key}cpu", argv + ["--device", "cpu"])
+        if any(cpu_launches.values()):
+            fail(f"run ({key}) on the CPU launched a kernel: {cpu_launches}")
+        diff = max(float((res[f].cpu() - cpu[f]).abs().max()) / float(cpu[f].abs().max())
+                   for f in ("Q", "p"))
+        c_card, c_cpu = (strip_relres(r["timestepper"].step_counts) for r in (res, cpu))
+        print(f"# phase ({key}) k={degree} {nx}^2 float64, card against CPU: counts "
+              f"{c_card} against {c_cpu} | max|state_card - state_cpu| / max|state_cpu| "
+              f"{diff:.3e} (bound {rtol:.1e})", flush=True)
+        if c_card != c_cpu:
+            fail(f"run ({key}): the card's Krylov counts differ from the CPU's")
+        if not diff <= rtol:
+            fail(f"run ({key}): the card's state differs from the CPU's by {diff:.3e}")
     d1 = (degree + 2) * (degree + 3) // 2
     path = (*P.width_kernels(d1, torch.float64), smallinv.kernel_for(2 * d1, torch.float64))
     if any(launches[n] == 0 for n in path):
@@ -2508,6 +2614,123 @@ def degree7_phase():
           f"{plain_err:.3e} (bound {rtol:.3e})", flush=True)
     e["identity_blocks_disk"] = n_eye
     return launches, checks, holds.results
+
+
+def bf16_colour(nx, d1, seed):
+    """One colour (colour 1: nx (nx - 1) facets at offset nx^2) of the nx^2
+    mesh at width d1, seeded: float32 K01, K10, penalty blocks and sides,
+    and the factors Dinv0, Sinv in bfloat16 (padded) together with their
+    float32 copies (the same values, padded), tables of the colour's
+    columns and those before it.  Returns (bf16 args, float32 args) of the
+    patch solve."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+
+    g = torch.Generator(device="cuda:0").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda:0")
+    nu, off, m = 2 * d1, nx * nx, nx * (nx - 1)
+    nf = off + m
+    K01, K10 = P.pad_table(rnd(d1, d1, nf) / d1), P.pad_table(rnd(d1, d1, nf) / d1)
+    Di16 = P.pad_table((rnd(nu, nu, nf) / nu).to(torch.bfloat16))
+    Si16 = P.pad_table((rnd(nu, nu, nf) / nu).to(torch.bfloat16))
+    Di32, Si32 = P.pad_table(Di16.float()), P.pad_table(Si16.float())
+    rest = (K01, K10, rnd(nu, nu) / nu, rnd(nu, nu) / nu, rnd(nu, m), rnd(nu, m), off)
+    return (Di16, Si16, *rest), (Di32, Si32, *rest)
+
+
+def bf16_rows():
+    """Phase (q)'s kernel rows: K3's bfloat16-factor variant on one NX^2
+    colour at d1 = 10 and K3w's on one WIDE_NX^2 colour at each of
+    BF16_WIDE_D1, each held to the plain version (which upcasts the factors)
+    within TOL[float32] and timed in turns beside the float32 kernel on the
+    same values and the plain version, each on a CUDA graph of its launches
+    (``graph_ms``, the median of five reads), with the bfloat16 bytes bound.
+    Returns name -> entry (``rows[name]`` for K3, ``rows[name][d1]`` for
+    K3w)."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import graph_ms, in_turns
+
+    holds = Holds("bfloat16 factors")
+    rows = {"patch_solve_wide_bf16": {}}
+    for name, nx, d1 in (("patch_solve_bf16", NX, DEGREE_D1),
+                         *(("patch_solve_wide_bf16", WIDE_NX, d) for d in BF16_WIDE_D1)):
+        a16, a32 = bf16_colour(nx, d1, 40 + d1)
+        holds.results.pop(name, None)
+        holds.check(name, torch.float32, P.patch_solve(*a16), P.patch_solve_plain(*a16))
+        f32_name = name.removesuffix("_bf16")
+        holds.check(f32_name, torch.float32, P.patch_solve(*a32), P.patch_solve_plain(*a16))
+        ms, reads = in_turns({"bf16": lambda: P.patch_solve(*a16),
+                              "f32": lambda: P.patch_solve(*a32),
+                              "plain": lambda: P.patch_solve_plain(*a16)},
+                             lambda run: graph_ms(run, REPS))
+        nu, m = 2 * d1, a16[6].shape[1]
+        nbytes = 2 * 2 * nu * nu * m + 4 * (2 * d1 * d1 * m + 2 * nu * nu + 4 * nu * m)
+        flops = 2 * (5 * nu * nu + 4 * d1 * d1) * m
+        t_b, by = bound(torch.float32, nbytes, flops)
+        f32_b = bound(torch.float32, *work(f32_name, torch.float32, d1, m))[0]
+        e = holds.results[name]
+        entry = {"abs": dict(e["abs"]), "rel": {**e["rel"], "float64": None},
+                 "ms": ms["bf16"], "plain_ms": ms["plain"], "bytes": nbytes, "bound_ms": t_b,
+                 "bound_by": by, "library_ms": None, "timers": ["cuda graph"],
+                 "f32_kernel_ms": ms["f32"], "f32_kernel_bound_ms": f32_b,
+                 "reads": reads, "facets": m}
+        if name == "patch_solve_wide_bf16":
+            entry["plan"] = P.patch_wide_plan(d1, torch.float32, factors=torch.bfloat16)
+            entry["f32_plan"] = P.patch_wide_plan(d1, torch.float32)
+            rows[name][d1] = entry
+        else:
+            rows[name] = entry
+        print(f"# phase (q) {name} d1={d1} on one {nx}^2 colour ({m} facets): rel err "
+              f"{e['rel']['float32']:.3e} | {ms['bf16']:.4f} ms against the float32 kernel's "
+              f"{ms['f32']:.4f} ms and the plain version's {ms['plain']:.4f} ms (graph medians) "
+              f"| bound {t_b:.4f} ms ({by}; float32 tables {f32_b:.4f} ms), "
+              f"{100 * t_b / ms['bf16']:.1f}% of it"
+              + (f" | plan {entry['plan']}" if "plan" in entry else ""), flush=True)
+        del a16, a32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_phase():
+    """Phase (q): IEHDG_PC_BF16=1 through the CLI, one step each of
+    BF16_RUNS (run (d)'s and run (o7)'s configurations, held to a finite
+    state: their tentative solves stall; 32^2 at k = 4 and 16^2 at k = 7
+    held to the velocity bound), each launching K3w's bfloat16-factor
+    variant and never K3 or K3w themselves, the counts printed beside the
+    float32 run's first step; then the kernel rows (:func:`bf16_rows`).
+    Returns the launches by run and the rows."""
+    from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
+    from incompressibleeulerhdg_tpu_torch.linalg import smallinv
+
+    dt = 1.0 / NX
+    launches = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for key, degree, nx, ref, vel_max in BF16_RUNS:
+                res, wall, launches[key], timers = run_cli(
+                    key, ["--nx", nx, "--degree", degree, "--tfinal", dt,
+                          "--use_projection_method"], {"IEHDG_PC_BF16": "1"})
+                check_driver_run(key, f"IEHDG_PC_BF16=1, projection SSP2 {nx}^2 k={degree}",
+                                 vel_max, res, wall, timers, launches[key])
+                d1 = (degree + 2) * (degree + 3) // 2
+                path = (*P.width_kernels(d1, torch.float32, torch.bfloat16),
+                        smallinv.kernel_for(2 * d1, torch.float32))
+                relres = max(c["max_relres"] for c in res["timestepper"].step_counts)
+                print(f"# phase (q) ({key}) IEHDG_PC_BF16=1 {nx}^2 k={degree}: counts "
+                      f"{RUN_COUNTS[key]} (max relres {relres:.3e}, velocity error "
+                      f"{res['velocity_error']:.3e})"
+                      + (f" against run ({ref})'s first step (float32 factors) "
+                         f"{RUN_COUNTS[ref][:1]}" if ref else ""), flush=True)
+                lk = launches[key]
+                if any(lk[n] == 0 for n in path) or lk["patch_solve_wide"] or lk["patch_solve"]:
+                    fail(f"run ({key}) must launch {list(path)} and neither float32 patch "
+                         f"solve: {lk}")
+                del res
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return launches, bf16_rows()
 
 
 def degree11_rows():
@@ -2589,7 +2812,7 @@ def degree11_rows():
 
 
 def degree11_phase():
-    """Phase (o11): k = 11 through the CLI ((o11), profiled) and in float64
+    """Phase (o11): k = 11 through the CLI ((o11)) and in float64
     on the card against the CPU ((o11c)), k = 12 likewise ((o12)), then the
     kernel rows at k = 11.  Returns the launches by run, the table checks
     and the kernel rows."""
@@ -2599,8 +2822,7 @@ def degree11_phase():
         print(f"# phase (o11) {what} took {time.perf_counter() - t0:.1f} s from the phase's start",
               flush=True)
 
-    launches, checks = degree_runs([("o11", 11, DEG11_NX, 1)], profiled=("o11",),
-                                   bounds={"o11": None})
+    launches, checks = degree_runs([("o11", 11, DEG11_NX, 1)], bounds={"o11": None})
     took("run (o11) and its tables")
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2609,8 +2831,7 @@ def degree11_phase():
             launches["o11c"] = card_against_cpu("o11c", 11, DEG11_F64_NX, rtol=F64_CPU_RTOL_K11,
                                                 vel_max=None)
             took("run (o11c)")
-            launches["o12"] = card_against_cpu("o12", DEG12, DEG12_NX, rtol=F64_CPU_RTOL_K12,
-                                               vel_max=None)
+            launches["o12"] = card_against_cpu("o12", DEG12, DEG12_NX, vel_max=None, cpu=False)
             took("run (o12)")
         finally:
             os.chdir(cwd)
@@ -2670,7 +2891,7 @@ def main():
     part_launches, part_cmp = partition_phase(card)
     launches["l"] = part_launches
     stamp("phase (l)")
-    launches.update(knob_phase())
+    launches.update(knob_phase(slab_ref[1][0]))
     stamp("phase (m)")
     wide_launches, wide_checks = wide_phase()
     launches.update(wide_launches)
@@ -2690,6 +2911,12 @@ def main():
     stamp("phase (o11)")
     k7 = degree7_breakdown()
     stamp("phase (p)")
+    bf16_launches, bf16 = bf16_phase()
+    launches.update(bf16_launches)
+    main_cmp["patch_solve_bf16"] = bf16["patch_solve_bf16"]
+    wide_cmp["patch_solve_wide_bf16"] = bf16["patch_solve_wide_bf16"][WIDE_DEGREE_D1]
+    deg7_cmp["patch_solve_wide_bf16"] = bf16["patch_solve_wide_bf16"][45]
+    stamp("phase (q)")
 
     rows = []
     for name in kernels.KERNELS:
@@ -2752,8 +2979,7 @@ def main():
                         "f32_vs_f64", "plain_f32_vs_f64", "f32_rtol", "checks") if key in c})
             row["k7_step_device_ms"] = k7["kernel_device_ms"][name]
             row.update(launches_per_step_o11=launches["o11"][name],
-                       launches_o11c=launches["o11c"][name], launches_o12=launches["o12"][name],
-                       o11_step_device_ms=RUN_PROFILES["o11"].get(name, 0.0))
+                       launches_o11c=launches["o11c"][name], launches_o12=launches["o12"][name])
             c = deg11_checks.get(name)
             if c is not None:
                 row["max_rel_err_run_tables_k11"] = c["rel"]
@@ -2800,6 +3026,19 @@ def main():
                         "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "library_ms", "plan",
                         "shape", "dtype")})
                     row[f"pct_bound{sfx}"] = pct_bound(e[f"bound_ms{sfx}"], e[f"ms{sfx}"], name)
+        if name.endswith("_bf16"):  # phase (q): the float32 kernel beside, same process
+            row.update(max_rel_err=e["rel"]["float32"], f32_kernel_ms=e["f32_kernel_ms"],
+                       f32_kernel_bound_ms=e["f32_kernel_bound_ms"], facets=e["facets"],
+                       launches_m6=launches["m6"][name],
+                       launches_d_bf16=launches["d_bf16"][name],
+                       launches_o7_bf16=launches["o7_bf16"][name])
+            if name == "patch_solve_wide_bf16":
+                w = wide_cmp[name]
+                row.update(plan=e["plan"], f32_plan=e["f32_plan"], plan_d1_21=w["plan"],
+                           f32_kernel_ms_d1_21=w["f32_kernel_ms"],
+                           f32_kernel_bound_ms_d1_21=w["f32_kernel_bound_ms"],
+                           bytes_d1_21=w["bytes"], bound_by_d1_21=w["bound_by"],
+                           pct_bound_d1_21=pct_bound(w["bound_ms"], w["ms"], name))
         if name == "gauss_jordan_select":
             row.update(ab_k4_n20_ms=ab["k4_n20_ms"], ab_k5_n20_ms=ab["k5_n20_ms"],
                        ab_k5_n42_ms=ab["k5_n42_ms"], ab_timer=ab["timer"])

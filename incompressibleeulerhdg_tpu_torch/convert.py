@@ -66,7 +66,8 @@ def tentative_operator_from_jax(op, dtype=torch.float64, device="cpu"):
     JAX builds off the TPU): factored (3-D ``Ks01``, uniform structured
     meshes) or dense (``D``, ``Bx``, ``Cx``; unstructured meshes, and
     structured ones under ``IEHDG_FACT=0``), lagged builds
-    (``reuse_factors``) included."""
+    (``reuse_factors``) included.  Patch factors stored in bfloat16
+    (``pc_dtype``) stay bfloat16, bit for bit."""
     names = ("Dinv", "Sinv", "Dinv0")
     if op.Sown is not None and np.ndim(op.Ks01) == 3:
         names += ("Sown", "Pcell", "Ks01", "Ks10", "Bp", "Cp")
@@ -74,7 +75,14 @@ def tentative_operator_from_jax(op, dtype=torch.float64, device="cpu"):
         names += ("D", "Bx", "Cx")
     else:
         raise ValueError("expected a flat factored or dense TentativeOperator")
-    return TentativeOperator(**{n: tensor(getattr(op, n), dtype, device) for n in names})
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # exact through float32
+            return torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+        return tensor(a, dtype, device)
+
+    return TentativeOperator(**{n: conv(getattr(op, n)) for n in names})
 
 
 def condensed_system_from_jax(cs, dtype=torch.float64, device="cpu"):

@@ -36,6 +36,16 @@
 //   loop trip); Cp and Bp are read through L1.
 // No tensor cores: every facet has its own matrices (no reuse).
 //
+// bfloat16 factors (IEHDG_PC_BF16=1, entry iehdg_patch_solve_bf16): Dinv0
+// and Sinv are read as bfloat16 from their own ld-strided tables and turned
+// into float32 as they leave shared memory, K01, K10, the penalty blocks
+// and the vectors stay float32 and every sum accumulates in float32: what
+// `_patch_pallas` computes on bfloat16 Di5/Si5 tiles.  The tile keeps the
+// float32 TC (a thread still owns 4 facets of a row), so the factors' box
+// rows are half as many bytes (32 or 16), their tables 2 nu^2 of the 2 nu^2
+// + 2 d1^2 rows; each table's mbarrier expects its own box bytes.  The
+// bytes bound falls from 40 d1^2 + 32 d1 to 24 d1^2 + 32 d1 a facet.
+//
 // Widths: the port dispatches d1 = 3 .. 15 (k = 0 .. 3) here.  Above d1 =
 // 15 a tile is one 16-byte row of facets (TC = VEC, the TMA minimum), and
 // the four tables of that tile take 2 nu^2 + 2 d1^2 rows of 16 bytes: at
@@ -72,7 +82,9 @@ __device__ __forceinline__ void vfma2<double>(double* acc, const double2& a, con
   acc[0] += a.x * v.x; acc[1] += a.y * v.y;
 }
 
-template <typename T, int D1>
+// T the working type, TF the factors' (Dinv0, Sinv): T, or bfloat16 with
+// float32
+template <typename T, typename TF, int D1>
 struct PatchTile {
   static constexpr int NU = 2 * D1;
   static constexpr int VEC = Vec<T>::n;
@@ -81,19 +93,21 @@ struct PatchTile {
   static constexpr int TC = (64 / (int)sizeof(T)) / (D1 > 15 ? 4 : D1 > 10 ? 2 : 1);
   static constexpr int Q = TC / VEC;          // facet groups a tile
   static constexpr int THREADS = NU * Q;      // one row of one group each
-  static constexpr TableBox BD = table_box<T, TC>(NU * NU);
+  static constexpr TableBox BD = table_box<TF, TC>(NU * NU);
   static constexpr TableBox BK = table_box<T, TC>(D1 * D1);
-  // shared memory, in elements of T (every region a multiple of 128 bytes)
+  // shared memory, in bytes (every region a multiple of 128 bytes)
+  static constexpr int DBYTES = BD.padded * TC * (int)sizeof(TF);
+  static constexpr int KBYTES = BK.padded * TC * (int)sizeof(T);
+  static constexpr int VBYTES = iehdg_round_up(NU * TC * (int)sizeof(T), 128);
   static constexpr int OFF_D = 0;
-  static constexpr int OFF_K10 = OFF_D + BD.padded * TC;
-  static constexpr int OFF_S = OFF_K10 + BK.padded * TC;
-  static constexpr int OFF_K01 = OFF_S + BD.padded * TC;
-  static constexpr int OFF_U = OFF_K01 + BK.padded * TC;
-  static constexpr int VBYTES = iehdg_round_up(NU * TC * (int)sizeof(T), 128) / (int)sizeof(T);
+  static constexpr int OFF_K10 = OFF_D + DBYTES;
+  static constexpr int OFF_S = OFF_K10 + KBYTES;
+  static constexpr int OFF_K01 = OFF_S + DBYTES;
+  static constexpr int OFF_U = OFF_K01 + KBYTES;
   static constexpr int OFF_W = OFF_U + VBYTES;
   static constexpr int OFF_T = OFF_W + VBYTES;
   static constexpr int END = OFF_T + VBYTES;
-  static constexpr int SMEM = END * (int)sizeof(T) + 4 * 8;  // + 4 mbarriers
+  static constexpr int SMEM = END + 4 * 8;  // + 4 mbarriers
 };
 
 // unroll factor of a sum over n terms: whole up to n = 20, 7 above (d1 =
@@ -104,17 +118,18 @@ struct PatchTile {
 template <typename T, int n>
 constexpr int UNROLL = n > 20 ? (sizeof(T) == 8 && n % 9 == 0 ? 9 : 7) : n;
 
-// acc[v] = sum_j A[row, j] x[j] over the NU x NU tile table A ([row][TC]) and
-// the tile vector x ([j][TC]) for the thread's facets q * VEC ..
-template <typename T, int NU, int TC>
-__device__ __forceinline__ void row_dot(T* acc, const T* A, const T* x, int row, int q) {
+// acc[v] = sum_j A[row, j] x[j] over the NU x NU tile table A ([row][TC],
+// of T or of bfloat16) and the tile vector x ([j][TC]) for the thread's
+// facets q * VEC ..
+template <typename T, int NU, int TC, typename TA>
+__device__ __forceinline__ void row_dot(T* acc, const TA* A, const T* x, int row, int q) {
   using V = typename Vec<T>::type;
   constexpr int VEC = Vec<T>::n;
 #pragma unroll(UNROLL<T, NU>)
   for (int jj = 0; jj < NU; ++jj) {
     int j = jj + row;
     j = j >= NU ? j - NU : j;
-    const V a = *reinterpret_cast<const V*>(A + (row * NU + j) * TC + q * VEC);
+    const V a = tab_vec(A + (row * NU + j) * TC + q * VEC);
     const V v = *reinterpret_cast<const V*>(x + j * TC + q * VEC);
     vfma2<T>(acc, a, v);
   }
@@ -146,24 +161,23 @@ __device__ __forceinline__ void cross_row(T* acc, const T* K, const T* P, const 
   }
 }
 
-template <typename T, int D1>
-__global__ void __launch_bounds__(PatchTile<T, D1>::THREADS) patch_solve_kernel(
+template <typename T, typename TF, int D1>
+__global__ void __launch_bounds__(PatchTile<T, TF, D1>::THREADS) patch_solve_kernel(
     const __grid_constant__ CUtensorMap mD, const __grid_constant__ CUtensorMap mS,
     const __grid_constant__ CUtensorMap m01, const __grid_constant__ CUtensorMap m10,
     long long off, const T* __restrict__ Bp, const T* __restrict__ Cp,
     const T* __restrict__ r0, const T* __restrict__ r1, T* __restrict__ y0,
     T* __restrict__ y1, long long m) {
-  using P = PatchTile<T, D1>;
+  using P = PatchTile<T, TF, D1>;
   constexpr int NU = P::NU, TC = P::TC, VEC = P::VEC, Q = P::Q;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  T* sD = sm + P::OFF_D;
-  T* sK10 = sm + P::OFF_K10;
-  T* sS = sm + P::OFF_S;
-  T* sK01 = sm + P::OFF_K01;
-  T* su = sm + P::OFF_U;  // r0, later r0 - (I2 (x) K01 + Bp) y1
-  T* sw = sm + P::OFF_W;  // w, later y1
-  T* st = sm + P::OFF_T;
+  TF* sD = reinterpret_cast<TF*>(smem_raw + P::OFF_D);
+  T* sK10 = reinterpret_cast<T*>(smem_raw + P::OFF_K10);
+  TF* sS = reinterpret_cast<TF*>(smem_raw + P::OFF_S);
+  T* sK01 = reinterpret_cast<T*>(smem_raw + P::OFF_K01);
+  T* su = reinterpret_cast<T*>(smem_raw + P::OFF_U);  // r0, later r0 - (I2 (x) K01 + Bp) y1
+  T* sw = reinterpret_cast<T*>(smem_raw + P::OFF_W);  // w, later y1
+  T* st = reinterpret_cast<T*>(smem_raw + P::OFF_T);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + P::SMEM - 4 * 8);
   const int tid = threadIdx.x;
   // tiles are aligned in table columns (TMA needs a 16-byte aligned first
@@ -174,9 +188,9 @@ __global__ void __launch_bounds__(PatchTile<T, D1>::THREADS) patch_solve_kernel(
   if (tid == 0) {
     for (int k = 0; k < 4; ++k) mbar_init(bar + k, 1);
     mbar_fence_init();
-    tma_load_table<T, TC>(sD, &mD, NU * NU, col, bar + 0);
+    tma_load_table<TF, TC>(sD, &mD, NU * NU, col, bar + 0);
     tma_load_table<T, TC>(sK10, &m10, D1 * D1, col, bar + 1);
-    tma_load_table<T, TC>(sS, &mS, NU * NU, col, bar + 2);
+    tma_load_table<TF, TC>(sS, &mS, NU * NU, col, bar + 2);
     tma_load_table<T, TC>(sK01, &m01, D1 * D1, col, bar + 3);
   }
   // the thread's row of r0 (to shared memory) and of r1 (kept for phase 2),
@@ -244,45 +258,62 @@ __global__ void __launch_bounds__(PatchTile<T, D1>::THREADS) patch_solve_kernel(
   }
 }
 
-template <typename T, int D1>
-static int launch(const void* Di, const void* Si, const void* K01, const void* K10,
-                  long long ldt, long long off, const void* Bp, const void* Cp, const void* r0,
-                  const void* r1, void* y0, void* y1, long long m, cudaStream_t stream) {
-  using P = PatchTile<T, D1>;
+// factors (Di, Si) of TF with column stride ldf, K01/K10 of T with ldt
+template <typename T, typename TF, int D1>
+static int launch_tables(const void* Di, const void* Si, const void* K01, const void* K10,
+                         long long ldf, long long ldt, long long off, const void* Bp,
+                         const void* Cp, const void* r0, const void* r1, void* y0, void* y1,
+                         long long m, cudaStream_t stream) {
+  using P = PatchTile<T, TF, D1>;
   static_assert(P::THREADS <= 1024 && P::SMEM <= 232448, "patch tile too large");
   static_assert(P::TC % P::VEC == 0, "tile not a whole number of vectors");
+  static_assert(P::TC * sizeof(TF) % 16 == 0, "a TMA box row is a multiple of 16 bytes");
   const long long ncols = off + m;
   CUtensorMap mD, mS, m01, m10;
-  int e = encode_table<T, P::TC>(&mD, Di, P::NU * P::NU, ldt, ncols);
-  if (!e) e = encode_table<T, P::TC>(&mS, Si, P::NU * P::NU, ldt, ncols);
+  int e = encode_table<TF, P::TC>(&mD, Di, P::NU * P::NU, ldf, ncols);
+  if (!e) e = encode_table<TF, P::TC>(&mS, Si, P::NU * P::NU, ldf, ncols);
   if (!e) e = encode_table<T, P::TC>(&m01, K01, D1 * D1, ldt, ncols);
   if (!e) e = encode_table<T, P::TC>(&m10, K10, D1 * D1, ldt, ncols);
   if (e) return e;
   static bool attr = false;
   if (!attr) {
     const cudaError_t a = cudaFuncSetAttribute(
-        patch_solve_kernel<T, D1>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+        patch_solve_kernel<T, TF, D1>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (a != cudaSuccess) return (int)a;
     attr = true;
   }
   const long long ntiles = off % P::TC + m;  // columns from the aligned first tile
-  patch_solve_kernel<T, D1><<<blocks_for(ntiles, P::TC), P::THREADS, P::SMEM, stream>>>(
+  patch_solve_kernel<T, TF, D1><<<blocks_for(ntiles, P::TC), P::THREADS, P::SMEM, stream>>>(
       mD, mS, m01, m10, off, (const T*)Bp, (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0,
       (T*)y1, m);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// all four tables of T, one column stride
+template <typename T, int D1>
+static int launch(const void* Di, const void* Si, const void* K01, const void* K10,
+                  long long ldt, long long off, const void* Bp, const void* Cp, const void* r0,
+                  const void* r1, void* y0, void* y1, long long m, cudaStream_t stream) {
+  return launch_tables<T, T, D1>(Di, Si, K01, K10, ldt, ldt, off, Bp, Cp, r0, r1, y0, y1, m,
+                                 stream);
+}
+
+template <typename T, typename TF>
 static int dispatch_d1(int d1, const void* Di, const void* Si, const void* K01,
-                       const void* K10, long long ldt, long long off,
+                       const void* K10, long long ldf, long long ldt, long long off,
                        const void* Bp, const void* Cp, const void* r0,
                        const void* r1, void* y0, void* y1, long long m,
                        cudaStream_t st) {
   switch (d1) {
-    case 3: return launch<T, 3>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
-    case 6: return launch<T, 6>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
-    case 10: return launch<T, 10>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
-    case 15: return launch<T, 15>(Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+#define IEHDG_K3_CASE(N)                                                                     \
+  case N:                                                                                    \
+    return launch_tables<T, TF, N>(Di, Si, K01, K10, ldf, ldt, off, Bp, Cp, r0, r1, y0, y1, \
+                                   m, st);
+    IEHDG_K3_CASE(3)
+    IEHDG_K3_CASE(6)
+    IEHDG_K3_CASE(10)
+    IEHDG_K3_CASE(15)
+#undef IEHDG_K3_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -302,8 +333,27 @@ IEHDG_EXPORT int iehdg_patch_solve(int device, int dtype, int d1, const void* Di
   if (off + m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // TMA coordinates are int32
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_d1<float>(d1, Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    return dispatch_d1<float, float>(d1, Di, Si, K01, K10, ldt, ldt, off, Bp, Cp, r0, r1, y0,
+                                     y1, m, st);
   if (dtype == 1)
-    return dispatch_d1<double>(d1, Di, Si, K01, K10, ldt, off, Bp, Cp, r0, r1, y0, y1, m, st);
+    return dispatch_d1<double, double>(d1, Di, Si, K01, K10, ldt, ldt, off, Bp, Cp, r0, r1, y0,
+                                       y1, m, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// dtype 2 only (float32, bfloat16 factors): Di/Si (nu, nu, ldf) bfloat16,
+// K01/K10 (d1, d1, ldt) float32, each with rows of a multiple of 16 bytes
+// and 16-byte aligned bases; every other operand as iehdg_patch_solve's.
+IEHDG_EXPORT int iehdg_patch_solve_bf16(int device, int dtype, int d1, const void* Di,
+                                        const void* Si, const void* K01, const void* K10,
+                                        long long ldf, long long ldt, long long off,
+                                        const void* Bp, const void* Cp, const void* r0,
+                                        const void* r1, void* y0, void* y1, long long m,
+                                        void* stream) {
+  if (dtype != 2) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (off + m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // TMA coordinates are int32
+  return dispatch_d1<float, __nv_bfloat16>(d1, Di, Si, K01, K10, ldf, ldt, off, Bp, Cp, r0, r1,
+                                           y0, y1, m, (cudaStream_t)stream);
 }

@@ -70,7 +70,19 @@
 // Tiles are aligned in table columns (TMA reads from a 16-byte aligned
 // column; the colour's first and last tiles mask the facets outside it,
 // and TMA fills columns past off + m with zeros).
+//
+// bfloat16 factors (IEHDG_PC_BF16=1, entry iehdg_patch_solve_wide_bf16):
+// Dinv0 and Sinv are bfloat16 tables with a column stride of their own;
+// both plans read them as bfloat16 and turn each entry into float32 at
+// use, K01, K10, the penalty blocks and the vectors stay float32 and the
+// sums accumulate in float32, as `_patch_pallas` does on bfloat16 tiles.
+// The plans keep float32's facets a tile (F x 4 = 64 or 128 bytes of a
+// vector row); a cluster rank's staged rows of Dinv0 take half the shared
+// bytes (patch_wide_layout counts the table's element size apart from the
+// vectors'), and a warp's loads of a factor row are 32 or 64 bytes.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "tma.cuh"
@@ -80,24 +92,27 @@ namespace cg = cooperative_groups;
 constexpr int PATCH_WIDE_SMEM_MAX = 232448;
 constexpr int PATCH_WIDE_CLUSTER_MAX = 8;
 
-// shared-memory layout, in elements of T: 2 RS Dinv0 slots (nu table rows
-// x F each), two vectors (nu x F: r0, then t, then u; w, then y1), every
-// region 128-byte aligned; then an mbarrier a slot
+// shared-memory layout, in bytes: 2 RS Dinv0 slots (nu table rows x F
+// each, of `tsize` bytes an entry), two vectors (nu x F of `size` bytes:
+// r0, then t, then u; w, then y1), every region 128-byte aligned; then an
+// mbarrier a slot
 struct PatchWideLayout {
-  int sd;  // slot (and vector) size
+  int sd;  // slot size, in table entries
   int off_d, off_x, off_w, off_bar;
   long long bytes;
 };
 
-__host__ __device__ inline PatchWideLayout patch_wide_layout(int d1, int F, int RS, int size) {
-  const int per = 128 / size;  // elements of 128 bytes
+__host__ __device__ inline PatchWideLayout patch_wide_layout(int d1, int F, int RS, int size,
+                                                             int tsize) {
   PatchWideLayout L;
-  L.sd = iehdg_round_up(2 * d1 * F, per);
+  const int slot = iehdg_round_up(2 * d1 * F * tsize, 128);
+  const int vec = iehdg_round_up(2 * d1 * F * size, 128);
+  L.sd = slot / tsize;
   L.off_d = 0;
-  L.off_x = L.off_d + 2 * RS * L.sd;
-  L.off_w = L.off_x + L.sd;
-  L.off_bar = L.off_w + L.sd;
-  L.bytes = (long long)L.off_bar * size + 2 * RS * 8;
+  L.off_x = L.off_d + 2 * RS * slot;
+  L.off_w = L.off_x + vec;
+  L.off_bar = L.off_w + vec;
+  L.bytes = (long long)L.off_bar + 2 * RS * 8;
   return L;
 }
 
@@ -106,12 +121,14 @@ constexpr int K3W_THREADS_MAX = 512;    // 128 registers a thread
 constexpr int PATCH_WIDE_DEV_THREADS = 256;  // the plan without a cluster
 
 // sum_j A[j ^ jx][lane] x[j ^ jx][lane] over n (even) terms of a staged
-// slot A and vector x ([j][F], from the thread's lane): with jx = 1 each
-// pair of terms is read in swapped order (two base pointers)
-template <typename T, int F>
-__device__ __forceinline__ T smem_dot(const T* A, const T* x, int n, int jx) {
+// slot A (of T or bfloat16) and vector x ([j][F], from the thread's lane):
+// with jx = 1 each pair of terms is read in swapped order (two base
+// pointers)
+template <typename T, int F, typename TA>
+__device__ __forceinline__ T smem_dot(const TA* A, const T* x, int n, int jx) {
   const int s = jx * F;
-  const T *Ae = A + s, *Ao = A - s, *xe = x + s, *xo = x - s;
+  const TA *Ae = A + s, *Ao = A - s;
+  const T *xe = x + s, *xo = x - s;
   T acc[8];
 #pragma unroll
   for (int u = 0; u < 8; ++u) acc[u] = T(0);
@@ -119,34 +136,35 @@ __device__ __forceinline__ T smem_dot(const T* A, const T* x, int n, int jx) {
   for (; j + 8 <= n; j += 8) {
 #pragma unroll
     for (int u = 0; u < 8; u += 2) {
-      acc[u] += Ae[(j + u) * F] * xe[(j + u) * F];
-      acc[u + 1] += Ao[(j + u + 1) * F] * xo[(j + u + 1) * F];
+      acc[u] += tab_val(Ae[(j + u) * F]) * xe[(j + u) * F];
+      acc[u + 1] += tab_val(Ao[(j + u + 1) * F]) * xo[(j + u + 1) * F];
     }
   }
   for (; j < n; j += 2) {
-    acc[0] += Ae[j * F] * xe[j * F];
-    acc[1] += Ao[(j + 1) * F] * xo[(j + 1) * F];
+    acc[0] += tab_val(Ae[j * F]) * xe[j * F];
+    acc[1] += tab_val(Ao[(j + 1) * F]) * xo[(j + 1) * F];
   }
   return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + ((acc[4] + acc[5]) + (acc[6] + acc[7]));
 }
 
 // The loads of a table row at the thread's column, K3W_U terms a group:
-// group j0 of the n terms A[j * ld] into v (rows past n read row n - 1).
-template <typename T>
-__device__ __forceinline__ void load_group(T (&v)[K3W_U], const T* __restrict__ A, long long ld,
+// group j0 of the n terms A[j * ld] into v (rows past n read row n - 1),
+// a bfloat16 table's entries as T
+template <typename T, typename TA>
+__device__ __forceinline__ void load_group(T (&v)[K3W_U], const TA* __restrict__ A, long long ld,
                                            int j0, int n) {
-  const T* q = A + (long long)j0 * ld;
+  const TA* q = A + (long long)j0 * ld;
 #pragma unroll
   for (int u = 0; u < K3W_U; ++u) {
-    v[u] = __ldg(q);
+    v[u] = tab_val(__ldg(q));
     if (j0 + u + 1 < n) q += ld;
   }
 }
 
 // sum_j A[j * ld] x[j * F] over n terms, with group 0 already in v: each
 // group's FMAs run while the next group's loads are in flight
-template <typename T>
-__device__ __forceinline__ T stream_dot(T (&v)[K3W_U], const T* __restrict__ A, long long ld,
+template <typename T, typename TA>
+__device__ __forceinline__ T stream_dot(T (&v)[K3W_U], const TA* __restrict__ A, long long ld,
                                         int n, const T* x, int F) {
   T acc[8];
 #pragma unroll
@@ -195,22 +213,42 @@ __device__ __forceinline__ void push_row(cg::cluster_group& cl, T* v, int row, i
   for (int r = 0; r < CS; ++r) cl.map_shared_rank(v, r)[row * F + lane] = val;
 }
 
-template <typename T, int F>
+// T the working type, TF the factors' (Si here, Dinv0 through mD): T, or
+// bfloat16 with float32; ldf the factors' column stride, ld the others'
+template <typename T, typename TF, int F>
 __global__ void __launch_bounds__(K3W_THREADS_MAX) patch_solve_wide_kernel(
-    const __grid_constant__ CUtensorMap mD, const T* __restrict__ Si, const T* __restrict__ K01, const T* __restrict__ K10,
-    long long ld, int d1, int RS, long long off, const T* __restrict__ Bp,
-    const T* __restrict__ Cp, const T* __restrict__ r0, const T* __restrict__ r1,
-    T* __restrict__ y0, T* __restrict__ y1, long long m) {
+    const __grid_constant__ CUtensorMap mD, const TF* __restrict__ Si, const T* __restrict__ K01,
+    const T* __restrict__ K10, long long ldf, long long ld, int d1, int RS, long long off,
+    const T* __restrict__ Bp, const T* __restrict__ Cp, const T* __restrict__ r0,
+    const T* __restrict__ r1, T* __restrict__ y0, T* __restrict__ y1, long long m) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   cg::cluster_group cl = cg::this_cluster();
   const int CS = (int)cl.num_blocks(), rank = (int)cl.block_rank();
   const int nu = 2 * d1;
-  const PatchWideLayout L = patch_wide_layout(d1, F, RS, (int)sizeof(T));
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  T* sD = sm + L.off_d;
-  T* sx = sm + L.off_x;  // r0, then t, then u
-  T* sw = sm + L.off_w;  // w, then y1
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + L.off_bar * sizeof(T));  // a slot each
+  // The layout's offsets: in entries of T where the factors are of T, in
+  // bytes where they are bfloat16 (patch_wide_layout).  Each form keeps its
+  // kernel at F = 32 in 64 registers, two thread blocks of 512 threads an SM
+  // (the other form cost ptxas 74 registers or a 12-byte spill at float32,
+  // 66 registers and a third of the speed at bfloat16, d1 = 45)
+  int sd;  // a Dinv0 slot's table entries
+  TF* sD;
+  T *sx, *sw;  // r0, then t, then u; w, then y1
+  uint64_t* bar;  // a slot each
+  if constexpr (std::is_same<T, TF>::value) {
+    sd = iehdg_round_up(2 * d1 * F, 128 / (int)sizeof(T));
+    T* sm = reinterpret_cast<T*>(smem_raw);
+    sD = sm;
+    sx = sm + 2 * RS * sd;
+    sw = sx + sd;
+    bar = reinterpret_cast<uint64_t*>(smem_raw + (2 * RS + 2) * sd * sizeof(T));
+  } else {
+    const PatchWideLayout L = patch_wide_layout(d1, F, RS, (int)sizeof(T), (int)sizeof(TF));
+    sd = L.sd;
+    sD = reinterpret_cast<TF*>(smem_raw + L.off_d);
+    sx = reinterpret_cast<T*>(smem_raw + L.off_x);
+    sw = reinterpret_cast<T*>(smem_raw + L.off_w);
+    bar = reinterpret_cast<uint64_t*>(smem_raw + L.off_bar);
+  }
   const int i0 = (int)((long long)rank * d1 / CS), i1 = (int)((long long)(rank + 1) * d1 / CS);
   const int rs = i1 - i0;  // scalar rows of this rank (<= RS)
   // the cluster's tile: table columns col .. col + F - 1 (aligned), facets c = col - off
@@ -224,8 +262,8 @@ __global__ void __launch_bounds__(K3W_THREADS_MAX) patch_solve_wide_kernel(
     for (int il = 0; il < rs; ++il)
       for (int a = 0; a < 2; ++a) {
         const int k = a * RS + il;
-        mbar_expect_tx(bar + k, (uint32_t)(nu * F * sizeof(T)));
-        tma_load_2d(sD + k * L.sd, &mD, c, (a * d1 + i0 + il) * nu, bar + k);
+        mbar_expect_tx(bar + k, (uint32_t)(nu * F * sizeof(TF)));
+        tma_load_2d(sD + k * sd, &mD, c, (a * d1 + i0 + il) * nu, bar + k);
       }
   }
   // the whole r0 of the F facets, and the thread's own row of r1
@@ -243,9 +281,9 @@ __global__ void __launch_bounds__(K3W_THREADS_MAX) patch_solve_wide_kernel(
   const long long tcol = in ? col0 + lane : off;  // a column of the colour for masked lanes
   const int jx = F * (int)sizeof(T) < 128 ? (slot & 1) : 0;  // two slots a warp: distinct banks
   const T r1v = in ? r1[row * m + c] : T(0);
-  const T* Dr = sD + (a * RS + il) * L.sd + lane;
+  const TF* Dr = sD + (a * RS + il) * sd + lane;
   const T* K10r = K10 + (long long)i * d1 * ld + tcol;
-  const T* Sr = Si + (long long)row * nu * ld + tcol;
+  const TF* Sr = Si + (long long)row * nu * ldf + tcol;
   const T* K01r = K01 + (long long)i * d1 * ld + tcol;
   T v0[K3W_U];  // the first group of the next phase's table row, loaded ahead
   if (act) load_group(v0, K10r, ld, 0, d1);
@@ -263,14 +301,14 @@ __global__ void __launch_bounds__(K3W_THREADS_MAX) patch_solve_wide_kernel(
   // t = r1 - (I2 (x) K10 + Cp) w (into r0: every rank has read r0)
   if (act) {
     v = r1v - cross_dot<T, F>(v0, K10r, ld, Cp, sw + lane, d1, a, row);
-    load_group(v0, Sr, ld, 0, nu);
+    load_group(v0, Sr, ldf, 0, nu);
     push_row(cl, sx, row, lane, F, CS, v);
   }
   cl.sync();
 
   // y1 = Sinv t (into w: every rank has read w)
   if (act) {
-    v = stream_dot(v0, Sr, ld, nu, sx + lane, F);
+    v = stream_dot(v0, Sr, ldf, nu, sx + lane, F);
     load_group(v0, K01r, ld, 0, d1);
     if (in) y1[row * m + c] = v;
     push_row(cl, sw, row, lane, F, CS, v);
@@ -291,13 +329,13 @@ __global__ void __launch_bounds__(K3W_THREADS_MAX) patch_solve_wide_kernel(
   }
 }
 
-// acc = sum_j A[row, j, col] x[j] over an nu x nu table (column stride ld)
-// and a staged vector x ([j][F], the thread's lane): K3W_U loads in flight
-// and eight sums (stream_dot)
-template <typename T>
-__device__ __forceinline__ T table_dot(const T* __restrict__ A, long long ld, int nu, int row,
+// acc = sum_j A[row, j, col] x[j] over an nu x nu table (column stride ld,
+// of T or bfloat16) and a staged vector x ([j][F], the thread's lane):
+// K3W_U loads in flight and eight sums (stream_dot)
+template <typename T, typename TA>
+__device__ __forceinline__ T table_dot(const TA* __restrict__ A, long long ld, int nu, int row,
                                        const T* x, int F) {
-  const T* a = A + (long long)row * nu * ld;
+  const TA* a = A + (long long)row * nu * ld;
   T v[K3W_U];
   load_group(v, a, ld, 0, nu);
   return stream_dot(v, a, ld, nu, x, F);
@@ -328,10 +366,11 @@ __device__ __forceinline__ T cross_dot_dev(const T* __restrict__ K, long long ld
   return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + stream_dot(v, k, ld, d1, x + a * d1 * F, F);
 }
 
-template <typename T>
+template <typename T, typename TF>
 __global__ void __launch_bounds__(PATCH_WIDE_DEV_THREADS) patch_solve_wide_kernel_dev(
-    int d1, const T* __restrict__ Di, const T* __restrict__ Si, const T* __restrict__ K01,
-    const T* __restrict__ K10, long long ld, long long off, const T* __restrict__ Bp,
+    int d1, const TF* __restrict__ Di, const TF* __restrict__ Si, const T* __restrict__ K01,
+    const T* __restrict__ K10, long long ldf, long long ld, long long off,
+    const T* __restrict__ Bp,
     const T* __restrict__ Cp, const T* __restrict__ r0, const T* __restrict__ r1,
     T* __restrict__ y0, T* __restrict__ y1, long long m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -346,8 +385,8 @@ __global__ void __launch_bounds__(PATCH_WIDE_DEV_THREADS) patch_solve_wide_kerne
   const long long c = col - off;
   const bool in = c >= 0 && c < m;
   const long long tcol = in ? col : off;  // a valid column for masked lanes
-  const T* Dc = Di + tcol;
-  const T* Sc = Si + tcol;
+  const TF* Dc = Di + tcol;
+  const TF* Sc = Si + tcol;
   const T* K01c = K01 + tcol;
   const T* K10c = K10 + tcol;
 
@@ -355,7 +394,7 @@ __global__ void __launch_bounds__(PATCH_WIDE_DEV_THREADS) patch_solve_wide_kerne
   __syncthreads();
   // w = Dinv0 r0
   for (int row = slot; row < nu; row += slots)
-    sw[row * F + lane] = table_dot(Dc, ld, nu, row, su + lane, F);
+    sw[row * F + lane] = table_dot(Dc, ldf, nu, row, su + lane, F);
   __syncthreads();
   // t = r1 - (I2 (x) K10 + Cp) w
   for (int row = slot; row < nu; row += slots) {
@@ -365,7 +404,7 @@ __global__ void __launch_bounds__(PATCH_WIDE_DEV_THREADS) patch_solve_wide_kerne
   __syncthreads();
   // y1 = Sinv t (kept in w)
   for (int row = slot; row < nu; row += slots) {
-    const T v = table_dot(Sc, ld, nu, row, st + lane, F);
+    const T v = table_dot(Sc, ldf, nu, row, st + lane, F);
     sw[row * F + lane] = v;
     if (in) y1[row * m + c] = v;
   }
@@ -376,45 +415,46 @@ __global__ void __launch_bounds__(PATCH_WIDE_DEV_THREADS) patch_solve_wide_kerne
   __syncthreads();
   // y0 = Dinv0 u
   for (int row = slot; row < nu; row += slots) {
-    const T v = table_dot(Dc, ld, nu, row, su + lane, F);
+    const T v = table_dot(Dc, ldf, nu, row, su + lane, F);
     if (in) y0[row * m + c] = v;
   }
 }
 
 // the plan without a cluster (CS = 0): F facets a block of
 // PATCH_WIDE_DEV_THREADS threads, `smem` = the three vectors' bytes
-template <typename T>
+template <typename T, typename TF>
 static int launch_dev(int d1, int F, int threads, long long smem, const void* Di,
-                      const void* Si, const void* K01, const void* K10, long long ld,
-                      long long off, const void* Bp, const void* Cp, const void* r0,
-                      const void* r1, void* y0, void* y1, long long m, cudaStream_t stream) {
+                      const void* Si, const void* K01, const void* K10, long long ldf,
+                      long long ld, long long off, const void* Bp, const void* Cp,
+                      const void* r0, const void* r1, void* y0, void* y1, long long m,
+                      cudaStream_t stream) {
   if ((F != 8 && F != 16 && F != 32) || threads != PATCH_WIDE_DEV_THREADS ||
       smem != 3LL * 2 * d1 * F * (long long)sizeof(T) || smem > PATCH_WIDE_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   static bool attr = false;  // the cap only: a launch takes the bytes it asks for
   if (!attr) {
     const cudaError_t a = cudaFuncSetAttribute(
-        patch_solve_wide_kernel_dev<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        patch_solve_wide_kernel_dev<T, TF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         PATCH_WIDE_SMEM_MAX);
     if (a != cudaSuccess) return (int)a;
     attr = true;
   }
   const long long ntiles = off % F + m;  // columns from the aligned first tile
   const dim3 block(F, PATCH_WIDE_DEV_THREADS / F);
-  patch_solve_wide_kernel_dev<T><<<blocks_for(ntiles, F), block, smem, stream>>>(
-      d1, (const T*)Di, (const T*)Si, (const T*)K01, (const T*)K10, ld, off, (const T*)Bp,
-      (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0, (T*)y1, m);
+  patch_solve_wide_kernel_dev<T, TF><<<blocks_for(ntiles, F), block, smem, stream>>>(
+      d1, (const TF*)Di, (const TF*)Si, (const T*)K01, (const T*)K10, ldf, ld, off,
+      (const T*)Bp, (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0, (T*)y1, m);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TF>
 static int launch(int d1, int F, int CS, int threads, long long smem, const void* Di,
-                  const void* Si, const void* K01, const void* K10, long long ld, long long off,
-                  const void* Bp, const void* Cp, const void* r0, const void* r1, void* y0,
-                  void* y1, long long m, cudaStream_t stream) {
+                  const void* Si, const void* K01, const void* K10, long long ldf, long long ld,
+                  long long off, const void* Bp, const void* Cp, const void* r0, const void* r1,
+                  void* y0, void* y1, long long m, cudaStream_t stream) {
   const int nu = 2 * d1;
   const int RS = (d1 + CS - 1) / CS;
-  const PatchWideLayout L = patch_wide_layout(d1, F, RS, (int)sizeof(T));
+  const PatchWideLayout L = patch_wide_layout(d1, F, RS, (int)sizeof(T), (int)sizeof(TF));
   if (smem != L.bytes || smem > PATCH_WIDE_SMEM_MAX || threads != 2 * RS * F ||
       threads > K3W_THREADS_MAX || nu > 256 || F > 256 ||
       (F * (int)sizeof(T) != 64 && F * (int)sizeof(T) != 128) ||
@@ -423,22 +463,21 @@ static int launch(int d1, int F, int CS, int threads, long long smem, const void
   const long long ncols = off + m;
   CUtensorMap mD;
   if (((uintptr_t)Di | (uintptr_t)Si | (uintptr_t)K01 | (uintptr_t)K10) % 16 ||
-      (ld * (long long)sizeof(T)) % 16)
+      (ld * (long long)sizeof(T)) % 16 || (ldf * (long long)sizeof(TF)) % 16)
     return (int)cudaErrorMisalignedAddress;
-  const int es = (int)sizeof(T);
-  const int e = encode_table_map(&mD, Di, es, (long long)nu * nu, ld, ncols, F, nu);
+  const int e = encode_table_map(&mD, Di, (int)sizeof(TF), (long long)nu * nu, ldf, ncols, F, nu);
   if (e) return e;
-  void (*kernel)(const CUtensorMap, const T*, const T*, const T*, long long, int, int,
-                 long long, const T*, const T*, const T*, const T*, T*, T*, long long) =
-      F * (int)sizeof(T) == 64 ? patch_solve_wide_kernel<T, 64 / sizeof(T)>
-                               : patch_solve_wide_kernel<T, 128 / sizeof(T)>;
+  void (*kernel)(const CUtensorMap, const TF*, const T*, const T*, long long, long long, int,
+                 int, long long, const T*, const T*, const T*, const T*, T*, T*, long long) =
+      F * (int)sizeof(T) == 64 ? patch_solve_wide_kernel<T, TF, 64 / sizeof(T)>
+                               : patch_solve_wide_kernel<T, TF, 128 / sizeof(T)>;
   static bool attr = false;  // the cap only: a launch takes the bytes it asks for
   if (!attr) {
-    cudaError_t a = cudaFuncSetAttribute(patch_solve_wide_kernel<T, 64 / sizeof(T)>,
+    cudaError_t a = cudaFuncSetAttribute(patch_solve_wide_kernel<T, TF, 64 / sizeof(T)>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          PATCH_WIDE_SMEM_MAX);
     if (a == cudaSuccess)
-      a = cudaFuncSetAttribute(patch_solve_wide_kernel<T, 128 / sizeof(T)>,
+      a = cudaFuncSetAttribute(patch_solve_wide_kernel<T, TF, 128 / sizeof(T)>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, PATCH_WIDE_SMEM_MAX);
     if (a != cudaSuccess) return (int)a;
     attr = true;
@@ -457,9 +496,8 @@ static int launch(int d1, int F, int CS, int threads, long long smem, const void
   cfg.attrs = at;
   cfg.numAttrs = 1;
   const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, kernel, mD, (const T*)Si, (const T*)K01, (const T*)K10, ld, d1, RS, off,
-      (const T*)Bp,
-      (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0, (T*)y1, m);
+      &cfg, kernel, mD, (const TF*)Si, (const T*)K01, (const T*)K10, ldf, ld, d1, RS, off,
+      (const T*)Bp, (const T*)Cp, (const T*)r0, (const T*)r1, (T*)y0, (T*)y1, m);
   return le != cudaSuccess ? (int)le : (int)cudaGetLastError();
 }
 
@@ -484,16 +522,40 @@ IEHDG_EXPORT int iehdg_patch_solve_wide(int device, int dtype, int d1, int F, in
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   if (CS == 0 && dtype == 0)
-    return launch_dev<float>(d1, F, threads, smem, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1,
-                             y0, y1, m, st);
+    return launch_dev<float, float>(d1, F, threads, smem, Di, Si, K01, K10, ld, ld, off, Bp, Cp,
+                                    r0, r1, y0, y1, m, st);
   if (CS == 0 && dtype == 1)
-    return launch_dev<double>(d1, F, threads, smem, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1,
-                              y0, y1, m, st);
+    return launch_dev<double, double>(d1, F, threads, smem, Di, Si, K01, K10, ld, ld, off, Bp,
+                                      Cp, r0, r1, y0, y1, m, st);
   if (dtype == 0)
-    return launch<float>(d1, F, CS, threads, smem, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1,
-                         y0, y1, m, st);
+    return launch<float, float>(d1, F, CS, threads, smem, Di, Si, K01, K10, ld, ld, off, Bp, Cp,
+                                r0, r1, y0, y1, m, st);
   if (dtype == 1)
-    return launch<double>(d1, F, CS, threads, smem, Di, Si, K01, K10, ld, off, Bp, Cp, r0, r1,
-                          y0, y1, m, st);
+    return launch<double, double>(d1, F, CS, threads, smem, Di, Si, K01, K10, ld, ld, off, Bp,
+                                  Cp, r0, r1, y0, y1, m, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// dtype 2 only (float32, bfloat16 factors): Di/Si bfloat16 with column
+// stride ldf, K01/K10 float32 with ld, the plan's bytes counting the staged
+// rows of Dinv0 in bfloat16; every other operand as
+// iehdg_patch_solve_wide's.
+IEHDG_EXPORT int iehdg_patch_solve_wide_bf16(int device, int dtype, int d1, int F, int CS,
+                                             int threads, long long smem, const void* Di,
+                                             const void* Si, const void* K01, const void* K10,
+                                             long long ldf, long long ld, long long off,
+                                             const void* Bp, const void* Cp, const void* r0,
+                                             const void* r1, void* y0, void* y1, long long m,
+                                             void* stream) {
+  if (dtype != 2 || d1 < 1 || m < 1 || F < 1 || CS < 0 || CS > PATCH_WIDE_CLUSTER_MAX ||
+      CS > d1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (CS == 0)
+    return launch_dev<float, __nv_bfloat16>(d1, F, threads, smem, Di, Si, K01, K10, ldf, ld,
+                                            off, Bp, Cp, r0, r1, y0, y1, m, st);
+  return launch<float, __nv_bfloat16>(d1, F, CS, threads, smem, Di, Si, K01, K10, ldf, ld, off,
+                                      Bp, Cp, r0, r1, y0, y1, m, st);
 }

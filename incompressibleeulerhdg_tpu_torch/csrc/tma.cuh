@@ -1,5 +1,6 @@
 // Tensor Memory Accelerator (TMA) helpers for the batch-last tables of the
-// patch solve (K3) and the cross pair (K2), sm_90a.
+// patch solve (K3) and the cross pair (K2), sm_90a.  Tables are float32,
+// float64, or (the patch factors under IEHDG_PC_BF16=1) bfloat16.
 //
 // A table (n, n, ldt) with entry (i, j) of column c at (i * n + j) * ldt + c
 // is a 2-D tensor of rows = n * n rows and ldt-strided columns.  A block
@@ -23,6 +24,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -43,6 +45,26 @@ struct Vec<double> {
   using type = double2;
   static constexpr int n = 2;
 };
+
+// a table entry as the working type (bfloat16 factors read as float: exact)
+__device__ __forceinline__ float tab_val(float v) { return v; }
+__device__ __forceinline__ double tab_val(double v) { return v; }
+__device__ __forceinline__ float tab_val(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Vec<T>::n consecutive table entries (a thread's facets of a tile row) as
+// the working vector: 16 bytes of float32 or float64, 8 of bfloat16
+__device__ __forceinline__ float4 tab_vec(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ double2 tab_vec(const double* p) {
+  return *reinterpret_cast<const double2*>(p);
+}
+__device__ __forceinline__ float4 tab_vec(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 // rows per box and boxes per table for a tile of TC columns of `rows` rows
 struct TableBox {
@@ -154,8 +176,11 @@ static inline int encode_table_map(CUtensorMap* out, const void* ptr, int elem, 
   const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
+  const CUtensorMapDataType type = elem == 2   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT64;
   const CUresult r = cuTensorMapEncodeTiled(
-      out, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 2,
+      out, type, 2,
       const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

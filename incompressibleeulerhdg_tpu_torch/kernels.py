@@ -116,11 +116,25 @@ KERNELS = {
         [_I, _I, _I, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "incompressibleeulerhdg_tpu/linalg/smallinv.py:89 gauss_jordan_inv_bl",
     ),
+    # K3 and K3w on bfloat16 patch factors (IEHDG_PC_BF16=1): Dinv0 and Sinv
+    # in bfloat16 with their own column stride, every other operand float32
+    "patch_solve_bf16": (
+        "iehdg_patch_solve_bf16",
+        [_I, _I, _I, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P],
+        "incompressibleeulerhdg_tpu/linalg/preconditioners.py:1199 _patch_pallas",
+    ),
+    "patch_solve_wide_bf16": (
+        "iehdg_patch_solve_wide_bf16",
+        [_I, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _L,
+         _P],
+        "incompressibleeulerhdg_tpu/linalg/preconditioners.py:1199 _patch_pallas",
+    ),
 }
 
 # kernel -> its source's name, where that differs from the kernel's
 SOURCES = {"fact_apply_wide": "wide_apply", "cross_pair_wide": "wide_apply",
-           "gauss_jordan_blocked": "gauss_jordan_wide"}
+           "gauss_jordan_blocked": "gauss_jordan_wide", "patch_solve_bf16": "patch_solve",
+           "patch_solve_wide_bf16": "patch_solve_wide"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -276,8 +290,15 @@ def launch(name, *args):
     LAUNCHES[name] += 1
 
 
-def dtype_code(dtype):
-    """C-interface scalar code of a torch dtype (raises on other types)."""
+def dtype_code(dtype, factors=None):
+    """C-interface scalar code of a torch dtype: 0 float32, 1 float64, and 2
+    for float32 with ``factors`` (the patch factors' dtype) bfloat16.
+    Raises on every other type or mix."""
+    if factors is not None and factors != dtype:
+        if dtype == torch.float32 and factors == torch.bfloat16:
+            return 2
+        raise TypeError(f"CUDA kernels take patch factors of their own dtype, or bfloat16 "
+                        f"factors with float32, not {factors} with {dtype}")
     if dtype == torch.float32:
         return 0
     if dtype == torch.float64:
@@ -285,21 +306,26 @@ def dtype_code(dtype):
     raise TypeError(f"CUDA kernels take float32 or float64, not {dtype}")
 
 
-def check_cuda(name, *tensors, tables=()):
+def check_cuda(name, *tensors, tables=(), factors=()):
     """Validate tensors handed to a kernel: one CUDA device, one dtype,
-    ``tensors`` contiguous (``tables`` are checked by :func:`table_ld`).
-    Returns (device index, dtype code)."""
+    ``tensors`` contiguous (``tables`` are checked by :func:`table_ld`);
+    ``factors`` (the patch solve's Dinv0 and Sinv, also checked by
+    :func:`table_ld`) share one dtype, which is the others' or, with
+    float32, bfloat16 (:func:`dtype_code`).  Returns (device index, dtype
+    code)."""
     dev = tensors[0].device
     dtype = tensors[0].dtype
-    for t in (*tensors, *tables):
+    fdtype = factors[0].dtype if factors else dtype
+    for t in (*tensors, *tables, *factors):
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must lie on one CUDA device")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
+        want = fdtype if any(t is f for f in factors) else dtype
+        if t.dtype != want:
+            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {want}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    return dev.index, dtype_code(dtype)
+    return dev.index, dtype_code(dtype, fdtype)
 
 
 TMA_ALIGN = 16  # bytes: TMA's base-address and row-stride alignment

@@ -44,7 +44,7 @@ launches K2c (csrc/cross_pair_cluster.cu: persistent thread-block
 clusters, each rank streaming its rows of the tables, planned by
 :func:`cross_pair_plan`), as :data:`CROSS_PAIR_MEASURED` records from a
 one-process A/B of K2, K2w and K2c, and so does k = 8 .. 11 (d1 = 55 ..
-91, K2c against K2w); any other width launches the
+91, K2c against K2w) and k = 12 in float32; any other width launches the
 runtime-width counterparts K1w, K2w (csrc/wide_apply.cu) and K3w
 (csrc/patch_solve_wide.cu, from d1 = 21: a thread-block cluster a facet
 tile up to d1 = 80, one thread block a tile past it (measured faster at
@@ -54,6 +54,16 @@ K2, K3 and K3w read their per-facet tables with TMA and K2c with
 16-byte loads, which need 16-byte rows: the operator's facet tables are
 allocated with a padded column stride (:func:`pad_table`; the
 plain versions and K1w, K2w read the same views).
+
+``pc_dtype`` (``IEHDG_PC_BF16=1`` on the float32 projection path, read by
+timesteppers/hdg_imex.py) stores the patch factors ``Dinv0`` and ``Sinv``
+in bfloat16, inverted in the working dtype and then cast, as the JAX
+package's ``store`` does (preconditioners.py:481); every other table stays
+in the working dtype.  The plain versions upcast a factor slice at use
+(exact, as jnp's bfloat16 x float32 promotion), and K3 and K3w launch
+their bfloat16-factor variants (``patch_solve_bf16``,
+``patch_solve_wide_bf16``: the factors read as bfloat16, summed in
+float32).
 """
 
 import os
@@ -120,18 +130,28 @@ PATCH_D1 = (3, 6, 10, 15)  # k = 0 .. 3: K3's; K3w takes every other width
 SMEM_MAX = 232448  # bytes of shared memory a thread block may use (H100)
 PATCH_WIDE_ROW_BYTES = (64, 128)  # K3w: bytes of a table row a cluster reads
 PATCH_WIDE_CLUSTER_MAX = 8  # the portable cluster size
+# the widest d1 of a K3w cluster plan: where float32 and float64 plans end;
+# bfloat16 factors would fit clusters past it, not measured against the
+# plan without a cluster there
+PATCH_WIDE_CLUSTER_D1_MAX = 80
 PATCH_WIDE_THREADS_MAX = 512  # csrc/patch_solve_wide.cu K3W_THREADS_MAX
 PATCH_WIDE_DEV_FACETS = (32, 16, 8)  # K3w past every cluster plan: facets a thread block
 PATCH_WIDE_DEV_THREADS = 256  # csrc/patch_solve_wide.cu PATCH_WIDE_DEV_THREADS
 # K3w's fastest (F, CS) by device time on one 128^2 colour, from
 # tools/ab_patch.py --sweep (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md
-# section 6); other widths take the rule in patch_wide_plan
+# section 6), keyed by the patch factors' dtype (bfloat16: float32 vectors,
+# --sweep --bf16; CS = 0 the plan without a cluster); other widths take
+# the rule in patch_wide_plan
 PATCH_WIDE_MEASURED = {
     (21, torch.float32): (32, 3), (21, torch.float64): (16, 3),
     (28, torch.float32): (32, 4), (36, torch.float32): (16, 4),
     (45, torch.float32): (16, 5), (55, torch.float32): (32, 8),
     (28, torch.float64): (16, 4), (36, torch.float64): (16, 4),
     (45, torch.float64): (16, 5), (55, torch.float64): (16, 8),
+    (21, torch.bfloat16): (32, 7), (28, torch.bfloat16): (32, 7),
+    (36, torch.bfloat16): (32, 8), (45, torch.bfloat16): (32, 6),
+    (55, torch.bfloat16): (16, 5), (66, torch.bfloat16): (16, 6),
+    (78, torch.bfloat16): (32, 0),
 }
 CROSS_CLUSTER_ROW_BYTES = (64, 128, 256)  # K2c: bytes of a table row a tile reads
 CROSS_CLUSTER_MAX = 8  # csrc/cross_pair_cluster.cu CROSS_CLUSTER_MAX
@@ -156,19 +176,25 @@ CROSS_CLUSTER_MEASURED = {
 # instantiated (CROSS_D1), else K2w
 CROSS_PAIR_MEASURED = {(d1, dtype): "cross_pair_cluster" for d1 in (21, 28, 36, 45, 55, 66, 78, 91)
                        for dtype in (torch.float32, torch.float64)}
+# k = 12 in float32 (tools/ab_cross.py --widths 105,120); K2w keeps float64
+# there and d1 = 120, where the two tied within 1% in float32
+CROSS_PAIR_MEASURED[105, torch.float32] = "cross_pair_cluster"
 
 
-def width_kernels(d1, dtype=torch.float32):
+def width_kernels(d1, dtype=torch.float32, factors=None):
     """Names of the kernels that K1, K2, K3's wrappers launch at width d1
     and ``dtype``: ``fact_apply`` at its instantiated widths
     (:data:`CUDA_D1`), else ``fact_apply_wide``; the cross pair's kernel
     of :data:`CROSS_PAIR_MEASURED`, else ``cross_pair`` at its own widths
     (:data:`CROSS_D1`), else ``cross_pair_wide``; ``patch_solve`` at its
-    own (:data:`PATCH_D1`), else ``patch_solve_wide``."""
+    own (:data:`PATCH_D1`), else ``patch_solve_wide``, each with the suffix
+    ``_bf16`` where the patch factors' dtype ``factors`` is bfloat16."""
     cross = CROSS_PAIR_MEASURED.get((d1, dtype)) or \
         ("cross_pair" if d1 in CROSS_D1 else "cross_pair_wide")
-    return ("fact_apply" if d1 in CUDA_D1 else "fact_apply_wide", cross,
-            "patch_solve" if d1 in PATCH_D1 else "patch_solve_wide")
+    patch = "patch_solve" if d1 in PATCH_D1 else "patch_solve_wide"
+    if factors == torch.bfloat16:
+        patch += "_bf16"
+    return ("fact_apply" if d1 in CUDA_D1 else "fact_apply_wide", cross, patch)
 
 
 def _wide_tables(*tables):
@@ -184,17 +210,22 @@ def _wide_tables(*tables):
     return tables, tables[0].shape[2]
 
 
-def patch_wide_smem(d1, F, CS, size):
+def patch_wide_smem(d1, F, CS, size, tsize=None):
     """Shared bytes of a K3w thread block (csrc/patch_solve_wide.cu
     ``patch_wide_layout``): the rank's RS = ceil(d1 / CS) scalar rows of
-    Dinv0 (2 RS slots of nu table rows x F facets), two vectors (nu x F),
-    each 128-byte aligned, and an mbarrier a slot."""
-    nu, rs, per = 2 * d1, -(-d1 // CS), 128 // size
-    return (2 * rs + 2) * (-(-nu * F // per) * per) * size + 2 * rs * 8
+    Dinv0 (2 RS slots of nu table rows x F facets, of ``tsize`` bytes an
+    entry, default ``size``), two vectors (nu x F, ``size`` bytes an
+    entry), each 128-byte aligned, and an mbarrier a slot."""
+    tsize = tsize or size
+    nu, rs = 2 * d1, -(-d1 // CS)
+    region = lambda s: -(-nu * F * s // 128) * 128
+    return 2 * rs * region(tsize) + 2 * region(size) + 2 * rs * 8
 
 
-def patch_wide_plan(d1, dtype, F=None, CS=None):
-    """K3w's launch plan at width d1.  A cluster plan (``path`` "cluster"):
+def patch_wide_plan(d1, dtype, F=None, CS=None, factors=None):
+    """K3w's launch plan at width d1, vectors of ``dtype`` and patch factors
+    of ``factors`` (default ``dtype``; bfloat16 with float32 halves the
+    staged rows of Dinv0).  A cluster plan (``path`` "cluster"):
     F facets (table columns) a cluster of CS thread blocks, rank r owning
     the scalar rows r d1 / CS .. (r + 1) d1 / CS - 1 (both components),
     ``RS`` = ceil(d1 / CS) the most a rank holds, ``threads`` = 2 RS F (one
@@ -202,11 +233,12 @@ def patch_wide_plan(d1, dtype, F=None, CS=None):
     F x the element size is one of :data:`PATCH_WIDE_ROW_BYTES`; a cluster
     plan needs nu <= 256 (the rows of a TMA box),
     :data:`PATCH_WIDE_THREADS_MAX` threads and 232,448 shared bytes at
-    most.  The default is the measured fastest (:data:`PATCH_WIDE_MEASURED`)
-    where there is one, else the most facets x rows a thread block (F RS)
-    within half the shared memory, then the widest table rows (over the
-    whole where nothing fits half).  Where no cluster plan fits (from d1 =
-    81, float32 and float64 alike: k = 11 on) the plan is ``path``
+    most, and d1 <= :data:`PATCH_WIDE_CLUSTER_D1_MAX`.  The default is the
+    measured fastest (:data:`PATCH_WIDE_MEASURED`, keyed by the factors'
+    dtype) where there is one, else the most facets x rows a thread block
+    (F RS) within half the shared memory, then the widest table rows (over
+    the whole where nothing fits half).  Where no cluster plan fits (from
+    d1 = 81, float32 and float64 alike: k = 11 on) the plan is ``path``
     "device", ``CS`` = 0, ``RS`` = d1: F of :data:`PATCH_WIDE_DEV_FACETS`
     facets a thread block of :data:`PATCH_WIDE_DEV_THREADS` threads, the
     widest whose three vectors (3 nu F elements) fit its shared memory,
@@ -214,22 +246,27 @@ def patch_wide_plan(d1, dtype, F=None, CS=None):
     memory in phases 1 and 5.  ``F`` and ``CS`` (0
     for the device plan) fix a plan.  Raises NotImplementedError past every
     plan (float64 from d1 = 606, float32 from 1,211)."""
+    factors = factors or dtype
+    if F is None and CS is None and (d1, factors) in PATCH_WIDE_MEASURED:
+        F, CS = PATCH_WIDE_MEASURED[d1, factors]
+        return patch_wide_plan(d1, dtype, F, CS, factors)
     size = torch.empty((), dtype=dtype).element_size()
+    tsize = torch.empty((), dtype=factors).element_size()
     nu = 2 * d1
     plans = []
-    clusters = () if CS == 0 else (CS,) if CS else range(1, PATCH_WIDE_CLUSTER_MAX + 1)
+    clusters = () if CS == 0 or d1 > PATCH_WIDE_CLUSTER_D1_MAX else \
+        (CS,) if CS else range(1, PATCH_WIDE_CLUSTER_MAX + 1)
     for f in (F,) if F else (b // size for b in PATCH_WIDE_ROW_BYTES):
         for cs in clusters:
             rs = -(-d1 // cs)
-            smem = patch_wide_smem(d1, f, cs, size)
+            smem = patch_wide_smem(d1, f, cs, size, tsize)
             if f * size not in PATCH_WIDE_ROW_BYTES or cs > min(d1, PATCH_WIDE_CLUSTER_MAX) or \
                     nu > 256 or 2 * rs * f > PATCH_WIDE_THREADS_MAX or smem > SMEM_MAX:
                 continue
             plans.append({"path": "cluster", "F": f, "CS": cs, "RS": rs, "threads": 2 * rs * f,
                           "smem_bytes": smem})
     if plans:
-        best = [p for p in plans if (p["F"], p["CS"]) == PATCH_WIDE_MEASURED.get((d1, dtype))]
-        return best[0] if best else min(plans, key=lambda p: (
+        return min(plans, key=lambda p: (
             p["smem_bytes"] > SMEM_MAX // 2, -p["F"] * p["RS"], -p["F"], p["CS"]))
     if CS == 0 or (CS is None and F is None):
         for f in (F,) if F else PATCH_WIDE_DEV_FACETS:
@@ -329,8 +366,10 @@ def tile_facets(kernel, d1, dtype):
 
 
 def _bm(A, x):
-    """Batch-last block matvec: (n, n, m) x (n, m) -> (n, m)."""
-    return torch.einsum("ijn,jn->in", A, x)
+    """Batch-last block matvec: (n, n, m) x (n, m) -> (n, m).  A bfloat16
+    table (a patch factor) is upcast to x's dtype first: exact, as jnp's
+    bfloat16 x float32 promotion."""
+    return torch.einsum("ijn,jn->in", A.to(x.dtype), x)
 
 
 def _bmm(A, B):
@@ -452,7 +491,8 @@ def cross_pair(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
 
 def patch_solve_plain(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
     """Plain version of K3 (the JAX factored-branch composition,
-    preconditioners.py:1374-1379)."""
+    preconditioners.py:1374-1379); bfloat16 factors are upcast slice by
+    slice (:func:`_bm`)."""
     m = r0.shape[1]
     seg = (0, m)
     Di = Dinv0[:, :, off : off + m]
@@ -471,7 +511,9 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
         y0 = Dinv0 (r0 - (I2 (x) K01 + Bp) y1)
 
     On the card the four tables must have :func:`pad_table`'s layout (K3
-    and K3w read them with TMA).
+    and K3w read them with TMA).  Factors (``Dinv0``, ``Sinv``) in
+    bfloat16 with float32 vectors launch the ``_bf16`` variant (their own
+    column stride); any other mix of dtypes raises TypeError.
     """
     if r0.device.type == "cpu":
         return patch_solve_plain(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off)
@@ -485,19 +527,22 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
             Bp_k.shape != (nu, nu) or Cp_k.shape != (nu, nu) or \
             r1.shape != r0.shape or off + m > nf:
         raise ValueError(f"patch_solve: shapes Dinv0 {tuple(Dinv0.shape)} K {tuple(K01.shape)} r {tuple(r0.shape)}")
-    name = width_kernels(d1, r0.dtype)[2]
-    dev, code = kernels.check_cuda(name, *ts, tables=(Dinv0, Sinv, K01, K10))
-    ld = kernels.table_ld(name, Dinv0, Sinv, K01, K10)
+    name = width_kernels(d1, r0.dtype, Dinv0.dtype)[2]
+    dev, code = kernels.check_cuda(name, *ts, tables=(K01, K10), factors=(Dinv0, Sinv))
+    if code == 2:  # bfloat16 factors: a column stride of their own
+        ld = (kernels.table_ld(name, Dinv0, Sinv), kernels.table_ld(name, K01, K10))
+    else:
+        ld = (kernels.table_ld(name, Dinv0, Sinv, K01, K10),)
     plan = ()
-    if name == "patch_solve_wide":
-        p = patch_wide_plan(d1, r0.dtype)
+    if name.startswith("patch_solve_wide"):
+        p = patch_wide_plan(d1, r0.dtype, factors=Dinv0.dtype)
         plan = (p["F"], p["CS"], p["threads"], p["smem_bytes"])
     y0 = torch.empty_like(r0)
     y1 = torch.empty_like(r0)
     if m == 0:
         return y0, y1
     kernels.launch(name, dev, code, d1, *plan, Dinv0.data_ptr(), Sinv.data_ptr(),
-                   K01.data_ptr(), K10.data_ptr(), ld, off, Bp_k.data_ptr(),
+                   K01.data_ptr(), K10.data_ptr(), *ld, off, Bp_k.data_ptr(),
                    Cp_k.data_ptr(), r0.data_ptr(), r1.data_ptr(), y0.data_ptr(),
                    y1.data_ptr(), m, kernels.stream_ptr(r0))
     return y0, y1
@@ -508,7 +553,8 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
 # ----------------------------------------------------------------------
 
 
-def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True, reuse_factors=None):
+def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True, pc_dtype=None,
+                             reuse_factors=None):
     """Assemble the blocks and the Schwarz factors of one stage.
 
     The 2x2 cell patch [[D_plus, Bx], [Cx, D_minus]] of every interior facet
@@ -519,6 +565,11 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True, reuse_factor
     disk) gets dense (nu, nu, n) tables, the JAX package's branch at
     preconditioners.py:352-357, 429-448 and 602-625.  ``c`` = a_ii * dt is
     a float.
+
+    ``pc_dtype``: the dtype the patch factors ``Dinv0`` and ``Sinv`` are
+    stored in (``IEHDG_PC_BF16=1``: bfloat16), default the working dtype;
+    they are inverted in the working dtype and then cast.  The own-cell
+    ``Dinv`` and the matvec tables keep the working dtype.
 
     ``reuse_factors``: an earlier operator whose patch factors (``Dinv``,
     ``Dinv0``, ``Sinv``) this one takes instead of inverting its own (the
@@ -575,8 +626,9 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True, reuse_factor
     s10 = (-c) * (0.5 * snq + upw * torch.abs(snq)) * wf * msk[None, :]
     K01s = torch.einsum("fqi,fqj,qf->ijf", U0, U1, s01).contiguous()
     K10s = torch.einsum("fqi,fqj,qf->ijf", U1, U0, s10).contiguous()
+    store = pc_dtype or dtype
     if factored:
-        return _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha, reuse_factors)
+        return _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha, store, reuse_factors)
 
     # dense tables: D = I2 (x) Sown + sum_t Pt (x) NNt, Bx = I2 (x) Ks01 +
     # penalty (n (x) n) (x) K01p, Cx likewise
@@ -594,7 +646,7 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True, reuse_factor
     Dinv_bl = gauss_jordan_inv_bl(D_bl)
     if geom.shift is not None:  # IEHDG_FACT=0 on a structured mesh
         Sinv, Dinv0 = _schur_structured(
-            geom, D_bl, Dinv_bl, lambda k, b0, b1: (Bx[:, :, b0:b1], Cx[:, :, b0:b1]))
+            geom, D_bl, Dinv_bl, lambda k, b0, b1: (Bx[:, :, b0:b1], Cx[:, :, b0:b1]), store)
         return TentativeOperator(Dinv=Dinv_bl, Sinv=Sinv, Dinv0=Dinv0, D=D_bl, Bx=Bx, Cx=Cx)
     # patch Schur factors of every facet; identity blocks on the boundary
     if geom.part is None:
@@ -605,14 +657,14 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True, reuse_factor
     Sc = D1 - _bmm(Cx, _bmm(Dinv0, Bx))
     eye = torch.eye(nu, dtype=dtype, device=dev)[:, :, None]
     Sc = torch.where(msk[None, None, :] > 0, Sc, eye)
-    return TentativeOperator(Dinv=Dinv_bl, Sinv=gauss_jordan_inv_bl(Sc), Dinv0=Dinv0,
-                             D=D_bl, Bx=Bx, Cx=Cx)
+    return TentativeOperator(Dinv=Dinv_bl, Sinv=gauss_jordan_inv_bl(Sc).to(store),
+                             Dinv0=Dinv0.to(store), D=D_bl, Bx=Bx, Cx=Cx)
 
 
-def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha, reuse_factors=None):
+def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha, store, reuse_factors=None):
     """The factored tables of a uniform structured mesh and their Schwarz
-    factors, colour by colour (K4 on each colour's Schur blocks), or the
-    factors of ``reuse_factors``."""
+    factors, colour by colour (K4 on each colour's Schur blocks) and stored
+    in ``store``, or the factors of ``reuse_factors``."""
     d1 = geom.d1
     nu = 2 * d1
     dtype, dev = S_own.dtype, S_own.device
@@ -655,17 +707,18 @@ def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha, reuse_factors=None):
         return (_kron2(K01s[:, :, b0:b1]) + Bp[k][:, :, None],
                 _kron2(K10s[:, :, b0:b1]) + Cp[k][:, :, None])
 
-    Sinv, Dinv0 = _schur_structured(geom, D_bl, Dinv_bl, cross)
+    Sinv, Dinv0 = _schur_structured(geom, D_bl, Dinv_bl, cross, store)
     return TentativeOperator(Dinv=Dinv_bl, Sinv=Sinv, Dinv0=Dinv0, **tables)
 
 
-def _schur_structured(geom, D_bl, Dinv_bl, cross):
+def _schur_structured(geom, D_bl, Dinv_bl, cross, store):
     """The patch factors of a structured mesh, colour by colour on the
     rectangle layout (preconditioners.py:491-611): each colour's plus-cell
     inverses Dinv0 and Schur inverses Sinv of S = D_minus - Cx Dinv0 Bx
     (K4), with ``cross(k, b0, b1)`` the colour's dense (Bx, Cx) blocks; on
     the boundary tail, identity Schur blocks and the plus cells' inverses.
-    Returns padded (Sinv, Dinv0) tables (:func:`pad_table`)."""
+    Returns padded (Sinv, Dinv0) tables (:func:`pad_table`) of dtype
+    ``store``, each part cast after its inversion."""
     nu = D_bl.shape[0]
     dtype, dev = D_bl.dtype, D_bl.device
     Dup = st.grid_halves(geom, D_bl)[1]
@@ -676,7 +729,7 @@ def _schur_structured(geom, D_bl, Dinv_bl, cross):
         b0, b1 = geom.fcol_bounds[k], geom.fcol_bounds[k + 1]
         D1 = st.rect_flat(st.roll2(geom, Dup, off), rect)
         Dinv0_k = st.rect_flat(Dinv_lo, rect)
-        Dinv0_parts.append(Dinv0_k)
+        Dinv0_parts.append(Dinv0_k.to(store))
         Bx_k, Cx_k = cross(k, b0, b1)
         Sc = D1 - _bmm(Cx_k, _bmm(Dinv0_k, Bx_k))
         if geom.fint is not None:
@@ -685,12 +738,12 @@ def _schur_structured(geom, D_bl, Dinv_bl, cross):
             # masks their corrections)
             eye = torch.eye(nu, dtype=dtype, device=dev)[:, :, None]
             Sc = torch.where(geom.fint[b0:b1][None, None, :] > 0, Sc, eye)
-        Sinv_parts.append(gauss_jordan_inv_bl(Sc))
+        Sinv_parts.append(gauss_jordan_inv_bl(Sc).to(store))
     nbnd = geom.n_facets - geom.n_int
     if nbnd:
-        eye = torch.eye(nu, dtype=dtype, device=dev)
+        eye = torch.eye(nu, dtype=store, device=dev)
         Sinv_parts.append(eye[:, :, None].expand(nu, nu, nbnd))
-        Dinv0_parts.append(Dinv_bl[:, :, geom.fcells[0, geom.n_int :]])
+        Dinv0_parts.append(Dinv_bl[:, :, geom.fcells[0, geom.n_int :]].to(store))
     return _cat_table(Sinv_parts), _cat_table(Dinv0_parts)
 
 
@@ -910,10 +963,15 @@ def _cross_offcolor(geom, op, k, dz):
     return st.grid_join(geom, acc_lo, acc_up)
 
 
-def _colored_apply_fused_bl(geom, op, vb, symmetric=True):
+def _colored_apply_fused_bl(geom, op, vb, symmetric=True, exact_Az=True):
     """Multiplicative colored sweep (colours forward, then back unless
-    ``symmetric`` is False) returning ``z = M v`` and the exact ``A z`` (one
-    explicit matvec at the end).
+    ``symmetric`` is False) returning ``z = M v`` and ``A z``: the exact
+    one (one explicit matvec at the end), or with ``exact_Az`` False
+    (``IEHDG_TENT_FUSED=2``) the free ``A z = v - r`` of the incremental
+    residual, the last colour's residual update run like the others' and
+    no matvec (on factored tables one K1 and one K2 full-field launch
+    fewer; exact in exact arithmetic, its rounding as the JAX package's,
+    preconditioners.py:1479-1517).
 
     Each colour's pair solves are exact and each cell has at most one facet
     per colour, so the residual after a colour is ``-(off-colour cross)(dz)``
@@ -931,7 +989,7 @@ def _colored_apply_fused_bl(geom, op, vb, symmetric=True):
     for i, k in enumerate(order):
         dz = _patch_color_structured(geom, op, k, r)
         z = dz if z is None else z + dz
-        if i == len(order) - 1:
-            break
+        if exact_Az and i == len(order) - 1:
+            return z, _matvec_bl(geom, op, z)
         r = r * (1.0 - _color_cov(geom, k))[None, :] - _cross_offcolor(geom, op, k, dz)
-    return z, _matvec_bl(geom, op, z)
+    return z, vb - r

@@ -16,6 +16,10 @@ The preconditioner, chosen as the JAX package chooses it (tentative.py:86-139):
   forward only) and K2 once per other colour in each residual update, and
   the matvec runs K1 and K2; on dense tables (``IEHDG_FACT=0``) all of it is
   ``einsum``s.
+- ``IEHDG_TENT_FUSED=2``: the same, but each sweep returns the free
+  ``A M v = v - r`` of its incremental residual (tentative.py:94-103): the
+  last colour's residual update runs like the others' and the matvec goes,
+  one K1 and one K2 full-field launch fewer a sweep application.
 - ``IEHDG_TENT_FUSED=0``, or the unit disk: left-preconditioned GMRES with
   ``sweeps`` colored sweeps, a full matvec between colours (K1 and K2 on
   factored tables) and, from the second sweep on, a residual correction.
@@ -23,9 +27,6 @@ The preconditioner, chosen as the JAX package chooses it (tentative.py:86-139):
   preconditioner (:func:`preconditioners.tentative_patch_apply`: on
   factored tables K3 once per colour and once on the boundary tail, every
   patch from the same residual).
-- ``IEHDG_TENT_FUSED=2`` (the free ``A z = v - r``) is a measured dead end
-  of the JAX package that the port does not carry (ROADMAP, "Do not port"):
-  it raises ValueError.
 
 ``sweeps`` and ``symmetric`` are the stepper's ``IEHDG_TENT_SWEEPS`` and
 ``IEHDG_TENT_SYM`` (timesteppers/hdg_imex.py); the other callers keep one
@@ -39,7 +40,10 @@ sweep of the dense tables (the same patches in the same colour order; the
 fused sweep's incremental residuals are its exact ones) and one explicit
 matvec for ``A M v``: the distributed solve is the single-device solve up
 to the order of the sums, and takes its iterations.  (The JAX package's
-GSPMD run takes the left-preconditioned branch there.)
+GSPMD run takes the left-preconditioned branch there.)  Under
+``IEHDG_TENT_FUSED=2`` that route stays as it is, its ``A M v`` exact:
+the sweep of the dense tables carries no incremental residual whose
+``v - r`` would be free, so mode 2 there is mode 1.
 """
 
 import os
@@ -61,13 +65,8 @@ def tentative_matvec(geom, star, u, c, alpha=1.0, upwind=True):
 
 
 def _fused_mode(fused=None):
-    """``fused`` as a string, or ``IEHDG_TENT_FUSED`` (default "1"); raises
-    on "2", which the port does not carry."""
-    mode = os.environ.get("IEHDG_TENT_FUSED", "1") if fused is None else str(fused)
-    if mode == "2":
-        raise ValueError("IEHDG_TENT_FUSED=2 (the free A z = v - r) is a measured dead end "
-                         "on ROADMAP's 'Do not port' list; use 1 (default) or 0")
-    return mode
+    """``fused`` as a string, or ``IEHDG_TENT_FUSED`` (default "1")."""
+    return os.environ.get("IEHDG_TENT_FUSED", "1") if fused is None else str(fused)
 
 
 def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200, colored=True,
@@ -80,7 +79,8 @@ def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200, col
     :arg colored: the multiplicative colored sweep (else the additive
         facet-patch preconditioner)
     :arg fused: override ``IEHDG_TENT_FUSED`` (0: the left-preconditioned
-        composition, 1: the fused right-preconditioned GMRES)
+        composition, 1: the fused right-preconditioned GMRES, 2: the same
+        with the sweep's free ``A z``)
     """
     shape = rhs.shape
     nu, nc = shape[0] * shape[1], shape[2]
@@ -91,12 +91,13 @@ def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200, col
 
     comm = dist_axis(geom)
     structured = geom.shift is not None or (geom.part is not None and geom.part.structured)
-    if colored and structured and mode == "1":
+    if colored and structured and mode in ("1", "2"):
         def sweep(vb):
             if geom.shift is None:
                 z = _colored_apply_bl(geom, op, vb, symmetric=symmetric)
                 return z, _matvec_bl(geom, op, z)
-            return _colored_apply_fused_bl(geom, op, vb, symmetric=symmetric)
+            return _colored_apply_fused_bl(geom, op, vb, symmetric=symmetric,
+                                           exact_Az=mode == "1")
 
         def opM(v):
             vb = v.reshape(nu, nc)

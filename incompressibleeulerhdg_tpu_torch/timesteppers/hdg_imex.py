@@ -58,11 +58,17 @@ it, so that one environment means one computation in both packages:
   "residual", "sweep", "monolithic", "final", "reconstruct" (each interval
   runs from the end of the previous one, as hdg_imex.py:586-604 does).
 
+- ``IEHDG_PC_BF16=1``: read at every step, in float32 only (ignored in
+  float64, as hdg_imex.py:204-213): each stage build of the projection path
+  stores the patch factors ``Dinv0`` and ``Sinv`` in bfloat16
+  (``build_tentative_operator(pc_dtype=torch.bfloat16)``), on every mesh
+  and every route, and K3/K3w launch their bfloat16-factor variants.
+
 Over ranks (:meth:`distribute`) the JAX package runs its fused step, which
-reads the restart, sweeps, symmetry, fused and factored knobs and ignores
-the lag and the phase timing; so does the port.  ``IEHDG_TENT_FUSED=2``
-and ``IEHDG_PC_BF16=1`` are measured dead ends of the JAX package that the
-port does not carry (ROADMAP, "Do not port"): they raise ValueError.
+reads the restart, sweeps, symmetry, fused, factored and bfloat16 knobs
+and ignores the lag and the phase timing; so does the port.
+``IEHDG_TENT_FUSED=2`` takes the sweep's free ``A z`` wherever the fused
+sweep runs (linalg/tentative.py).
 """
 
 import os
@@ -250,9 +256,8 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         s = self.nstages
         dt = self._dt
         a_impl = self.tableau.a_impl
-        if os.environ.get("IEHDG_PC_BF16") == "1":
-            raise ValueError("IEHDG_PC_BF16=1 (bfloat16 patch factors) is a measured dead end "
-                             "on ROADMAP's 'Do not port' list; unset it")
+        pc_dtype = torch.bfloat16 if self.disc.dtype == torch.float32 and \
+            os.environ.get("IEHDG_PC_BF16") == "1" else None
         lag_pc = os.environ.get("IEHDG_LAG_PC", "0") == "1" and self.dec is None
         mark = self._phase_marker()
         stage_Q, stage_p, stage_lam = list(stage_Q), list(stage_p), list(stage_lam)
@@ -269,7 +274,7 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
                 # (preconditioners.py:211-227, hdg_imex.py:621-626)
                 reuse = op_prev if lag_pc and a_ii == c_prev else None
                 op = build_tentative_operator(geom, star, c, ALPHA_PENALTY, self.upwind,
-                                              reuse_factors=reuse)
+                                              pc_dtype=pc_dtype, reuse_factors=reuse)
             mark("star+build")
             r_i = self._weighted((self._alpha[i], self._beta[i]), torch.stack(stage_Q), b_all)
             mark("residual")

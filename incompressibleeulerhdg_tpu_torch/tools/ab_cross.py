@@ -29,7 +29,14 @@ held to the plain version: one JSON line a plan, the default plan marked.
 d1 = 21, 28, 36; ``chip_smoke.py`` runs both :data:`WIDTHS` and
 :data:`WIDE_WIDTHS`, k = 8 .. 11, where K2w and K2c compete).
 
-Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_cross [--sweep] [--widths W,...]
+With ``--fact`` it also times K1's function at the same widths: the
+kernel the dispatch takes (K1 to d1 = 36, K1w above) on the 128^2 cell
+field (32,768 cells, two penalty segments, as the tentative matvec
+launches it), in float32 and float64, held to ``fact_apply_plain`` and
+timed by ``graph_ms`` (the median of five reads) beside the plain version
+and the bytes bound: one JSON line a width and dtype.
+
+Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_cross [--sweep] [--fact] [--widths W,...]
 """
 
 import ctypes
@@ -171,12 +178,13 @@ def _rel_err(got, ref):
     return max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
 
 
-def compare(k2, widths=WIDTHS, reps=REPS):
+def compare(k2, widths=WIDTHS, reps=REPS, reads=None):
     """K2 (the entry point :func:`load` returns, at d1 <= 36; None where no
     width needs it), K2w and the cluster kernel at each width, dtype and kind: errors against the plain
     version, device ms per launch of each (the median of its reads in
     turns), the plain version's ms (CUDA events, ``plain_ms``),
-    the bytes bound, the fastest kernel and the kernel the dispatch takes.
+    the bytes bound, the fastest kernel and the kernel the dispatch takes;
+    ``reads``: each kernel's reads in turns (default ``in_turns``'s).
     Returns one dict a width, dtype and kind."""
     from ..linalg import preconditioners as P
     from .ab_cross_patch import graph_ms, in_turns, plain_ms
@@ -195,7 +203,8 @@ def compare(k2, widths=WIDTHS, reps=REPS):
                 runs = {n: runner(n, case, k2, plan) for n in here}
                 err = {n: _rel_err(run(), ref) for n, run in runs.items()}
                 err["dispatch"] = _rel_err(P.cross_pair(*case[:7], aoff=case[7]), ref)
-                best, ms = in_turns(runs, lambda run: graph_ms(run, reps))
+                best, ms = in_turns(runs, lambda run: graph_ms(run, reps),
+                                    **({"reads": reads} if reads else {}))
                 plain = plain_ms(lambda: P.cross_pair_plain(*case[:7], aoff=case[7]), PLAIN_REPS)
                 rows.append({"d1": d1, "dtype": str(dtype).replace("torch.", ""), "kind": kind,
                              "m": m, "nseg": nseg, "plain_ms": plain,
@@ -208,6 +217,42 @@ def compare(k2, widths=WIDTHS, reps=REPS):
                              "dispatch": P.width_kernels(d1, dtype)[1], "plan": plan})
                 del case, ref, runs
             del field
+            torch.cuda.empty_cache()
+    return rows
+
+
+def fact_rows(widths, reps=REPS):
+    """K1's function by the dispatch's kernel at each width and dtype on the
+    128^2 cell field: its error against the plain version, device ms a
+    launch (the median of five ``graph_ms`` reads), the plain version's ms
+    and the bytes bound.  Returns one dict a width and dtype."""
+    import statistics
+
+    from ..linalg import preconditioners as P
+    from .ab_cross_patch import graph_ms, plain_ms
+
+    gen = torch.Generator(device="cuda:0").manual_seed(2031)
+    nc, nch = 2 * NX * NX, NX * NX
+    rows = []
+    for dtype in DTYPES:
+        size = torch.empty((), dtype=dtype).element_size()
+        for d1 in widths:
+            nu = 2 * d1
+            rnd = lambda *s: torch.randn(*s, generator=gen, dtype=dtype, device="cuda:0")
+            A, Pc, x = rnd(d1, d1, nc), rnd(2, nu, nu), rnd(nu, nc)
+            bounds = (0, nch, nc)
+            ref = P.fact_apply_plain(A, Pc, bounds, x)
+            got = P.fact_apply(A, Pc, bounds, x)
+            err = float((got - ref).abs().max() / ref.abs().max())
+            ms = statistics.median(graph_ms(lambda: P.fact_apply(A, Pc, bounds, x), reps)
+                                   for _ in range(5))
+            nbytes = size * (d1 * d1 * nc + 2 * nu * nu + 2 * nu * nc)
+            rows.append({"kernel": P.width_kernels(d1, dtype)[0], "d1": d1,
+                         "dtype": str(dtype).replace("torch.", ""), "m": nc, "ms": ms,
+                         "plain_ms": plain_ms(lambda: P.fact_apply_plain(A, Pc, bounds, x),
+                                              PLAIN_REPS),
+                         "bound_ms": nbytes / 3.35e12 * 1e3, "rel_err": err})
+            del A, Pc, x, ref, got
             torch.cuda.empty_cache()
     return rows
 
@@ -270,6 +315,8 @@ def main():
     else:
         k2 = load(start_build()) if set(widths) & set(K2_WIDTHS) else None
         rows = compare(k2, widths)
+    if "--fact" in argv:
+        rows += fact_rows(widths)
     for row in rows:
         print(json.dumps({**row, "card": card}), flush=True)
 

@@ -23,11 +23,16 @@ With ``--sweep`` it times K3w instead under every plan
 float64, on the same colour, through the kernel's own entry point, each
 held to the plain version: one JSON line a plan, the default plan marked.
 
+With ``--sweep --bf16`` the sweep runs K3w's bfloat16-factor variant
+(``patch_solve_wide_bf16``: float32 vectors, Dinv0 and Sinv in bfloat16,
+as ``IEHDG_PC_BF16=1`` builds them) under every plan
+``patch_wide_plan(d1, float32, factors=bfloat16)`` admits, float32 only.
+
 ``--widths 21,28`` restricts either to those widths.  From d1 = 105 in
 float64 the four tables hold only the columns up to the colour's end
 (their full 128^2 width, 49,408 columns, would take 57 GB).
 
-Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_patch [--sweep] [--widths W,...]
+Usage:  python -m incompressibleeulerhdg_tpu_torch.tools.ab_patch [--sweep [--bf16]] [--widths W,...]
 """
 
 import ctypes
@@ -104,10 +109,11 @@ def load(proc):
     return fn
 
 
-def _colour(d1, gen, dtype):
+def _colour(d1, gen, dtype, factors=None):
     """The tables and sides of one 128^2 colour at width d1: tables of the
     mesh's nf facet columns, or of the columns up to the colour's end where
-    those would exceed TABLE_BYTES_MAX."""
+    those would exceed TABLE_BYTES_MAX; with ``factors`` (bfloat16) Dinv0
+    and Sinv cast to it, each with its own padded stride."""
     from ..linalg import preconditioners as P
 
     nu, nf = 2 * d1, 3 * NX * NX + 2 * NX
@@ -117,16 +123,23 @@ def _colour(d1, gen, dtype):
         nf = off + m
     rnd = lambda *s: torch.randn(*s, generator=gen, dtype=dtype, device="cuda:0")
     K01, K10 = P.pad_table(rnd(d1, d1, nf)), P.pad_table(rnd(d1, d1, nf))
-    Di, Si = P.pad_table(rnd(nu, nu, nf)), P.pad_table(rnd(nu, nu, nf))
+    Di, Si = rnd(nu, nu, nf), rnd(nu, nu, nf)
+    if factors is not None:
+        Di, Si = Di.to(factors), Si.to(factors)
+    Di, Si = P.pad_table(Di), P.pad_table(Si)
     return (Di, Si, K01, K10, rnd(nu, nu), rnd(nu, nu), rnd(nu, m), rnd(nu, m), off)
 
 
-def _bound_ms(d1, m, dtype):
+def _bound_ms(d1, m, dtype, factors=None):
+    """Each table and side read once, each output written once (Dinv0 and
+    Sinv at the size of ``factors``), over 3.35 TB/s."""
     nu, size = 2 * d1, torch.empty((), dtype=dtype).element_size()
-    return size * (2 * nu * nu * m + 2 * d1 * d1 * m + 2 * nu * nu + 4 * nu * m) / 3.35e12 * 1e3
+    fsize = torch.empty((), dtype=factors or dtype).element_size()
+    return (fsize * 2 * nu * nu * m + size * (2 * d1 * d1 * m + 2 * nu * nu + 4 * nu * m)) \
+        / 3.35e12 * 1e3
 
 
-def _plans(d1, dtype):
+def _plans(d1, dtype, factors=None):
     """Every plan K3w admits at d1: each cluster plan, then each F of the
     plan without a cluster."""
     from ..linalg import preconditioners as P
@@ -136,12 +149,12 @@ def _plans(d1, dtype):
     for rb in P.PATCH_WIDE_ROW_BYTES:
         for cs in range(1, P.PATCH_WIDE_CLUSTER_MAX + 1):
             try:
-                plans.append(P.patch_wide_plan(d1, dtype, F=rb // size, CS=cs))
+                plans.append(P.patch_wide_plan(d1, dtype, F=rb // size, CS=cs, factors=factors))
             except NotImplementedError:
                 pass
     for f in P.PATCH_WIDE_DEV_FACETS:
         try:
-            plans.append(P.patch_wide_plan(d1, dtype, F=f, CS=0))
+            plans.append(P.patch_wide_plan(d1, dtype, F=f, CS=0, factors=factors))
         except NotImplementedError:
             pass
     return plans
@@ -149,17 +162,21 @@ def _plans(d1, dtype):
 
 def _k3w_runner(args, p):
     """A call of K3w under plan ``p`` on ``args`` (``_colour``'s) through
-    its C entry point: returns (y0, y1)."""
+    its C entry point (its bfloat16-factor variant where Dinv0 is
+    bfloat16): returns (y0, y1)."""
     from .. import kernels
 
     Di, Si, K01, K10, Bk, Ck, r0, r1, off = args
-    code, d1, m = kernels.dtype_code(r0.dtype), K01.shape[0], r0.shape[1]
+    code = kernels.dtype_code(r0.dtype, Di.dtype)
+    d1, m = K01.shape[0], r0.shape[1]
+    name, ld = ("patch_solve_wide_bf16", (Di.stride(1), K01.stride(1))) if code == 2 else \
+        ("patch_solve_wide", (K01.stride(1),))
 
     def run():
         y0, y1 = torch.empty_like(r0), torch.empty_like(r0)
-        kernels.launch("patch_solve_wide", 0, code, d1, p["F"], p["CS"], p["threads"],
+        kernels.launch(name, 0, code, d1, p["F"], p["CS"], p["threads"],
                        p["smem_bytes"], Di.data_ptr(), Si.data_ptr(), K01.data_ptr(),
-                       K10.data_ptr(), K01.stride(1), off, Bk.data_ptr(), Ck.data_ptr(),
+                       K10.data_ptr(), *ld, off, Bk.data_ptr(), Ck.data_ptr(),
                        r0.data_ptr(), r1.data_ptr(), y0.data_ptr(), y1.data_ptr(), m,
                        kernels.stream_ptr(r0))
         return y0, y1
@@ -171,39 +188,41 @@ def _rel_err(got, ref):
     return max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
 
 
-def sweep(widths=SWEEP_WIDTHS, reps=10):
-    """K3w under every admissible plan at each width and dtype: one dict a
-    plan."""
+def sweep(widths=SWEEP_WIDTHS, reps=10, factors=None):
+    """K3w under every admissible plan at each width and dtype (float32
+    alone with bfloat16 ``factors``): one dict a plan."""
     from ..linalg import preconditioners as P
     from .ab_cross_patch import graph_ms
 
     gen = torch.Generator(device="cuda:0").manual_seed(2029)
     rows = []
-    for dtype in DTYPES:
+    for dtype in DTYPES if factors is None else (torch.float32,):
         for d1 in widths:
-            args = _colour(d1, gen, dtype)
+            args = _colour(d1, gen, dtype, factors)
             m = args[6].shape[1]
             ref = P.patch_solve_plain(*args)
-            default = P.patch_wide_plan(d1, dtype)
-            for p in _plans(d1, dtype):
+            default = P.patch_wide_plan(d1, dtype, factors=factors)
+            for p in _plans(d1, dtype, factors):
                 run = _k3w_runner(args, p)
                 err = _rel_err(run(), ref)
                 ms = graph_ms(run, reps)
-                rows.append({"d1": d1, "dtype": str(dtype).replace("torch.", ""), **p,
+                rows.append({"d1": d1, "dtype": str(dtype).replace("torch.", ""),
+                             "factors": str(factors or dtype).replace("torch.", ""), **p,
                              "default": p == default, "ms": ms,
-                             "bound_ms": _bound_ms(d1, m, dtype), "rel_err": err})
+                             "bound_ms": _bound_ms(d1, m, dtype, factors), "rel_err": err})
             del args, ref
             torch.cuda.empty_cache()
     return rows
 
 
-def compare(k3, widths=WIDTHS, reps=20):
+def compare(k3, widths=WIDTHS, reps=20, reads=None):
     """K3 (the entry point :func:`load` returns) and K3w (through its entry
     point, under its default plan) at each of ``widths`` on one colour of
     the 128^2 mesh, in float32 and float64: errors against the plain
     version (and the error of the port's patch solve), device ms per launch
-    of each (the median of its reads in turns), the bytes bound, and the
-    kernel the dispatch takes.  Returns one dict a width and dtype."""
+    of each (the median of its ``reads`` in turns, default ``in_turns``'s),
+    the bytes bound, and the kernel the dispatch takes.  Returns one dict a
+    width and dtype."""
     from .. import kernels
     from ..linalg import preconditioners as P
     from .ab_cross_patch import graph_ms, in_turns
@@ -233,10 +252,11 @@ def compare(k3, widths=WIDTHS, reps=20):
             k3w = _k3w_runner(args, plan)
             e3, ew, ed = _rel_err(run_k3(), ref), _rel_err(k3w(), ref), \
                 _rel_err(P.patch_solve(*args), ref)
-            ms, reads = in_turns({"k3": run_k3, "k3w": k3w}, lambda run: graph_ms(run, reps))
+            ms, got = in_turns({"k3": run_k3, "k3w": k3w}, lambda run: graph_ms(run, reps),
+                               **({"reads": reads} if reads else {}))
             rows.append({"d1": d1, "dtype": str(dtype).replace("torch.", ""), "m": m,
                          "k3_ms": ms["k3"], "k3w_ms": ms["k3w"],
-                         "k3_reads": reads["k3"], "k3w_reads": reads["k3w"], "k3_rel_err": e3,
+                         "k3_reads": got["k3"], "k3w_reads": got["k3w"], "k3_rel_err": e3,
                          "k3w_rel_err": ew, "dispatch_rel_err": ed,
                          "bound_ms": _bound_ms(d1, m, dtype),
                          "dispatch": P.width_kernels(d1, dtype)[2], "k3w_plan": plan})
@@ -255,7 +275,8 @@ def main():
     if "--widths" in argv:
         widths = tuple(int(w) for w in argv[argv.index("--widths") + 1].split(","))
     if "--sweep" in argv:
-        rows = sweep(widths or SWEEP_WIDTHS)
+        rows = sweep(widths or SWEEP_WIDTHS,
+                     factors=torch.bfloat16 if "--bf16" in argv else None)
     else:
         rows = compare(load(start_build()), widths or WIDTHS)
     for row in rows:

@@ -67,10 +67,12 @@ def make_mesh(problem, size):
 def make(case, comm=None, device="cpu"):
     """(stepper, problem) of ``case`` = (problem, mesh size, scheme, dt,
     steps, tracer) on the global tables, distributed over ``comm`` when
-    given (the tracer is routed as the driver routes it)."""
+    given (the tracer is routed as the driver routes it).  A scheme named
+    ``..._f32`` runs in float32 ("imex_f32": the projection IMEX step)."""
     problem, size, scheme, dt, _, tracer = case
     disc = HDGDiscretisation(make_mesh(problem, size), 0 if scheme.startswith("conforming")
-                             else 1, device="cpu" if comm else device)
+                             else 1, torch.float32 if scheme.endswith("_f32") else torch.float64,
+                             device="cpu" if comm else device)
     if scheme == "hdg_implicit":
         stepper = IncompressibleEulerHDGImplicit(disc, dt)
     elif scheme == "dg_implicit":

@@ -28,6 +28,7 @@ SCHEMES = {
     "monolithic": (0.1, 2),
     "dg_implicit": (0.01, 2),
     "imex_tracer": (0.1, 2),
+    "imex_f32": (0.1, 2),  # the projection IMEX step in float32
 }
 CAP = 4  # outer FGMRES iterations of the capped schemes
 
@@ -52,7 +53,8 @@ def make(scheme, problem, nx, comm=None, device="cpu"):
     ``comm`` when given."""
     mesh = TM.periodic_square_mesh(nx, L=2 * math.pi) if problem == "shear" else \
         TM.unit_square_mesh(nx)
-    disc = HDGDiscretisation(mesh, 1, device="cpu" if comm else device)
+    disc = HDGDiscretisation(mesh, 1, torch.float32 if scheme.endswith("_f32") else torch.float64,
+                             device="cpu" if comm else device)
     dt, steps = SCHEMES[scheme]
     if problem == "shear":
         dt = dt / 2

@@ -17,6 +17,11 @@ no nvcc).
   (F, CS) fits (from d1 = 81: k = 11 .. 14, and past a TMA box's 256 rows)
   the plan without a cluster, whose row slots own every row once;
   NotImplementedError only past both;
+- ``patch_wide_plan`` with bfloat16 factors (``IEHDG_PC_BF16=1``) at d1
+  = 21, 28, 45, 55, 66, 78, 91, 128: the same ownership and limits, the staged
+  rows of Dinv0 counted at 2 bytes an entry and the vectors at 4, a
+  cluster rank's bytes below float32's; past d1 = 80 the plan without a
+  cluster;
 - the dispatch: ``width_kernels`` at d1 = 21, 28, 36 sends the patch
   solve to K3w, K1 to its own instantiations and the cross pair to K2c
   (at d1 = 45 too); ``kernel_for`` by n;
@@ -24,7 +29,8 @@ no nvcc).
   at n = 90, 110 and float64 182 (the cluster path) against their plain
   versions are tests/test_torch_wide.py's ``cuda``-marked cases; here every
   plan K3w may take at d1 = 45 and 91 (the plan without a cluster too)
-  against the plain version.
+  against the plain version, and K3w's bfloat16-factor variant under its
+  default plan at d1 = 21, 45, 91 and under every plan at d1 = 45.
 """
 
 import numpy as np
@@ -149,27 +155,29 @@ def _patch_fits(d1, dtype):
     return False
 
 
-def _patch_plans(d1, dtype):
+def _patch_plans(d1, dtype, factors=None):
     """Every cluster plan K3w admits at d1 (each F and CS asked for)."""
     plans = []
     for rb in TP.PATCH_WIDE_ROW_BYTES:
         for cs in range(1, TP.PATCH_WIDE_CLUSTER_MAX + 1):
             try:
-                plans.append(TP.patch_wide_plan(d1, dtype, F=rb // SIZE[dtype], CS=cs))
+                plans.append(TP.patch_wide_plan(d1, dtype, F=rb // SIZE[dtype], CS=cs,
+                                                factors=factors))
             except NotImplementedError:
                 continue
     return plans
 
 
-def _check_patch_cluster_plan(plan, d1, dtype):
+def _check_patch_cluster_plan(plan, d1, dtype, tsize=None):
     """The ranks own every scalar row once, the threads every (component,
-    row, facet) of a rank once, within the H100's limits."""
+    row, facet) of a rank once, within the H100's limits (``tsize`` the
+    bytes of a factor entry, default the vectors')."""
     F, CS, RS = plan["F"], plan["CS"], plan["RS"]
     assert plan["path"] == "cluster"
     assert F * SIZE[dtype] in TP.PATCH_WIDE_ROW_BYTES
     assert 1 <= CS <= TP.PATCH_WIDE_CLUSTER_MAX == 8 and RS == -(-d1 // CS)
     assert plan["threads"] == 2 * RS * F <= TP.PATCH_WIDE_THREADS_MAX
-    assert plan["smem_bytes"] == TP.patch_wide_smem(d1, F, CS, SIZE[dtype]) <= TP.SMEM_MAX
+    assert plan["smem_bytes"] == TP.patch_wide_smem(d1, F, CS, SIZE[dtype], tsize) <= TP.SMEM_MAX
     rows = []
     for rank in range(CS):  # as patch_solve_wide_kernel splits d1 and maps threadIdx.x
         i0, i1 = rank * d1 // CS, (rank + 1) * d1 // CS
@@ -217,6 +225,36 @@ def test_patch_wide_plan_owns_every_row_once(d1, dtype):
     assert plan in plans
 
 
+@pytest.mark.parametrize("d1", [21, 28, 45, 55, 66, 78, 91, 128])
+def test_patch_wide_plan_bf16_factors(d1):
+    """float32 vectors with bfloat16 factors: every cluster plan owns every
+    row once within the limits, its staged rows of Dinv0 at 2 bytes an
+    entry (the vectors at 4), fewer bytes than the float32 plan of the
+    same (F, CS); past d1 = 80 the plan without a cluster, its three
+    float32 vectors within a thread block; the default is the measured
+    plan (tools/ab_patch.py --sweep --bf16; at d1 = 78 the plan without a
+    cluster)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    plan = TP.patch_wide_plan(d1, f32, factors=bf16)
+    assert plan["smem_bytes"] <= TP.SMEM_MAX and plan["threads"] <= TP.PATCH_WIDE_THREADS_MAX
+    plans = _patch_plans(d1, f32, bf16)
+    assert bool(plans) == (d1 <= TP.PATCH_WIDE_CLUSTER_D1_MAX == 80)
+    assert len(plans) >= len(_patch_plans(d1, f32))
+    for p in plans:
+        _check_patch_cluster_plan(p, d1, f32, tsize=2)
+        nu, rs = 2 * d1, p["RS"]
+        assert p["smem_bytes"] == 2 * rs * -(-nu * p["F"] * 2 // 128) * 128 + \
+            2 * -(-nu * p["F"] * 4 // 128) * 128 + 2 * rs * 8
+        assert p["smem_bytes"] < TP.patch_wide_smem(d1, p["F"], p["CS"], 4)
+    measured = TP.PATCH_WIDE_MEASURED.get((d1, bf16))
+    if d1 > 80 or (measured and measured[1] == 0):
+        assert (plan["path"], plan["CS"], plan["RS"]) == ("device", 0, d1)
+        assert plan["smem_bytes"] == 3 * 2 * d1 * plan["F"] * 4
+        assert d1 <= 80 or plan == TP.patch_wide_plan(d1, f32)
+    else:
+        assert plan in plans
+
+
 def test_patch_wide_plan_fixed_and_past_every_plan():
     """A fixed (F, CS) that does not fit raises NotImplementedError naming
     the kernel; CS = 0 fixes the plan without a cluster at any width; a
@@ -243,9 +281,10 @@ def test_patch_wide_plan_fixed_and_past_every_plan():
     assert TP.patch_wide_plan(605, torch.float64)["F"] == 8
     p = TP.patch_wide_plan(45, torch.float32)
     assert TP.patch_wide_plan(45, torch.float32, F=p["F"], CS=p["CS"]) == p
-    for (d1, dtype), (F, CS) in TP.PATCH_WIDE_MEASURED.items():
-        p = TP.patch_wide_plan(d1, dtype)
-        assert (p["path"], p["F"], p["CS"]) == ("cluster", F, CS)
+    for (d1, factors), (F, CS) in TP.PATCH_WIDE_MEASURED.items():
+        dtype = torch.float32 if factors == torch.bfloat16 else factors
+        p = TP.patch_wide_plan(d1, dtype, factors=factors)
+        assert (p["path"], p["F"], p["CS"]) == ("device" if CS == 0 else "cluster", F, CS)
 
 
 def test_width_dispatch():
@@ -258,7 +297,9 @@ def test_width_dispatch():
         assert TP.width_kernels(d1) == ("fact_apply", "cross_pair_cluster", "patch_solve_wide")
     assert TP.width_kernels(45) == ("fact_apply_wide", "cross_pair_cluster", "patch_solve_wide")
     assert TP.width_kernels(55) == ("fact_apply_wide", "cross_pair_cluster", "patch_solve_wide")
-    assert TP.width_kernels(105) == ("fact_apply_wide", "cross_pair_wide", "patch_solve_wide")
+    assert TP.width_kernels(105) == ("fact_apply_wide", "cross_pair_cluster", "patch_solve_wide")
+    assert TP.width_kernels(105, torch.float64)[1] == TP.width_kernels(120)[1] == \
+        "cross_pair_wide"
     assert TP.PATCH_D1 == tuple(d for d in TP.CUDA_D1 if d <= 15)
     for n, name in ((20, "gauss_jordan"), (32, "gauss_jordan"), (42, "gauss_jordan_select"),
                     (72, "gauss_jordan_select"), (73, "gauss_jordan_wide"),
@@ -292,6 +333,64 @@ def cuda():
         pytest.skip("needs a CUDA card and nvcc (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda:0")
+
+
+def _bf16_colour(d1, cuda):
+    """Seeded tables and sides of a colour at an unaligned offset, the
+    factors bfloat16 (their own padded stride), the rest float32."""
+    nu, nf = 2 * d1, 2 * 301 + 1
+    g = torch.Generator().manual_seed(d1 + 7)
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=torch.float32).to(cuda)
+    K01, K10 = TP.pad_table(rnd(d1, d1, nf)), TP.pad_table(rnd(d1, d1, nf))
+    Di = TP.pad_table((rnd(nu, nu, nf) / nu).to(torch.bfloat16))
+    Si = TP.pad_table((rnd(nu, nu, nf) / nu).to(torch.bfloat16))
+    off, m = 133, 301 - 4
+    return (Di, Si, K01, K10, rnd(nu, nu) / nu, rnd(nu, nu) / nu, rnd(nu, m), rnd(nu, m), off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d1", [21, 45, 91])
+def test_cuda_patch_wide_bf16(cuda, d1):
+    """K3w's bfloat16-factor variant through the wrapper (its default plan:
+    a cluster at d1 = 21, 45, the plan without one at 91) against the plain
+    version, which upcasts the factors, within 1e-4 of the largest entry;
+    it launches the bf16 variant and not the float32 kernel."""
+    args = _bf16_colour(d1, cuda)
+    ref = TP.patch_solve_plain(*args)
+    kernels.reset_launches()
+    got = TP.patch_solve(*args)
+    assert kernels.LAUNCHES["patch_solve_wide_bf16"] == 1
+    assert kernels.LAUNCHES["patch_solve_wide"] == 0
+    for g_, want in zip(got, ref):
+        assert float((g_ - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_patch_wide_bf16_every_plan(cuda):
+    """K3w's bfloat16-factor variant at d1 = 45 under every plan (each
+    cluster (F, CS) and each F without a cluster) through its C entry
+    point, against the plain version; a float64 vector with bfloat16
+    factors raises before any launch."""
+    d1 = 45
+    Di, Si, K01, K10, Bk, Ck, r0, r1, off = args = _bf16_colour(d1, cuda)
+    ref = TP.patch_solve_plain(*args)
+    m, nu = r0.shape[1], 2 * d1
+    plans = _patch_plans(d1, torch.float32, torch.bfloat16) + [
+        TP.patch_wide_plan(d1, torch.float32, F=f, CS=0, factors=torch.bfloat16)
+        for f in TP.PATCH_WIDE_DEV_FACETS if 3 * nu * f * 4 <= TP.SMEM_MAX]
+    assert len(plans) >= 5
+    for p in plans:
+        y0, y1 = torch.empty_like(r0), torch.empty_like(r0)
+        kernels.launch("patch_solve_wide_bf16", 0, 2, d1, p["F"], p["CS"], p["threads"],
+                       p["smem_bytes"], Di.data_ptr(), Si.data_ptr(), K01.data_ptr(),
+                       K10.data_ptr(), Di.stride(1), K01.stride(1), off, Bk.data_ptr(),
+                       Ck.data_ptr(), r0.data_ptr(), r1.data_ptr(), y0.data_ptr(),
+                       y1.data_ptr(), m, kernels.stream_ptr(r0))
+        for got, want in zip((y0, y1), ref):
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-4, p
+    with pytest.raises(TypeError):
+        TP.patch_solve(Di, Si, K01.double(), K10.double(), Bk.double(), Ck.double(),
+                       r0.double(), r1.double(), off)
 
 
 @pytest.mark.cuda

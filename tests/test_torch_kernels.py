@@ -235,7 +235,8 @@ def test_kernel_sources_and_metadata():
     assert set(kernels.KERNELS) == {"fact_apply", "cross_pair", "patch_solve", "gauss_jordan",
                                     "gauss_jordan_select", "fact_apply_wide", "cross_pair_wide",
                                     "cross_pair_cluster", "patch_solve_wide", "gauss_jordan_wide",
-                                    "gauss_jordan_blocked"}
+                                    "gauss_jordan_blocked", "patch_solve_bf16",
+                                    "patch_solve_wide_bf16"}
     assert kernels.all_sources() == ["fact_apply", "cross_pair", "patch_solve", "gauss_jordan",
                                      "gauss_jordan_select", "wide_apply", "cross_pair_cluster",
                                      "patch_solve_wide", "gauss_jordan_wide"]
@@ -458,6 +459,35 @@ def test_cuda_patch_solve(cuda, dtype):
     ref = TP.patch_solve_plain(Di, Si, K01, K10, Bp, Cp, r0, r1, off)
     tol = 1e-4 if dtype == torch.float32 else 1e-11
     assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d1", [3, 6, 10, 15])
+def test_cuda_patch_solve_bf16(cuda, d1):
+    """K3's bfloat16-factor variant (IEHDG_PC_BF16=1): bfloat16 Dinv0/Sinv
+    of one column stride, float32 K01/K10 of another, against the plain
+    version (which upcasts the factors) within 1e-4 of the largest entry;
+    it launches the variant, never the float32 kernel; factors of any other
+    dtype, or with float64 vectors, raise before a launch."""
+    g = torch.Generator().manual_seed(30 + d1)
+    nu, m, off = 2 * d1, 1001, 150
+    f = lambda *s: torch.randn(*s, generator=g).to(cuda)
+    fac = (f(2, nu, nu, 1208) / nu).to(torch.bfloat16)
+    Di, Si = fac[:, :, :, :1200]
+    K01, K10 = f(2, d1, d1, 1204)[:, :, :, :1200]
+    Bp, Cp = f(2, nu, nu) / nu
+    r0, r1 = f(2, nu, m)
+    assert Di.stride(1) == 1208 and K01.stride(1) == 1204
+    kernels.reset_launches()
+    got = TP.patch_solve(Di, Si, K01, K10, Bp, Cp, r0, r1, off)
+    assert kernels.LAUNCHES["patch_solve_bf16"] == 1 and kernels.LAUNCHES["patch_solve"] == 0
+    ref = TP.patch_solve_plain(Di, Si, K01, K10, Bp, Cp, r0, r1, off)
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= 1e-4
+    for fac, vec in ((torch.float16, torch.float32), (torch.bfloat16, torch.float64)):
+        with pytest.raises(TypeError):
+            TP.patch_solve(Di.to(fac), Si.to(fac), K01.to(vec), K10.to(vec), Bp.to(vec),
+                           Cp.to(vec), r0.to(vec), r1.to(vec), off)
+    assert kernels.LAUNCHES["patch_solve_bf16"] == 1 and kernels.LAUNCHES["patch_solve"] == 0
 
 
 def _check_gj_batches(name, wrapper, plain, n, dtype, seed, device):
