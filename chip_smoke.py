@@ -32,6 +32,11 @@ Phases, each printing its own lines:
    initial trace, one warm-up step and three timed steps; validates
    finiteness, the L2 errors against the analytic vortex, the Krylov
    iteration counts, and that every kernel of the path launched during it;
+   each count and error printed beside the TPU's float32 observables
+   (BENCH_r04.json), with the peak device memory;
+4b. (r) the main path at bench.py's second configuration, 512^2 (dt =
+   1/512), the same steps, gates and prints; then K1-K4 held to their
+   plain versions at its shapes (phase 3's checks and timings at 512^2);
 5. the k = 4 kernels: K1, K2c (the cross pair) and K3w (the patch solve)
    at d1 = 21 and K5 (the Gauss-Jordan entry
    point for 32 < n <= 72) at n = 42 and n = 20 against their plain versions at the
@@ -46,9 +51,7 @@ Phases, each printing its own lines:
    (d) projection SSP2 at 128^2, k=4, float32, two steps, which must launch
    K5 and the kernels the dispatch takes at d1 = 21 (K1, K2c, K3w), its
    first stage's own tables and blocks held to the plain versions as in
-   phase (n), then K3 (its template built at d1 = 21 by tools/ab_patch.py)
-   against K3w on one 128^2 colour, float32 and float64, failing if the
-   dispatch takes the slower; (e) the double shear layer on the periodic
+   phase (n); (e) the double shear layer on the periodic
    256^2 square, k=2, float32, projection SSP2, two steps, which must
    launch K1-K4; (f) Kelvin-Helmholtz on the refinement-7 unit disk, k=2,
    float32, projection SSP2, one step, which must launch K4 and none of
@@ -113,18 +116,15 @@ Phases, each printing its own lines:
    own tables (K1-K3, random fields) and own-cell and Schur blocks (K5) in
    float32 and float64, with K5's float32 inverse also read against the
    float64 plain one; then phase 5's kernel comparison at 128^2 for k = 5
-   and k = 6 (timing rows); then K3 (its template built at d1 = 28, 36 by
-   tools/ab_patch.py beside the kernels) against K3w, which the dispatch
-   takes from d1 = 21, on one 128^2 colour in this process, in float32 and
-   float64: both held to the plain version, and the run fails if the
-   dispatch takes the slower; then the cross pair by K2 (its template built
-   at d1 = 21, 28, 36 by tools/ab_cross.py), K2w and K2c at d1 = 21, 28,
-   36, 45, and by K2w and K2c at d1 = 55, 66, 78, 91 (k = 8 .. 11), on one
-   128^2 colour and the full field, float32 and float64, in
-   turns in this process: every kernel held to the plain version, and the
-   run fails unless the dispatch takes the fastest on one colour (both
-   A/Bs time each kernel on a CUDA graph of its launches, the median of
-   five reads in turns: tools/ab_cross_patch.py ``graph_ms``, ``in_turns``);
+   and k = 6 (timing rows); then the cross pair by K2w and K2c, the two
+   kernels the dispatch chooses between, at d1 = 21, 28, 36, 45, 55, 66,
+   78, 91 (k = 4 .. 11), on one 128^2 colour and the full field, float32
+   and float64, in turns in this process: every kernel held to the plain
+   version, and the run fails unless the dispatch takes the fastest on one
+   colour (each kernel timed on a CUDA graph of its launches, the median
+   of three reads in turns: tools/ab_cross_patch.py ``graph_ms``,
+   ``in_turns``; K2's and K3's templates, retired at these widths, stay
+   in tools/ab_cross.py and tools/ab_patch.py);
    then K5's two variants (PR 4's register-tiled template and the team
    design, csrc/gauss_jordan_team.cuh) at n = 42, 48, 56, 72 on 32,768
    blocks, float32 and float64, in turns (tools/ab_gj.py), with
@@ -143,7 +143,11 @@ Phases, each printing its own lines:
    and no other, with the
    run's own tables and blocks held to the plain versions in float32 and
    float64 (from n = 90 the float32 inverse is held to twice the plain
-   version's own float32 error against the float64 plain inverse); (o64):
+   version's own float32 error against the float64 plain inverse);
+   (o8f64): (o8)'s flags in float64, one step on the card, held to the
+   velocity bound, its velocity error printed beside (o8)'s (the float32
+   error there is the rounding both packages share: ROADMAP Queue 3);
+   (o64):
    k = 7 on 4^2 in float64, one step on the card against the same flags
    with ``--device cpu``: every Krylov count equal, the state within 1e-10;
    (o7d): Kelvin-Helmholtz on the refinement-2 disk at k = 7, one step (K5w
@@ -163,9 +167,6 @@ Phases, each printing its own lines:
    ``build_tentative_operator``, which must launch K5b, its own-cell and
    Schur blocks held per block against a pivoted LU inverse within twice
    the plain version's own error;
-6h. (p) one projection SSP2 step at k = 7 on 128^2, float32, after a
-   warm-up step, under torch.profiler: device ms by kernel, the device
-   busy share, the operators with the most device time;
 6i. (o11) k = 11 (d1 = 91, Gauss-Jordan n = 182): projection SSP2 at
    64^2, float32, one step through the CLI (launches a step; no longer
    under torch.profiler, cut for the script's time), which must launch K1w, K2c,
@@ -217,19 +218,19 @@ timed main-path step, errors, ms, plain_ms, bytes, bound_ms, bound_by,
 pct_bound, library_ms, timers; K1-K4 also ``*_slab``: phase (k)'s slab
 shape, error, times, bound and launches a step over the ranks; K4 also
 ``*_partition_own`` / ``*_partition_schur``: phase (l)'s partition-local
-batches, and its launches a step over the ranks; K1-K3 ``*_d1_28``,
+batches, and its launches a step over the ranks; K1-K4 ``*_512``: phase
+(r)'s 512^2 shapes (errors, times, bound) and launches a timed step there;
+K1-K3 ``*_d1_28``,
 ``*_d1_36`` and K5 ``*_n56``, ``*_n72``: phase (n)'s widths at 128^2, the
 errors on the run's own tables and the launches a step of runs (n5), (n6)
-(K2c the same at d1 = 28, 36, and phase (n)'s K2/K2w/K2c A/B, ``ab_*``);
+(K2c the same at d1 = 28, 36, and phase (n)'s K2w/K2c A/B, ``ab_*``);
 K3 also ``*_additive``: one additive patch application, every colour and
 the boundary tail, at 256^2; K1w-K3w and K5w: phase (o)'s 128^2, k = 7
-shapes, launches a step of (o7) and (o8), the errors on those runs' own
-tables, their device ms in phase (p)'s step (``k7_step_device_ms``),
-(o11)'s launches and tables
+shapes, launches a step of (o7) and (o8) and in (o8f64), the errors on
+those runs' own tables, (o11)'s launches and tables
 (``*_k11``), K1w and K3w ``*_d1_91`` (K3w also ``*_d1_91_f64``), K5w
 ``*_n182`` (float32), K5w ``*_n110``, its A/B against K5b (``ab_blocked``) and its holds
-on the k = 7 disk's blocks, K3w the K3 A/B at
-d1 = 21, 28, 36 (``ab_*``); K5 its variants' A/B (``ab_variants``); K5b
+on the k = 7 disk's blocks; K5 its variants' A/B (``ab_variants``); K5b
 the float64 n = 420 shape, ``*_n552`` the float32 one, and its launches
 and holds in (o18)); the bfloat16-factor variants phase (q)'s rows (K3's
 at 256^2, d1 = 10; K3w's at d1 = 45 and ``*_d1_21``), each with the
@@ -257,6 +258,19 @@ import torch
 NX = 256
 DEGREE = 2
 N_STEPS = 3
+# phase (r): the main path at bench.py's second configuration (bench.py:5,
+# 207), 512^2, k=2, float32, dt = 1/512
+BIG_NX = 512
+# the TPU's float32 observables of bench.py's two configurations: the last
+# timed step's Krylov counts (BENCH_r04.json) and the L2 errors after the
+# warm-up and three timed steps (BENCH_r04.json; pressure BASELINE.md:86-87);
+# printed beside the port's, held by nothing
+TPU_OBSERVABLES = {
+    256: dict(tentative=[13, 13, 16, 16], pressure=[4, 6, 4, 6], final=4, recon=2,
+              velocity=1.1503e-6, pressure_error=2.0e-4),
+    512: dict(tentative=[13, 12, 16, 15], pressure=[4, 7, 4, 7], final=3, recon=2,
+              velocity=1.4354e-6, pressure_error=1.23e-3),
+}
 ERROR_VELOCITY_MAX = 1.0e-4
 ERROR_PRESSURE_MAX = 1.0e-2
 TOL = {torch.float32: 1.0e-4, torch.float64: 1.0e-11}
@@ -647,7 +661,7 @@ class Holds:
 
 
 def compare_kernels(nx, degree, with_k2w=False):
-    """Phases 3 and 5: every kernel of the nx^2, k = degree path against its
+    """Phases 3, 5 and (r): every kernel of the nx^2, k = degree path against its
     plain version at that path's shapes.  At k <= 3 the own-cell and Schur
     inverses go to K4 (gauss_jordan); at k = 4 .. 6 (n = 42 .. 72) to K5
     (gauss_jordan_select), which is also held against the select
@@ -664,7 +678,7 @@ def compare_kernels(nx, degree, with_k2w=False):
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
     from incompressibleeulerhdg_tpu_torch.linalg import smallinv
     from incompressibleeulerhdg_tpu_torch.tools import ab_cross
-    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import SYMBOLS, device_time
+    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import device_time
 
     nc, nf, b = main_shapes(nx)
     d1 = (degree + 2) * (degree + 3) // 2
@@ -1083,8 +1097,13 @@ def gauss_jordan_ab():
     return ab
 
 
-def main_path(card):
-    """Phase 4: the port's main path at 256^2, k=2, float32 on cuda:0."""
+def main_path(card, nx=NX):
+    """Phase 4 (nx = NX) and phase (r) (nx = BIG_NX): the port's main path
+    at nx^2, k=2, float32, dt = 1/nx on cuda:0, one warm-up step and
+    N_STEPS timed steps, its numbers printed beside the TPU's
+    (TPU_OBSERVABLES).  Returns the launches over the run, the launches a
+    timed step and phase (k)'s reference (the state and counts after
+    1 + SLAB_STEPS steps)."""
     from incompressibleeulerhdg_tpu_torch import kernels
     from incompressibleeulerhdg_tpu_torch.mesh import unit_square_mesh
     from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
@@ -1095,11 +1114,13 @@ def main_path(card):
 
     dtype = torch.float32
     dev = torch.device("cuda:0")
-    dt = 1.0 / NX
+    dt = 1.0 / nx
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    print(f"# mesh: building the {NX}^2 unit-square mesh", flush=True)
-    mesh = unit_square_mesh(NX)
+    print(f"# mesh: building the {nx}^2 unit-square mesh", flush=True)
+    mesh = unit_square_mesh(nx)
     print(f"# mesh: done in {time.perf_counter() - t0:.2f} s "
           f"({mesh.n_cells} cells, {mesh.n_facets} facets)", flush=True)
     disc = HDGDiscretisation(mesh, DEGREE, dtype=dtype, device=dev)
@@ -1124,6 +1145,7 @@ def main_path(card):
 
     step_s = []
     all_counts = [counts]
+    slab_ref = None
     before = dict(kernels.LAUNCHES)
     for k in range(N_STEPS):
         t0 = time.perf_counter()
@@ -1135,6 +1157,7 @@ def main_path(card):
             slab_ref = (sQ[0].cpu(), all_counts[:])
     launches = dict(kernels.LAUNCHES)
     launches_step = {n: (launches[n] - before[n]) / N_STEPS for n in launches}
+    peak = torch.cuda.max_memory_allocated()
 
     Q, p = sQ[0], sp[0]
     finite = bool(torch.isfinite(Q).all()) and bool(torch.isfinite(p).all())
@@ -1144,23 +1167,43 @@ def main_path(card):
     err_p = stepper.pressure_error_norm(p, p_exact)
     iters_ok = all(n > 0 for c in all_counts for n in c["tentative"] + c["pressure"])
     per_step = sum(step_s) / len(step_s)
-    print(f"# main path 256^2 k=2 float32 SSP2: setup {setup_s:.2f} s, warm-up "
+    tpu = TPU_OBSERVABLES[nx]
+    print(f"# main path {nx}^2 k=2 float32 SSP2: setup {setup_s:.2f} s, warm-up "
           f"{warmup_s:.3f} s, {per_step:.4f} s/step (steps {[round(s, 4) for s in step_s]}) | "
-          f"iters tentative={counts['tentative']} pressure={counts['pressure']} "
-          f"final={counts['final_pressure']} recon={counts['reconstruction']} "
-          f"max relres {counts['max_relres']:.2e} | err velocity {err_vel:.3e} "
-          f"pressure {err_p:.3e} | launches {launches} (per timed step {launches_step}) | card {card}",
-          flush=True)
+          f"iters (last step; the TPU's beside) tentative={counts['tentative']} "
+          f"({tpu['tentative']}) pressure={counts['pressure']} ({tpu['pressure']}) "
+          f"final={counts['final_pressure']} ({tpu['final']}) recon={counts['reconstruction']} "
+          f"({tpu['recon']}) max relres {max(c['max_relres'] for c in all_counts):.2e} | "
+          f"err velocity {err_vel:.4e} ({tpu['velocity']:.4e}) pressure {err_p:.4e} "
+          f"({tpu['pressure_error']:.2e}) | every step's counts (warm-up first) "
+          f"{[{k: v for k, v in c.items() if k != 'max_relres'} for c in all_counts]} "
+          f"| peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated) | launches {launches} (per timed step {launches_step}) | "
+          f"card {card}", flush=True)
     if not finite:
-        fail("non-finite state")
+        fail(f"main path {nx}^2: non-finite state")
     if not (err_vel < ERROR_VELOCITY_MAX and err_p < ERROR_PRESSURE_MAX):
-        fail(f"errors above bound: velocity {err_vel:.3e} pressure {err_p:.3e}")
+        fail(f"main path {nx}^2: errors above bound: velocity {err_vel:.3e} pressure {err_p:.3e}")
     if not iters_ok:
-        fail("a Krylov solve took zero iterations")
+        fail(f"main path {nx}^2: a Krylov solve took zero iterations")
     missing = [n for n in MAIN_PATH_KERNELS if launches[n] == 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the main path at {nx}^2: {missing}")
+    del stepper, disc, sQ, sp, sl
+    torch.cuda.empty_cache()
     return launches, launches_step, slab_ref
+
+
+def big_path_phase(card):
+    """Phase (r): the main path at bench.py's second configuration, BIG_NX^2
+    (bench.py:5, 207), then K1-K4 held to their plain versions and timed
+    at its shapes (compare_kernels).  Returns the launches over the run,
+    the launches a timed step and the kernel rows."""
+    t0 = time.perf_counter()
+    launches, launches_step, _ = main_path(card, BIG_NX)
+    print(f"# phase (r) main path at {BIG_NX}^2 took {time.perf_counter() - t0:.1f} s", flush=True)
+    cmp = compare_kernels(BIG_NX, DEGREE)
+    return launches, launches_step, cmp
 
 
 def driver_runs():
@@ -1251,8 +1294,10 @@ def driver_runs():
     return launches, disk_k4, d_checks
 
 
-# the Krylov counts of each driver run, by key (check_driver_run)
+# the Krylov counts and the (velocity, pressure) errors of each driver run,
+# by key (check_driver_run)
 RUN_COUNTS = {}
+RUN_ERRORS = {}
 
 
 def check_driver_run(key, label, vel_max, res, wall, timers, launches):
@@ -1279,6 +1324,7 @@ def check_driver_run(key, label, vel_max, res, wall, timers, launches):
         check_flow_run(key, label, res, setup_s, steps, wall, counts, its, finite, launches)
         return
     err_v, err_p = res["velocity_error"], res["pressure_error"]
+    RUN_ERRORS[key] = (err_v, err_p)
     if vel_max is None:  # a run whose errors no bound holds (see its constants)
         vel_max = (float("inf"), float("inf"))
     vel_max, p_max = vel_max if isinstance(vel_max, tuple) else (vel_max, ERROR_PRESSURE_MAX)
@@ -2265,47 +2311,19 @@ def wide_phase():
     return degree_runs([(f"n{k}", k, WIDE_K_NX, 2) for k in WIDE_K])
 
 
-def patch_ab(k3, widths, phase):
-    """Phases (d), (n): K3 (its template built at d1 = 21, 28, 36 by
-    tools/ab_patch.py, started with the kernels; ``k3`` its entry point)
-    against K3w, the patch solve the dispatch takes from d1 = 21, on one
-    128^2 colour in one process at ``widths``, in float32 and float64;
-    fails unless both hold the plain version and the dispatch takes the
-    faster.  Returns one row a width and dtype."""
-    from incompressibleeulerhdg_tpu_torch.tools import ab_patch
-
-    rows = ab_patch.compare(k3, widths, reads=SMOKE_AB_READS)
-    for r in rows:
-        faster = "patch_solve_wide" if r["k3w_ms"] <= r["k3_ms"] else "patch_solve"
-        print(f"# phase ({phase}) K3 against K3w at d1={r['d1']} (one colour, {r['m']} facets, "
-              f"{r['dtype']}): K3 {r['k3_ms']:.4f} ms ({100 * r['bound_ms'] / r['k3_ms']:.1f}% of "
-              f"bound), K3w {r['k3w_ms']:.4f} ms ({100 * r['bound_ms'] / r['k3w_ms']:.1f}%; plan "
-              f"{r['k3w_plan']}) | rel err {r['k3_rel_err']:.2e}, {r['k3w_rel_err']:.2e}, the "
-              f"dispatch's {r['dispatch_rel_err']:.2e} | the dispatch takes {r['dispatch']}",
-              flush=True)
-        if max(r["k3_rel_err"], r["k3w_rel_err"], r["dispatch_rel_err"]) > \
-                TOL[getattr(torch, r["dtype"])]:
-            fail(f"phase ({phase}): K3 or K3w at d1 = {r['d1']} ({r['dtype']}) differs from the "
-                 f"plain version")
-        if r["dispatch"] != faster:
-            fail(f"phase ({phase}): at d1 = {r['d1']} ({r['dtype']}) the dispatch takes "
-                 f"{r['dispatch']}, the slower")
-    return rows
-
-
-def cross_ab(k2):
-    """Phase (n): the cross pair by K2 (its template built at d1 = 21, 28,
-    36 by tools/ab_cross.py, started with the kernels; ``k2`` its entry
-    point), K2w and K2c at d1 = 21, 28, 36, 45 and 55, 66, 78, 91 (k = 4 ..
-    11; K2 to d1 = 36) on the 128^2 mesh, one colour and the full field,
-    float32 and float64, in one process; fails
+def cross_ab():
+    """Phase (n): the cross pair by K2w and K2c, the two kernels the
+    dispatch chooses between, at d1 = 21, 28, 36, 45 and 55, 66, 78, 91
+    (k = 4 .. 11) on the 128^2 mesh, one colour and the full field, float32
+    and float64, in one process (K2's template, retired at these widths,
+    stays in tools/ab_cross.py); fails
     unless every kernel holds the plain version and, at each width and
     dtype, the dispatch takes the fastest kernel on one colour (the kind
     most launches are).  Returns one row a width, dtype and kind."""
     from incompressibleeulerhdg_tpu_torch.tools import ab_cross
 
-    rows = ab_cross.compare(k2, ab_cross.WIDTHS + ab_cross.WIDE_WIDTHS, reads=SMOKE_AB_READS)
-    short = {"cross_pair": "K2", "cross_pair_wide": "K2w", "cross_pair_cluster": "K2c"}
+    rows = ab_cross.compare(None, ab_cross.WIDTHS + ab_cross.WIDE_WIDTHS, reads=SMOKE_AB_READS)
+    short = {"cross_pair_wide": "K2w", "cross_pair_cluster": "K2c"}
     for r in rows:
         names = [n for n in short if f"{n}_ms" in r]
         print(f"# phase (n) cross pair at d1={r['d1']} ({r['kind']}, {r['m']} facets, "
@@ -2325,8 +2343,8 @@ def cross_ab(k2):
 
 
 AB_MARGIN = 1.03  # a dispatch A/B fails where the dispatch's kernel is slower by more
-# reads in turns of each kernel of the patch-solve and cross-pair A/Bs
-# (the tools' default five, cut to three for the script's time)
+# reads in turns of each kernel of the cross-pair A/B (the tool's default
+# five, cut to three for the script's time)
 SMOKE_AB_READS = 3
 
 
@@ -2515,28 +2533,6 @@ def blocked_build_phase():
     return launches, holds.results
 
 
-def degree7_breakdown():
-    """Phase (p): one projection SSP2 step at k = 7 on WIDE_NX^2, float32,
-    after a warm-up step, under torch.profiler: device ms by kernel, the
-    busy share of the step and the operators with the most device time
-    (tools/ab_cross_patch.py main_path).  Returns its dict."""
-    from incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch import main_path
-
-    r = main_path(nx=WIDE_NX, degree=7, steps=1)
-    ms = {k: v for k, v in r["kernel_device_ms"].items() if v > 0}
-    print(f"# phase (p) k=7 {WIDE_NX}^2 float32, one step: set-up {r['setup_s']:.2f} s, "
-          f"{r['s_per_step']:.3f} s/step, device busy {r['device_ms']:.1f} ms "
-          f"({100 * r['device_busy_share']:.1f}% of the step, {r['device_events']} kernels) | "
-          f"by kernel " + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
-          + f" | launches a step {dict((k, v) for k, v in r['launches_per_step'].items() if v)}"
-          f" | counts tentative {r['tentative']} pressure {r['pressure']}", flush=True)
-    print("# phase (p) top operators by device ms: "
-          + "; ".join(f"{k} {v:.2f} ms x{n}" for k, v, n in r["top_device_ms"][:10]), flush=True)
-    if not ms or r["device_ms"] <= 0:
-        fail("phase (p): the profiler recorded no kernel of the k = 7 step")
-    return r
-
-
 def card_against_cpu(key, degree, nx, rtol=F64_CPU_RTOL, vel_max=ERROR_VELOCITY_MAX, cpu=True):
     """Runs (o64), (o11c), (o12): one projection SSP2 step at ``degree`` on
     nx^2 in float64 through the CLI on the card and (``cpu``) with
@@ -2575,8 +2571,9 @@ def card_against_cpu(key, degree, nx, rtol=F64_CPU_RTOL, vel_max=ERROR_VELOCITY_
 
 
 def degree7_phase():
-    """Phase (o): k = 7 and 8 through the CLI ((o7), (o8)), k = 7 in float64
-    on the card against the CPU ((o64)) and on the disk ((o7d)).  Returns
+    """Phase (o): k = 7 and 8 through the CLI ((o7), (o8)), (o8)'s flags in
+    float64 ((o8f64)), k = 7 in float64 on the card against the CPU ((o64))
+    and on the disk ((o7d)).  Returns
     the launches by run, the table checks by degree and the disk's K5w
     holds."""
     launches, checks = degree_runs([("o7", 7, DEG7_NX, O7_STEPS), ("o8", 8, DEG8_NX, 1)])
@@ -2585,6 +2582,11 @@ def degree7_phase():
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
+            launches["o8f64"] = card_against_cpu("o8f64", 8, DEG8_NX, cpu=False)
+            (v32, p32), (v64, p64) = RUN_ERRORS["o8"], RUN_ERRORS["o8f64"]
+            print(f"# phase (o8f64) {DEG8_NX}^2 k=8, one step: velocity error float64 {v64:.4e} "
+                  f"against (o8)'s float32 {v32:.4e} ({v32 / v64:.3g} times), pressure "
+                  f"{p64:.4e} against {p32:.4e}", flush=True)
             launches["o64"] = card_against_cpu("o64", 7, DEG7_F64_NX)
             blocks = []
             res, wall, launches["o7d"], timers = run_cli(
@@ -2854,12 +2856,9 @@ def main():
     card = device_check()
 
     from incompressibleeulerhdg_tpu_torch import kernels
-    from incompressibleeulerhdg_tpu_torch.tools import ab_cross, ab_patch
 
     t_build = time.perf_counter()
     kernels.start_builds()  # phases 3, 3b wait for K1-K4's libraries only
-    ab_build = ab_patch.start_build()  # K3 at d1 = 21, 28, 36 for phases (d), (n)
-    cross_build = ab_cross.start_build()  # K2 at d1 = 21, 28, 36 for phase (n)
     print(f"# kernel build: nvcc started on {', '.join(kernels.all_sources())}", flush=True)
     main_cmp = compare_kernels(NX, DEGREE)
     new_cmp = compare_periodic_shapes()
@@ -2871,6 +2870,8 @@ def main():
     main_launches, launches_step, slab_ref = main_path(card)
     launches = {"main": main_launches}
     stamp("phase 4")
+    launches["r"], big_step, big_cmp = big_path_phase(card)
+    stamp("phase (r)")
     wide_cmp = compare_kernels(WIDE_NX, WIDE_DEGREE)
     spill = ptxas_summary()
     print(f"# ptxas: {spill} bytes of spill stores and loads over all instantiations", flush=True)
@@ -2878,8 +2879,6 @@ def main():
     stamp("phase 5")
     runs, disk_k4, d_checks = driver_runs()
     launches.update(runs)
-    k3_ab = ab_patch.load(ab_build)
-    ab_rows = patch_ab(k3_ab, (WIDE_DEGREE_D1,), "d")
     if len(disk_k4) != 2:
         fail(f"run (f) handed K4 {len(disk_k4)} batches to record, not 2")
     new_cmp.update(compare_disk_blocks(disk_k4))
@@ -2896,8 +2895,7 @@ def main():
     wide_launches, wide_checks = wide_phase()
     launches.update(wide_launches)
     wide_k = {k: compare_kernels(WIDE_NX, k) for k in WIDE_K}
-    ab_rows += patch_ab(k3_ab, tuple((k + 2) * (k + 3) // 2 for k in WIDE_K), "n")
-    cross_rows = cross_ab(ab_cross.load(cross_build))
+    cross_rows = cross_ab()
     select_rows = select_ab()
     stamp("phase (n)")
     deg7_launches, deg7_checks, disk7 = degree7_phase()
@@ -2909,8 +2907,6 @@ def main():
     deg11_launches, deg11_checks, deg11_rows = degree11_phase()
     launches.update(deg11_launches)
     stamp("phase (o11)")
-    k7 = degree7_breakdown()
-    stamp("phase (p)")
     bf16_launches, bf16 = bf16_phase()
     launches.update(bf16_launches)
     main_cmp["patch_solve_bf16"] = bf16["patch_solve_bf16"]
@@ -2970,6 +2966,7 @@ def main():
         if name in WIDE_KERNELS:  # phase (o): launches a step, the runs' own tables
             row.update(launches_per_step_o7=launches["o7"][name] / O7_STEPS,
                        launches_per_step_o8=launches["o8"][name],
+                       launches_o8f64=launches["o8f64"][name],
                        launches_o64=launches["o64"][name], launches_o7d=launches["o7d"][name])
             for k in (7, 8):
                 c = deg7_checks[k].get(name)
@@ -2977,7 +2974,6 @@ def main():
                     row[f"max_rel_err_run_tables_k{k}"] = c["rel"]
                     row.update({f"{key}_k{k}": c[key] for key in (
                         "f32_vs_f64", "plain_f32_vs_f64", "f32_rtol", "checks") if key in c})
-            row["k7_step_device_ms"] = k7["kernel_device_ms"][name]
             row.update(launches_per_step_o11=launches["o11"][name],
                        launches_o11c=launches["o11c"][name], launches_o12=launches["o12"][name])
             c = deg11_checks.get(name)
@@ -3000,9 +2996,6 @@ def main():
                 row.update({f"max_abs_err{tag}": w["abs"]["float32"],
                             f"max_rel_err{tag}": w["rel"]})
             if name == "patch_solve_wide":
-                for r in ab_rows:
-                    row.update({f"ab_{key}_d1_{r['d1']}_{r['dtype']}": r[key] for key in (
-                        "k3_ms", "k3w_ms", "bound_ms", "dispatch")})
                 row["device_plan"] = e["device_plan"]
             if name == "cross_pair_cluster":
                 row["launches_per_step_by_kind"] = {
@@ -3052,6 +3045,16 @@ def main():
                        launches_o11c=launches["o11c"][name],
                        **{f"{key}_o18": o18[name][key] for key in (
                            "rel", "plain_own_rel_err", "rtol", "plain_rel_err", "twin_rel_err")})
+        b = big_cmp.get(name, {})
+        if "ms" in b:  # phase (r): the BIG_NX^2 shapes and launches a timed step
+            sfx = f"_{BIG_NX}"
+            row.update({f"{key}{sfx}": b[key] for key in (
+                "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "library_ms", "ms_color",
+                "plain_ms_color", "bound_ms_color", "library_ms_color") if key in b})
+            row.update({f"max_abs_err{sfx}": b["abs"]["float32"],
+                        f"max_rel_err_f64{sfx}": b["rel"]["float64"],
+                        f"pct_bound{sfx}": pct_bound(b["bound_ms"], b["ms"], name),
+                        f"launches_per_step{sfx}": big_step[name]})
         n = new_cmp.get(name, {})
         for key, v in n.items():
             if key in ("abs", "rel"):

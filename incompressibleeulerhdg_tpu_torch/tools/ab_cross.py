@@ -179,8 +179,8 @@ def _rel_err(got, ref):
 
 
 def compare(k2, widths=WIDTHS, reps=REPS, reads=None):
-    """K2 (the entry point :func:`load` returns, at d1 <= 36; None where no
-    width needs it), K2w and the cluster kernel at each width, dtype and kind: errors against the plain
+    """K2 (the entry point :func:`load` returns, at d1 <= 36; None leaves it
+    out), K2w and the cluster kernel at each width, dtype and kind: errors against the plain
     version, device ms per launch of each (the median of its reads in
     turns), the plain version's ms (CUDA events, ``plain_ms``),
     the bytes bound, the fastest kernel and the kernel the dispatch takes;
@@ -198,7 +198,8 @@ def compare(k2, widths=WIDTHS, reps=REPS, reads=None):
                 case = _case(field, kind)
                 m, nseg = case[5].shape[1], len(case[4]) - 1
                 ref = P.cross_pair_plain(*case[:7], aoff=case[7])
-                here = [n for n in NAMES if n != "cross_pair" or d1 in K2_WIDTHS]
+                here = [n for n in NAMES
+                        if n != "cross_pair" or (k2 is not None and d1 in K2_WIDTHS)]
                 plan = P.cross_pair_plan(d1, dtype)
                 runs = {n: runner(n, case, k2, plan) for n in here}
                 err = {n: _rel_err(run(), ref) for n, run in runs.items()}

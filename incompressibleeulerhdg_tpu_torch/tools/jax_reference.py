@@ -125,6 +125,8 @@ def run_reference(args):
     res.update(t_final=t_ck, counts=averaged_counts(out),
                velocity_error=printed(out, "^velocity error"),
                pressure_error=printed(out, "^pressure error"))
+    m = re.search(r"max Krylov relative residual:\s*(\S+)$", out, re.M)
+    res["max_relres"] = None if m is None else float(m.group(1))
     if res["velocity_error"] is None and args.discretisation != "conforming":
         Q = state["stage_Q"][0] if "stage_Q" in state else state["Q"]
         res["energy_ratio"], res["divergence"] = reference_diagnostics(args, Q)

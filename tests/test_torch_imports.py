@@ -56,6 +56,7 @@ PORT_MODULES = [
     "incompressibleeulerhdg_tpu_torch.tools.ab_cross_patch",
     "incompressibleeulerhdg_tpu_torch.tools.tune_gj",
     "incompressibleeulerhdg_tpu_torch.tools.jax_reference",
+    "incompressibleeulerhdg_tpu_torch.tools.fault_readings",
     "incompressibleeulerhdg_tpu_torch.utils.logging",
     "incompressibleeulerhdg_tpu_torch.utils.checkpoint",
     "incompressibleeulerhdg_tpu_torch.utils.vtk",
