@@ -11,6 +11,13 @@ vector work stay on the device, and each Arnoldi step makes ONE host read
 (the new Hessenberg column and its norm), on which the host applies the
 Givens rotations in float64 and decides whether to continue.
 
+Inside a step's spans (utils/logging.py) each operator application runs
+under ``krylov.matvec``, each preconditioner application under
+``krylov.precond``, the Gram-Schmidt products under
+``krylov.orthogonalise``, and each blocking read of the device (the
+Hessenberg column, a norm, a finiteness test) under ``host.read``, which
+holds the read alone.
+
 Vectors are flat 1-D tensors; callers flatten their field layouts.  With a
 ``comm`` (parallel/comm.py) the vectors are one rank's part of a
 distributed vector: every inner product and norm is summed over the ranks,
@@ -20,6 +27,8 @@ all ranks take the same iterations (the JAX package's ``axis_name``).
 
 import numpy as np
 import torch
+
+from ..utils.logging import span
 
 __all__ = ["gmres", "gmres_right", "fgmres", "cg", "deflate_constant", "pdot", "pnorm"]
 
@@ -65,14 +74,18 @@ class _Arnoldi:
         """Orthogonalise w = op(V[j]) against V[:j+1] (Gram-Schmidt as two
         dense products, as the JAX code does), append V[j+1], update the
         rotations; returns |g[j+1]|, the residual estimate."""
-        Vj = self.V[: j + 1]
-        h = Vj @ w
-        if self.comm is not None:
-            h = self.comm.allreduce(h)
-        w = w - Vj.T @ h
-        hnext = pnorm(w, self.comm)
-        self.V[j + 1] = w / torch.clamp(hnext, min=self.tiny)
-        hh = torch.cat([h, hnext[None]]).cpu().numpy().astype(np.float64)
+        with span("krylov.orthogonalise"):
+            Vj = self.V[: j + 1]
+            h = Vj @ w
+            if self.comm is not None:
+                h = self.comm.allreduce(h)
+            w = w - Vj.T @ h
+            hnext = pnorm(w, self.comm)
+            self.V[j + 1] = w / torch.clamp(hnext, min=self.tiny)
+            col = torch.cat([h, hnext[None]])
+        with span("host.read"):
+            col = col.cpu()
+        hh = col.numpy().astype(np.float64)
         for i in range(j):
             hi = self.cs[i] * hh[i] + self.sn[i] * hh[i + 1]
             hh[i + 1] = -self.sn[i] * hh[i] + self.cs[i] * hh[i + 1]
@@ -109,13 +122,29 @@ def pnorm(v, comm=None):
 
 
 def _norm(v, comm=None):
-    return float(pnorm(v, comm))
+    """``pnorm`` read to the host, a float."""
+    n = pnorm(v, comm)
+    with span("host.read"):
+        return float(n)
 
 
 def _all_finite(x, comm=None):
     """Whether x is finite on every rank."""
     bad = (~torch.isfinite(x)).sum().to(torch.float64)
-    return float(bad if comm is None else comm.allreduce(bad)) == 0.0
+    if comm is not None:
+        bad = comm.allreduce(bad)
+    with span("host.read"):
+        return float(bad) == 0.0
+
+
+def _matvec(matvec, v):
+    with span("krylov.matvec"):
+        return matvec(v)
+
+
+def _precond(M, v):
+    with span("krylov.precond"):
+        return M(v)
 
 
 def gmres(matvec, b, *, M=None, rtol=1e-12, restart=30, maxiter=200, project=None, comm=None):
@@ -133,17 +162,17 @@ def gmres(matvec, b, *, M=None, rtol=1e-12, restart=30, maxiter=200, project=Non
     m = restart
     tiny = _tiny(b.dtype)
     b = project(b)
-    Mb_norm = _norm(M(b), comm)
+    Mb_norm = _norm(_precond(M, b), comm)
     target = rtol * Mb_norm
     x = torch.zeros_like(b)
     res, iters, go = float("inf"), 0, True
     while res > target and iters < maxiter and go:
-        r = M(project(b - matvec(x)))
+        r = _precond(M, project(b - _matvec(matvec, x)))
         beta = _norm(r, comm)
         arn = _Arnoldi(r, beta, m, tiny, comm)
         j, res_c = 0, beta
         while j < m and res_c > target:
-            res_c = arn.step(j, M(project(matvec(arn.V[j]))))
+            res_c = arn.step(j, _precond(M, project(_matvec(matvec, arn.V[j]))))
             j += 1
         if j > 0:
             x = x + arn.V[:j].T @ arn.solve(j, x)
@@ -175,13 +204,13 @@ def gmres_right(opM, matvec, b, *, rtol=1e-12, restart=30, maxiter=200, comm=Non
     x = torch.zeros_like(b)
     res, iters, go = float("inf"), 0, True
     while res > target and iters < maxiter and go:
-        r = b - matvec(x)
+        r = b - _matvec(matvec, x)
         beta = _norm(r, comm)
         arn = _Arnoldi(r, beta, m, tiny, comm)
         Z = b.new_zeros((m, b.shape[0]))
         j, res_c = 0, beta
         while j < m and res_c > target and np.isfinite(res_c):
-            z, w = opM(arn.V[j])
+            z, w = _precond(opM, arn.V[j])
             Z[j] = z
             res_c = arn.step(j, w)
             j += 1
@@ -194,7 +223,7 @@ def gmres_right(opM, matvec, b, *, rtol=1e-12, restart=30, maxiter=200, comm=Non
         go = j > 0 and res_c < 0.95 * res
         res = res_c
         iters += j
-    relres = _norm(b - matvec(x), comm) / max(bnorm, tiny)
+    relres = _norm(b - _matvec(matvec, x), comm) / max(bnorm, tiny)
     return x, iters, relres
 
 
@@ -222,15 +251,15 @@ def fgmres(matvec, b, *, M=None, x0=None, rtol=1e-12, restart=30, maxiter=200, p
     x = torch.zeros_like(b) if x0 is None else x0
     res, iters, go = float("inf"), 0, True
     while res > target and iters < maxiter and go:
-        r = project(b - matvec(x))
+        r = project(b - _matvec(matvec, x))
         beta = _norm(r, comm)
         arn = _Arnoldi(r, beta, m, tiny, comm)
         Z = b.new_zeros((m, b.shape[0]))
         j, res_c = 0, beta
         while j < m and res_c > target:
-            z = M(arn.V[j])
+            z = _precond(M, arn.V[j])
             Z[j] = z
-            res_c = arn.step(j, project(matvec(z)))
+            res_c = arn.step(j, project(_matvec(matvec, z)))
             j += 1
         if j > 0:
             x = x + Z[:j].T @ arn.solve(j, x)

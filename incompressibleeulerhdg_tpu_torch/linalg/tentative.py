@@ -51,6 +51,7 @@ import os
 from ..ops.fields import mass_apply
 from ..ops.forms import f_impl_apply
 from ..ops.structured import dist_axis
+from ..utils.logging import span
 from .krylov import gmres, gmres_right
 from .preconditioners import (_colored_apply_bl, _colored_apply_fused_bl, _matvec_bl,
                               _patch_apply_bl)
@@ -81,48 +82,51 @@ def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200, col
     :arg fused: override ``IEHDG_TENT_FUSED`` (0: the left-preconditioned
         composition, 1: the fused right-preconditioned GMRES, 2: the same
         with the sweep's free ``A z``)
+
+    Runs under the span ``solve.tentative`` (utils/logging.py).
     """
-    shape = rhs.shape
-    nu, nc = shape[0] * shape[1], shape[2]
-    mode = _fused_mode(fused)
+    with span("solve.tentative"):
+        shape = rhs.shape
+        nu, nc = shape[0] * shape[1], shape[2]
+        mode = _fused_mode(fused)
 
-    def matvec(v):
-        return _matvec_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
+        def matvec(v):
+            return _matvec_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
 
-    comm = dist_axis(geom)
-    structured = geom.shift is not None or (geom.part is not None and geom.part.structured)
-    if colored and structured and mode in ("1", "2"):
-        def sweep(vb):
-            if geom.shift is None:
-                z = _colored_apply_bl(geom, op, vb, symmetric=symmetric)
-                return z, _matvec_bl(geom, op, z)
-            return _colored_apply_fused_bl(geom, op, vb, symmetric=symmetric,
-                                           exact_Az=mode == "1")
+        comm = dist_axis(geom)
+        structured = geom.shift is not None or (geom.part is not None and geom.part.structured)
+        if colored and structured and mode in ("1", "2"):
+            def sweep(vb):
+                if geom.shift is None:
+                    z = _colored_apply_bl(geom, op, vb, symmetric=symmetric)
+                    return z, _matvec_bl(geom, op, z)
+                return _colored_apply_fused_bl(geom, op, vb, symmetric=symmetric,
+                                               exact_Az=mode == "1")
 
-        def opM(v):
-            vb = v.reshape(nu, nc)
-            z, Az = sweep(vb)
-            for _ in range(sweeps - 1):
-                dz, Adz = sweep(vb - Az)
-                z, Az = z + dz, Az + Adz
-            return z.reshape(-1), Az.reshape(-1)
+            def opM(v):
+                vb = v.reshape(nu, nc)
+                z, Az = sweep(vb)
+                for _ in range(sweeps - 1):
+                    dz, Adz = sweep(vb - Az)
+                    z, Az = z + dz, Az + Adz
+                return z.reshape(-1), Az.reshape(-1)
 
-        u, iters, relres = gmres_right(opM, matvec, rhs.reshape(-1), rtol=rtol,
-                                       restart=restart, maxiter=maxiter, comm=comm)
+            u, iters, relres = gmres_right(opM, matvec, rhs.reshape(-1), rtol=rtol,
+                                           restart=restart, maxiter=maxiter, comm=comm)
+            return u.reshape(shape), iters, relres
+
+        if colored:
+            def M(v):
+                rb = v.reshape(nu, nc)
+                z = _colored_apply_bl(geom, op, rb, symmetric=symmetric)
+                for _ in range(sweeps - 1):
+                    z = z + _colored_apply_bl(geom, op, rb - _matvec_bl(geom, op, z),
+                                              symmetric=symmetric)
+                return z.reshape(-1)
+        else:
+            def M(v):
+                return _patch_apply_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
+
+        u, iters, relres = gmres(matvec, rhs.reshape(-1), M=M, rtol=rtol, restart=restart,
+                                 maxiter=maxiter, comm=comm)
         return u.reshape(shape), iters, relres
-
-    if colored:
-        def M(v):
-            rb = v.reshape(nu, nc)
-            z = _colored_apply_bl(geom, op, rb, symmetric=symmetric)
-            for _ in range(sweeps - 1):
-                z = z + _colored_apply_bl(geom, op, rb - _matvec_bl(geom, op, z),
-                                          symmetric=symmetric)
-            return z.reshape(-1)
-    else:
-        def M(v):
-            return _patch_apply_bl(geom, op, v.reshape(nu, nc)).reshape(-1)
-
-    u, iters, relres = gmres(matvec, rhs.reshape(-1), M=M, rtol=rtol, restart=restart,
-                             maxiter=maxiter, comm=comm)
-    return u.reshape(shape), iters, relres

@@ -52,11 +52,19 @@ it, so that one environment means one computation in both packages:
   ``COMPOSITE_STEP_CELLS`` = 100,000 cells (hdg_imex.py:141-172); this
   single host loop is the composite step's analogue, so the port honours
   it on every mesh of one rank;
-- ``IEHDG_PHASE_TIMING=1``: read at every step; the wall clock of each
-  phase, ended by ``torch.cuda.synchronize()`` on the card, goes into
-  ``PerformanceLog`` under the JAX labels "forcing", "star+build",
-  "residual", "sweep", "monolithic", "final", "reconstruct" (each interval
-  runs from the end of the previous one, as hdg_imex.py:586-604 does).
+- ``IEHDG_PHASE_TIMING=1``: read at every step, on one rank; the wall
+  clock of each phase, ended by ``torch.cuda.synchronize()`` on the card,
+  goes into ``PerformanceLog`` under the JAX labels "forcing",
+  "star+build", "residual", "sweep", "monolithic", "final", "reconstruct"
+  (each interval runs from the end of the previous one, as
+  hdg_imex.py:586-604 does).  The same switch records the step's other
+  spans (utils/logging.py), each its own host seconds with no synchronise:
+  "step", "bdm_projection" and "tentative_build" inside "star+build",
+  "solve.tentative" and "solve.pressure" around every solve,
+  "krylov.precond", "krylov.matvec" and "krylov.orthogonalise" in the
+  Krylov loops, and "host.read" around each blocking read of the card.
+  While torch.profiler records, every span, phases included, is in its
+  trace as ``iehdg.<label>``, whether the switch is on or not.
 
 - ``IEHDG_PC_BF16=1``: read at every step, in float32 only (ignored in
   float64, as hdg_imex.py:204-213): each stage build of the projection path
@@ -80,7 +88,7 @@ import torch
 
 from .common import IncompressibleEuler, synchronize
 from .tableaus import TABLEAUS, unroll_residual_coefficients
-from ..utils.logging import PerformanceLog, Averager
+from ..utils.logging import PerformanceLog, Averager, span, step_spans
 from ..ops import fields as F
 from ..ops.forms import (
     star_fields,
@@ -226,25 +234,6 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         p_new, lam_new = self._shift(p_new, lam_new)
         return p_new, lam_new, n_pr, rr_pr
 
-    def _phase_marker(self):
-        """``mark(label)``: with ``IEHDG_PHASE_TIMING=1`` on one rank, the
-        wall clock since the previous mark (the step's start first) into
-        ``PerformanceLog`` under ``label``, after the card has finished;
-        else nothing."""
-        if os.environ.get("IEHDG_PHASE_TIMING") != "1" or self.dec is not None:
-            return lambda label: None
-        t_last = [time.perf_counter()]
-        dev = self.disc.device
-
-        def mark(label):
-            if torch.device(dev).type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            PerformanceLog.data[label].append(now - t_last[0])
-            t_last[0] = now
-
-        return mark
-
     def step(self, stage_Q, stage_p, stage_lam, tn, f_rhs_fn):
         """One IMEX timestep from time ``tn`` (a float).
 
@@ -252,6 +241,12 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         between steps; index 0 holds the current solution.  Returns the new
         lists and a dict of iteration counts and the largest Krylov relres.
         """
+        timing = os.environ.get("IEHDG_PHASE_TIMING") == "1" and self.dec is None
+        with step_spans(timing, self.disc.device) as phase:
+            return self._step(stage_Q, stage_p, stage_lam, tn, f_rhs_fn, phase)
+
+    def _step(self, stage_Q, stage_p, stage_lam, tn, f_rhs_fn, phase):
+        """:meth:`step` under its spans; ``phase(label)`` opens a phase."""
         geom = self.geom
         s = self.nstages
         dt = self._dt
@@ -259,42 +254,45 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         pc_dtype = torch.bfloat16 if self.disc.dtype == torch.float32 and \
             os.environ.get("IEHDG_PC_BF16") == "1" else None
         lag_pc = os.environ.get("IEHDG_LAG_PC", "0") == "1" and self.dec is None
-        mark = self._phase_marker()
         stage_Q, stage_p, stage_lam = list(stage_Q), list(stage_p), list(stage_lam)
-        b_all = self._forcing(f_rhs_fn, tn)
-        mark("forcing")
+        with phase("forcing"):
+            b_all = self._forcing(f_rhs_fn, tn)
         its_t, its_p, relres = [], [], []
         op_prev, c_prev = None, None
         for i in range(1, s):
             a_ii = float(a_impl[i][i])
             c = a_ii * dt
-            star = star_fields(geom, project_bdm(geom, self._proj, stage_Q[i - 1]))
-            if self.use_projection_method:
-                # the patch factors carry over only between equal a_ii
-                # (preconditioners.py:211-227, hdg_imex.py:621-626)
-                reuse = op_prev if lag_pc and a_ii == c_prev else None
-                op = build_tentative_operator(geom, star, c, ALPHA_PENALTY, self.upwind,
-                                              pc_dtype=pc_dtype, reuse_factors=reuse)
-            mark("star+build")
-            r_i = self._weighted((self._alpha[i], self._beta[i]), torch.stack(stage_Q), b_all)
-            mark("residual")
+            with phase("star+build"):
+                with span("bdm_projection"):
+                    Q_bdm = project_bdm(geom, self._proj, stage_Q[i - 1])
+                star = star_fields(geom, Q_bdm)
+                if self.use_projection_method:
+                    # the patch factors carry over only between equal a_ii
+                    # (preconditioners.py:211-227, hdg_imex.py:621-626)
+                    reuse = op_prev if lag_pc and a_ii == c_prev else None
+                    with span("tentative_build"):
+                        op = build_tentative_operator(geom, star, c, ALPHA_PENALTY, self.upwind,
+                                                      pc_dtype=pc_dtype, reuse_factors=reuse)
+            with phase("residual"):
+                r_i = self._weighted((self._alpha[i], self._beta[i]), torch.stack(stage_Q),
+                                     b_all)
             Q_i, p_i, lam_i = stage_Q[i], stage_p[i], stage_lam[i]
             if self.use_projection_method:
                 for _ in range(self.n_richardson):
-                    Q_i, p_i, lam_i, n_t, n_p, rr = self._sweep(star, op, r_i, Q_i, p_i,
-                                                                lam_i, c)
-                    mark("sweep")
+                    with phase("sweep"):
+                        Q_i, p_i, lam_i, n_t, n_p, rr = self._sweep(star, op, r_i, Q_i, p_i,
+                                                                    lam_i, c)
                     its_t.append(n_t)
                     its_p.append(n_p)
                     relres.append(rr)
                 op_prev = op if lag_pc else None
                 del op
             else:
-                Q_i, p_i, lam_i, n_m, _ = monolithic_stage_solve(
-                    geom, self._cs, star, r_i, c, precond=self._precond,
-                    alpha=ALPHA_PENALTY, upwind=self.upwind, rtol=10 * self.rtol_pressure,
-                    x0=(Q_i, p_i, lam_i))
-                mark("monolithic")
+                with phase("monolithic"):
+                    Q_i, p_i, lam_i, n_m, _ = monolithic_stage_solve(
+                        geom, self._cs, star, r_i, c, precond=self._precond,
+                        alpha=ALPHA_PENALTY, upwind=self.upwind, rtol=10 * self.rtol_pressure,
+                        x0=(Q_i, p_i, lam_i))
                 its_t.append(n_m)
                 its_p.append(n_m)
                 relres.append(0.0)
@@ -303,13 +301,13 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
             stage_p[i], stage_lam[i] = self._shift(p_i, lam_i)
             stage_Q[i] = Q_i
 
-        r_fin = self._weighted((self._alpha_f, self._beta_f), torch.stack(stage_Q), b_all)
-        Q_new, _, _, n_fp, rr_fp = self._pressure_solve(
-            r_fin, r_fin.new_zeros((geom.d0, geom.n_cells)),
-            r_fin.new_zeros((self._cs.nt, geom.n_facets)))
-        mark("final")
-        p_new, lam_new, n_pr, rr_pr = self._reconstruct(f_rhs_fn, Q_new, tn)
-        mark("reconstruct")
+        with phase("final"):
+            r_fin = self._weighted((self._alpha_f, self._beta_f), torch.stack(stage_Q), b_all)
+            Q_new, _, _, n_fp, rr_fp = self._pressure_solve(
+                r_fin, r_fin.new_zeros((geom.d0, geom.n_cells)),
+                r_fin.new_zeros((self._cs.nt, geom.n_facets)))
+        with phase("reconstruct"):
+            p_new, lam_new, n_pr, rr_pr = self._reconstruct(f_rhs_fn, Q_new, tn)
         stage_Q[0], stage_p[0], stage_lam[0] = Q_new, p_new, lam_new
         counts = dict(
             tentative=its_t,

@@ -20,8 +20,7 @@ change, change, parent), in one call on one card.  It prints one JSON line:
   s/step over 3 steps after a warm-up step, each ended by
   ``torch.cuda.synchronize()``, the iteration counts, launches a step, and
   from ``torch.profiler`` over one more step the device time of each kernel
-  and of all kernels, the device busy share and the PyTorch operators with
-  the most device time;
+  and of all kernels and the PyTorch operators with the most device time;
 - the same for Taylor-Green at 128^2, k=4 (chip_smoke.py's run (d), which
   runs K5), over one step after a warm-up step (``wide_128_k4_``), or at
   each ``--wide NX:K`` given instead (e.g. ``--wide 64:5 --wide 64:6``,
@@ -276,8 +275,7 @@ def main_path(nx=NX, degree=DEGREE, steps=STEPS, problem="taylorgreen", refineme
     """HDG IMEX SSP2 + projection on ``problem``'s mesh as the CLI driver
     builds it (nx^2, or the unit disk at ``refinement``), k = degree,
     float32, dt = 1/256: set-up, one warm-up step, ``steps`` timed steps, one
-    profiled step; the device busy share is the profiled step's device time
-    over the mean timed step."""
+    profiled step."""
     from incompressibleeulerhdg_tpu_torch import kernels
     from incompressibleeulerhdg_tpu_torch.cli.driver import make_mesh, make_problem
     from incompressibleeulerhdg_tpu_torch.fem.discretisation import HDGDiscretisation
@@ -307,13 +305,11 @@ def main_path(nx=NX, degree=DEGREE, steps=STEPS, problem="taylorgreen", refineme
         times.append(time.perf_counter() - t0)
     launches = {n: v / steps for n, v in kernels.LAUNCHES.items()}
     prof = device_ms_by_kernel(lambda: stepper.step(*state, (steps + 1) * dt, f_rhs))
-    per_step = sum(times) / steps
     return {"problem": problem, "n_cells": disc.geom.n_cells, "setup_s": setup_s,
-            "s_per_step": per_step, "steps_s": times,
+            "s_per_step": sum(times) / steps, "steps_s": times,
             "tentative": counts["tentative"], "pressure": counts["pressure"],
             "final": counts["final_pressure"], "recon": counts["reconstruction"],
-            "launches_per_step": launches, **prof,
-            "device_busy_share": prof["device_ms"] / 1e3 / per_step}
+            "launches_per_step": launches, **prof}
 
 
 def main(argv=None):

@@ -1,18 +1,40 @@
-"""Performance measurement tools: per-label wall clocks and a streaming mean.
+"""Performance measurement tools: per-label wall clocks, the step's spans
+and a streaming mean.
 
-The port's own copy of incompressibleeulerhdg_tpu/utils/logging.py (numpy
-only).  Timers are host-side wall clocks; callers synchronise the device
-inside the timed region (the solve loops call ``torch.cuda.synchronize``)
-so asynchronous launches do not leak out of the measurement.
+The port's own copy of incompressibleeulerhdg_tpu/utils/logging.py, with
+the spans of the HDG IMEX step beside it.  ``PerformanceLog`` timers are
+host-side wall clocks; callers synchronise the device inside the timed
+region so asynchronous launches do not leak out of the measurement.
+
+Spans (:func:`span`) name the regions of one step: the step, its phases,
+the two solves, the Krylov loops' parts and every blocking device-to-host
+read.  The stepper opens the step's spans with :func:`step_spans`, which
+sets the one module flag that every span checks, in one of three states
+(both of the first two may hold):
+
+- ``torch.profiler`` recording: each span opens
+  ``torch.profiler.record_function("iehdg." + name)``, so it sits in the
+  trace on the clock of the CUDA activity and names the host's time there;
+- ``IEHDG_PHASE_TIMING=1`` on one rank: each span appends its own host
+  seconds to ``PerformanceLog.data[name]``, with no synchronise; a phase
+  span (the callable that :func:`step_spans` yields) appends instead the
+  interval since the previous phase ended, after the card has finished;
+- otherwise a span costs one check of the flag: no clock, no allocation and
+  no ``record_function``.
 """
 
 import time
 from collections import defaultdict
-from contextlib import ContextDecorator
+from contextlib import ContextDecorator, contextmanager
 
 import numpy as np
+import torch
 
-__all__ = ["PerformanceLog", "log_summary", "Averager"]
+__all__ = ["PerformanceLog", "log_summary", "Averager", "span", "step_spans"]
+
+SPAN_PREFIX = "iehdg."  # a span's name in the profiler's trace
+RECORD, TIME = 1, 2  # the flag's bits: the profiler records; IEHDG_PHASE_TIMING=1
+_mode = 0  # set by step_spans for the length of one step
 
 
 class PerformanceLog(ContextDecorator):
@@ -38,6 +60,88 @@ class PerformanceLog(ContextDecorator):
     @classmethod
     def reset(cls):
         cls.data = defaultdict(list)
+
+
+class _Off:
+    """The span of the off state: enters and leaves, nothing else."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """A span in the recording or timing state; a phase span (``phases``
+    given) times from the previous phase's end, after a synchronise."""
+
+    __slots__ = ("name", "mode", "phases", "rf", "t0")
+
+    def __init__(self, name, mode, phases=None):
+        self.name, self.mode, self.phases, self.rf = name, mode, phases, None
+
+    def __enter__(self):
+        if self.mode & RECORD:
+            self.rf = torch.profiler.record_function(SPAN_PREFIX + self.name)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.mode & TIME:
+            ph = self.phases
+            if ph is None:
+                PerformanceLog.data[self.name].append(time.perf_counter() - self.t0)
+            else:
+                if ph.cuda:
+                    torch.cuda.synchronize(ph.device)
+                now = time.perf_counter()
+                PerformanceLog.data[self.name].append(now - ph.t_last)
+                ph.t_last = now
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name):
+    """The span ``name`` of the running step (see the module docstring)."""
+    return _Span(name, _mode) if _mode else _OFF
+
+
+class _Phases:
+    """The phase spans of one step: ``phases(label)`` is a span whose timed
+    interval runs from the end of the previous phase (the step's start
+    first) to the card's finishing this one, as the JAX package's phase
+    marks do (hdg_imex.py:586-604)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device) if device is not None else None
+        self.cuda = self.device is not None and self.device.type == "cuda"
+        self.t_last = time.perf_counter()
+
+    def __call__(self, label):
+        return _Span(label, _mode, self) if _mode else _OFF
+
+
+@contextmanager
+def step_spans(timing, device=None):
+    """Set the span flag for one step and open its ``step`` span; yields
+    the step's phase spans.  ``timing``: ``IEHDG_PHASE_TIMING=1`` on one
+    rank; ``device``: the device a phase synchronises at its end.  The
+    flag is off again when the step ends."""
+    global _mode
+    _mode = (RECORD if torch._C._autograd._profiler_enabled() else 0) | (TIME if timing else 0)
+    try:
+        with span("step"):
+            yield _Phases(device)
+    finally:
+        _mode = 0
 
 
 def log_summary(out=print):
