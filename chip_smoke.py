@@ -1889,37 +1889,41 @@ def check_path_kernels(key, launches, kernels_of_path):
 
 @contextlib.contextmanager
 def counting_sweeps(store):
-    """Within the block, the fused sweep's applications (``store["sweeps"]``)
-    and the K1 and full-field cross-pair launches made inside them
-    (``store["k1"]``, ``store["k2_full"]``)."""
+    """Within the block, the fused sweep's applications (``store["sweeps"]``:
+    the Krylov loops' preconditioner applications that return the pair
+    (M v, A M v)) and the K1 and full-field cross-pair launches made inside
+    them (``store["k1"]``, ``store["k2_full"]``): a CUDA graph's replays
+    launch and count, its capture launches nothing and counts nothing."""
     from incompressibleeulerhdg_tpu_torch import kernels
+    from incompressibleeulerhdg_tpu_torch.linalg import krylov
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
-    from incompressibleeulerhdg_tpu_torch.linalg import tentative
 
-    real_sweep, real_cross = tentative._colored_apply_fused_bl, P.cross_pair
+    real_precond, real_cross = krylov._precond, P.cross_pair
     store.update(sweeps=0, k1=0, k2_full=0)
     inside = [False]
 
     def cross(K01, K10, Bp, Cp, bounds, *a, **k):
-        if inside[0] and len(bounds) > 2:
+        if inside[0] and len(bounds) > 2 and getattr(kernels.CAPTURE, "graph", None) is None:
             store["k2_full"] += 1
         return real_cross(K01, K10, Bp, Cp, bounds, *a, **k)
 
-    def sweep(*a, **k):
-        store["sweeps"] += 1
+    def precond(M, v):
         k1 = kernels.LAUNCHES["fact_apply"]
         inside[0] = True
         try:
-            return real_sweep(*a, **k)
+            out = real_precond(M, v)
         finally:
             inside[0] = False
+        if isinstance(out, tuple):
+            store["sweeps"] += 1
             store["k1"] += kernels.LAUNCHES["fact_apply"] - k1
+        return out
 
-    tentative._colored_apply_fused_bl, P.cross_pair = sweep, cross
+    krylov._precond, P.cross_pair = precond, cross
     try:
         yield
     finally:
-        tentative._colored_apply_fused_bl, P.cross_pair = real_sweep, real_cross
+        krylov._precond, P.cross_pair = real_precond, real_cross
 
 
 def knob_phase(default_counts):
@@ -2017,13 +2021,15 @@ def counting_cross_pair(key, steps):
     CROSS_CALLS[key]: "full" (every colour and the boundary tail in one
     launch, the tentative matvec) or "colour" (one colour at its offset, the
     fused sweep's off-colour updates)."""
+    from incompressibleeulerhdg_tpu_torch import kernels
     from incompressibleeulerhdg_tpu_torch.linalg import preconditioners as P
 
     real = P.cross_pair
     calls = CROSS_CALLS[key] = {"colour": 0, "full": 0, "steps": steps}
 
     def count(K01, K10, Bp, Cp, bounds, *a, **k):
-        calls["full" if len(bounds) > 2 else "colour"] += 1
+        if getattr(kernels.CAPTURE, "graph", None) is None:  # a capture launches nothing
+            calls["full" if len(bounds) > 2 else "colour"] += 1
         return real(K01, K10, Bp, Cp, bounds, *a, **k)
 
     P.cross_pair = count

@@ -15,14 +15,21 @@ every instantiation) is kept beside each library and read by
 
 Every wrapper that launches a kernel adds one to ``LAUNCHES[name]`` at the
 launch, and only there, so a run can show which kernels its main path went
-through (:func:`reset_launches` zeroes the counts).
+through (:func:`reset_launches` zeroes the counts).  A CUDA graph
+(``linalg/krylov.py`` ``graphed``) captures no launch: its capture cuts
+the graph around each call of a wrapper marked :func:`graph_cut`, and each
+replay calls the wrapper there, which launches and counts as an eager call
+does.
 """
 
 import ctypes
+import functools
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -33,8 +40,10 @@ __all__ = [
     "KERNELS",
     "LAUNCHES",
     "build_all",
+    "graph_cut",
     "reset_launches",
     "launch",
+    "launch_outputs",
     "ptxas_report",
     "stream_ptr",
 ]
@@ -137,6 +146,8 @@ SOURCES = {"fact_apply_wide": "wide_apply", "cross_pair_wide": "wide_apply",
            "patch_solve_wide_bf16": "patch_solve_wide"}
 
 LAUNCHES = {name: 0 for name in KERNELS}
+
+CAPTURE = threading.local()  # .graph: the graph this thread captures; .outs: see launch_outputs
 
 _LIBS = {}
 _PENDING = {}  # source -> (nvcc process, temporary output) started by start_builds
@@ -288,6 +299,49 @@ def launch(name, *args):
         msg = lib.iehdg_error_string(code).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({code})")
     LAUNCHES[name] += 1
+
+
+def graph_cut(vectors, n_out):
+    """Decorator of a launch wrapper whose ``n_out`` outputs are new tensors
+    shaped like its argument named ``vectors[0]``, allocated by
+    :func:`launch_outputs`; ``vectors`` names the arguments it makes
+    contiguous.  While this thread captures a graph a call launches
+    nothing: it makes the vectors contiguous and allocates the outputs
+    inside the capture, and hands the call to the graph
+    (``CAPTURE.graph.cut``), which ends its CUDA graph there and goes on
+    in a new one.  At every replay, between the two, the graph calls the
+    wrapper by its name in its module with the same arguments, and the
+    wrapper launches into those outputs."""
+
+    def deco(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            graph = getattr(CAPTURE, "graph", None)
+            if graph is None:
+                return fn(*args, **kwargs)
+            bound = sig.bind(*args, **kwargs)
+            for name in vectors:
+                bound.arguments[name] = bound.arguments[name].contiguous()
+            like = bound.arguments[vectors[0]]
+            outs = tuple(torch.empty_like(like) for _ in range(n_out))
+            graph.cut(sys.modules[fn.__module__], fn.__name__, bound.args, bound.kwargs, outs)
+            return outs[0] if n_out == 1 else outs
+
+        return call
+
+    return deco
+
+
+def launch_outputs(like, n):
+    """The ``n`` outputs of a launch wrapper (:func:`graph_cut`): new tensors
+    shaped like ``like``, or at a graph's replay those of its capture."""
+    outs = getattr(CAPTURE, "outs", None)
+    if outs is None:
+        return tuple(torch.empty_like(like) for _ in range(n))
+    CAPTURE.outs = None
+    return outs
 
 
 def dtype_code(dtype, factors=None):

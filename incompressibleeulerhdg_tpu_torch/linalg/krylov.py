@@ -23,14 +23,25 @@ Vectors are flat 1-D tensors; callers flatten their field layouts.  With a
 distributed vector: every inner product and norm is summed over the ranks,
 so each stopping test reads the same all-reduced value on every rank and
 all ranks take the same iterations (the JAX package's ``axis_name``).
+
+A preconditioner's owner on one card may hand the loops :func:`graphed` of
+it: each application then replays CUDA graphs of its PyTorch work (their
+capture under the span ``krylov.capture``, each replay under
+``krylov.replay``), with each hand-written kernel launched between them by
+its own wrapper, so the host no longer issues the application's hundreds
+of small operations one by one.
 """
+
+import weakref
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..utils.logging import span
 
-__all__ = ["gmres", "gmres_right", "fgmres", "cg", "deflate_constant", "pdot", "pnorm"]
+__all__ = ["gmres", "gmres_right", "fgmres", "cg", "deflate_constant", "graphed", "pdot",
+           "pnorm"]
 
 
 def pdot(a, b, comm=None):
@@ -145,6 +156,118 @@ def _matvec(matvec, v):
 def _precond(M, v):
     with span("krylov.precond"):
         return M(v)
+
+
+_WARM = set()  # (key, layout) of every graphed computation that has run eagerly
+_LIVE = weakref.WeakSet()  # the captures still held by their owners
+_STREAM = {}  # device -> the stream its captures run on
+
+
+def _copies(out):
+    return out.clone() if isinstance(out, torch.Tensor) else tuple(t.clone() for t in out)
+
+
+class _Graph:
+    """One captured application: its static input, its outputs, and its
+    parts in order, the CUDA graphs of its PyTorch work and between them
+    the calls of the hand-written kernels' launch wrappers
+    (``kernels.graph_cut``).
+
+    Every capture on a device takes the memory pool of a capture still
+    alive there (a new pool when none is), on the device's one capture
+    stream, so a pool's memory is each capture's scratch in turn.  That
+    holds because nothing a capture carries from one replay to the next
+    lies in the pool (its input buffer lies outside, the tables it reads
+    are its owner's), replays run one after another on one stream, and a
+    call copies the outputs before any other replay."""
+
+    def __init__(self, fn, v):
+        self.device = v.device
+        self.inp = torch.empty_like(v)
+        self.pool = next((g.pool for g in _LIVE if g.device == v.device), None) or \
+            torch.cuda.graph_pool_handle()
+        self.parts = []
+        cur = torch.cuda.current_stream(v.device)
+        side = _STREAM.get(v.device)
+        if side is None:  # capture needs a stream of its own
+            side = _STREAM[v.device] = torch.cuda.Stream(v.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            kernels.CAPTURE.graph = self
+            self._begin()
+            try:
+                self.out = fn(self.inp)
+            finally:
+                kernels.CAPTURE.graph = None
+                self.parts[-1].capture_end()
+        cur.wait_stream(side)
+        _LIVE.add(self)
+
+    def _begin(self):
+        g = torch.cuda.CUDAGraph()
+        g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self.parts.append(g)
+
+    def cut(self, module, name, args, kwargs, outs):
+        """End the graph being captured before a launch wrapper's call
+        (``module.name(*args, **kwargs)`` into ``outs``) and begin the next."""
+        self.parts[-1].capture_end()
+        self.parts.append((module, name, args, kwargs, outs))
+        self._begin()
+
+    def __call__(self, v):
+        self.inp.copy_(v)
+        for part in self.parts:
+            if not isinstance(part, tuple):
+                part.replay()
+                continue
+            module, name, args, kwargs, outs = part
+            kernels.CAPTURE.outs = outs
+            try:
+                got = getattr(module, name)(*args, **kwargs)
+            finally:
+                kernels.CAPTURE.outs = None
+            if any(a is not b for a, b in zip((got,) if len(outs) == 1 else got, outs)):
+                raise RuntimeError(f"{name} wrote outside the outputs of its capture")
+        return _copies(self.out)
+
+
+def graphed(fn, graphs, key):
+    """``fn`` (a preconditioner on one card: a tensor in, a tensor or a
+    tuple of tensors out, no read of the device, no collective) replayed
+    from CUDA graphs.
+
+    For a CUDA ``v`` the first call of a ``key`` and input layout (shape,
+    dtype, device) in the process runs eagerly, which sets up what the
+    launches need once (FFT plans, library handles); a later call captures
+    ``fn`` into ``graphs`` (under ``krylov.capture``), and every call
+    copies ``v`` into the capture's input, replays (under ``krylov.replay``)
+    and returns copies of its outputs, so a result stays as it is under
+    later calls.  A replay runs the captured PyTorch work and calls each
+    hand-written kernel's launch wrapper where ``fn`` called it
+    (``kernels.graph_cut``), in the eager call's order: the results are
+    the eager path's.  For a CPU ``v``, ``fn(v)`` runs as it is.
+
+    :arg graphs: dict of the captures, which its owner keeps exactly as
+        long as the tensors that ``fn`` reads
+    :arg key: what, beside the input's layout, decides the work ``fn`` does
+    """
+
+    def apply(v):
+        if not v.is_cuda:
+            return fn(v)
+        layout = (key, tuple(v.shape), v.dtype, v.device)
+        g = graphs.get(layout)
+        if g is None:
+            if layout not in _WARM:
+                _WARM.add(layout)
+                return fn(v)
+            with span("krylov.capture"):
+                g = graphs[layout] = _Graph(fn, v)
+        with span("krylov.replay"):
+            return g(v)
+
+    return apply
 
 
 def gmres(matvec, b, *, M=None, rtol=1e-12, restart=30, maxiter=200, project=None, comm=None):

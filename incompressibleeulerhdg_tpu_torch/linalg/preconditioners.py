@@ -108,7 +108,10 @@ def _fact_wanted():
 class TentativeOperator:
     """Per-stage tentative operator and its Schwarz factors: factored tables
     (``Sown`` ... ``Cp``) on uniform structured meshes, dense tables
-    (``D``, ``Bx``, ``Cx``) elsewhere; the other group is None."""
+    (``D``, ``Bx``, ``Cx``) elsewhere; the other group is None.
+    ``graphs`` (no field) holds the CUDA graphs of the tentative solve's
+    preconditioner on these tables (``krylov.graphed``), which live as long
+    as the operator."""
 
     Dinv: torch.Tensor  # (nu, nu, nc) own-cell inverses
     Sinv: torch.Tensor  # (nu, nu, nf) patch Schur inverses (identity on boundary)
@@ -122,6 +125,9 @@ class TentativeOperator:
     D: torch.Tensor = None  # (nu, nu, nc) dense own-cell blocks
     Bx: torch.Tensor = None  # (nu, nu, nf) dense cross blocks: plus rows, minus columns
     Cx: torch.Tensor = None  # (nu, nu, nf) minus rows, plus columns
+
+    def __post_init__(self):
+        self.graphs = {}
 
 
 CUDA_D1 = (3, 6, 10, 15, 21, 28, 36)  # k = 0 .. 6: K1's instantiations
@@ -409,6 +415,7 @@ def fact_apply_plain(A, P, bounds, x, aoff=0):
     return z + torch.cat(parts, dim=1)
 
 
+@kernels.graph_cut(("x",), 1)
 def fact_apply(A, P, bounds, x, aoff=0):
     """K1: (I2 (x) A[:, :, aoff + c] + P[segment of c]) x[:, c] for every
     column c of x (nu, m); A (d1, d1, M), P (nseg, nu, nu), ``bounds`` the
@@ -428,7 +435,7 @@ def fact_apply(A, P, bounds, x, aoff=0):
     else:
         (A,), lda = _wide_tables(A)
     dev, code = kernels.check_cuda(name, P, x, tables=(A,))
-    out = torch.empty_like(x)
+    out, = kernels.launch_outputs(x, 1)
     if m == 0:
         return out
     seg, nseg = kernels.seg_array(bounds)
@@ -449,6 +456,7 @@ def cross_pair_plain(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
             fact_apply_plain(K10, Cp, bounds, x0, aoff))
 
 
+@kernels.graph_cut(("x0", "x1"), 2)
 def cross_pair(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
     """K2: y0 = (I2 (x) K01 + Bp[s]) x1 and y1 = (I2 (x) K10 + Cp[s]) x0 in
     one pass over columns c of x0/x1 (nu, m) (tables at column aoff + c)."""
@@ -472,8 +480,7 @@ def cross_pair(K01, K10, Bp, Cp, bounds, x0, x1, aoff=0):
     if name == "cross_pair_cluster":
         p = cross_pair_plan(d1, x0.dtype)
         plan = (p["F"], p["CS"], p["threads"], p["smem_bytes"])
-    y0 = torch.empty_like(x0)
-    y1 = torch.empty_like(x0)
+    y0, y1 = kernels.launch_outputs(x0, 2)
     if m == 0:
         return y0, y1
     seg, nseg = kernels.seg_array(bounds)
@@ -503,6 +510,7 @@ def patch_solve_plain(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
     return y0, y1
 
 
+@kernels.graph_cut(("r0", "r1"), 2)
 def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
     """K3: the exact 2x2 block-Schur patch solves of the facets at table
     columns off .. off + m - 1 for residual sides r0/r1 (nu, m):
@@ -537,8 +545,7 @@ def patch_solve(Dinv0, Sinv, K01, K10, Bp_k, Cp_k, r0, r1, off):
     if name.startswith("patch_solve_wide"):
         p = patch_wide_plan(d1, r0.dtype, factors=Dinv0.dtype)
         plan = (p["F"], p["CS"], p["threads"], p["smem_bytes"])
-    y0 = torch.empty_like(r0)
-    y1 = torch.empty_like(r0)
+    y0, y1 = kernels.launch_outputs(r0, 2)
     if m == 0:
         return y0, y1
     kernels.launch(name, dev, code, d1, *plan, Dinv0.data_ptr(), Sinv.data_ptr(),
@@ -799,11 +806,14 @@ def _matvec_bl(geom, op, ub):
     u0, u1 = _gather_sides_bl(geom, ub)
     if op.Sown is None:
         r, z0, z1 = _bm(op.D, ub), _bm(op.Bx, u1), _bm(op.Cx, u0)
-    else:
-        nch = geom.shift[0] * geom.shift[1]
-        r = fact_apply(op.Sown, op.Pcell, (0, nch, geom.n_cells), ub)
-        z0, z1 = _cross_pair_full(geom, op, u0, u1)
-    return r + gather_facet_contribs(geom, z0, z1 * interior_mask(geom, 2))
+        return r + gather_facet_contribs(geom, z0, z1 * interior_mask(geom, 2))
+    # K2 before K1, with the gather between them: PyTorch work on both
+    # sides of each launch, so a graph's capture cuts no empty graph
+    # (kernels.graph_cut)
+    z0, z1 = _cross_pair_full(geom, op, u0, u1)
+    z = gather_facet_contribs(geom, z0, z1 * interior_mask(geom, 2))
+    nch = geom.shift[0] * geom.shift[1]
+    return fact_apply(op.Sown, op.Pcell, (0, nch, geom.n_cells), ub) + z
 
 
 def tentative_operator_matvec(geom, op, u):

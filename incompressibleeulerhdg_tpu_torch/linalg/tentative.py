@@ -11,7 +11,9 @@ The preconditioner, chosen as the JAX package chooses it (tentative.py:86-139):
   structured mesh (square or periodic): right-preconditioned flexible GMRES
   whose preconditioner is ``sweeps`` multiplicative colored facet-pair
   Schwarz sweeps, each returning ``M v`` together with the exact ``A M v``
-  (one sweep + one matvec per Arnoldi step).  On factored tables a sweep
+  (one sweep + one matvec per Arnoldi step; on one card each application
+  replays CUDA graphs, ``krylov.graphed``, kept in ``op.graphs`` for the
+  operator's lifetime).  On factored tables a sweep
   runs K3 once per colour it visits (``2 ncol - 1`` symmetric, ``ncol``
   forward only) and K2 once per other colour in each residual update, and
   the matvec runs K1 and K2; on dense tables (``IEHDG_FACT=0``) all of it is
@@ -52,7 +54,7 @@ from ..ops.fields import mass_apply
 from ..ops.forms import f_impl_apply
 from ..ops.structured import dist_axis
 from ..utils.logging import span
-from .krylov import gmres, gmres_right
+from .krylov import gmres, gmres_right, graphed
 from .preconditioners import (_colored_apply_bl, _colored_apply_fused_bl, _matvec_bl,
                               _patch_apply_bl)
 
@@ -111,6 +113,9 @@ def tentative_solve(geom, op, rhs, *, rtol=1.0e-10, restart=40, maxiter=200, col
                     z, Az = z + dz, Az + Adz
                 return z.reshape(-1), Az.reshape(-1)
 
+            if comm is None:  # one card: no collective in the sweep
+                kinds = ("tentative", sweeps, symmetric, mode, op.Sown is None, op.Dinv0.dtype)
+                opM = graphed(opM, op.graphs, kinds)
             u, iters, relres = gmres_right(opM, matvec, rhs.reshape(-1), rtol=rtol,
                                            restart=restart, maxiter=maxiter, comm=comm)
             return u.reshape(shape), iters, relres

@@ -22,7 +22,9 @@ After :meth:`distribute` the same step runs on a slab's tables
 part; :meth:`solve` then gathers the state to rank 0 at a checkpoint, for
 the callbacks and at the end.
 
-The stage loop is a Python loop on eager tensors.  Iteration counts of every
+The stage loop is a Python loop on eager tensors; on one card each
+application of the GTMG V-cycle and of the tentative solve's fused sweep
+replays CUDA graphs (``krylov.graphed``).  Iteration counts of every
 solve are returned by :meth:`step` and averaged by :meth:`solve`, which also
 checkpoints and resumes the full stage state (and the tracer), hands each
 step's fields to the callbacks, and warns of a non-finite Krylov residual
@@ -82,6 +84,7 @@ sweep runs (linalg/tentative.py).
 import os
 import time
 import warnings
+from functools import partial
 
 import numpy as np
 import torch
@@ -102,6 +105,7 @@ from ..ops.reconstruction import pressure_reconstruction_rhs
 from ..ops.tracer import cg_project_velocity, tracer_advection_apply
 from ..linalg.condense import build_condensed_system
 from ..linalg.gtmg import build_gtmg, gtmg_apply
+from ..linalg.krylov import graphed
 from ..linalg.pressure import pressure_solve
 from ..linalg.tentative import tentative_solve
 from ..linalg.preconditioners import build_tentative_operator
@@ -153,6 +157,9 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         self._alpha_f, self._beta_f = t(alpha_f), t(beta_f)
         self._cs = build_condensed_system(disc, tau=self.tau)
         self._gtmg = build_gtmg(disc, self._cs)
+        self._graphs = {}  # the V-cycle's captures, which live as long as its tables
+        self._graphed_vcycle = graphed(partial(gtmg_apply, self.geom, self._cs, self._gtmg),
+                                       self._graphs, ("gtmg", self._gtmg.coarse_kind))
         self.tentative_restart = int(os.environ.get("IEHDG_TENT_RESTART", str(TENTATIVE_RESTART)))
         self.tentative_sweeps = int(os.environ.get("IEHDG_TENT_SWEEPS", "1"))
         self.tentative_symmetric = os.environ.get("IEHDG_TENT_SYM", "1") == "1"
@@ -186,8 +193,13 @@ class IncompressibleEulerHDGIMEX(IncompressibleEuler):
         ml = m if geom.fvalid is None else m * geom.fvalid
         return p - mp, lam - ml
 
-    def _precond(self, v):
+    def _vcycle(self, v):
         return gtmg_apply(self.geom, self._cs, self._gtmg, v)
+
+    def _precond(self, v):
+        """The GTMG V-cycle: on one card replayed from its CUDA graphs
+        (``krylov.graphed``), on a rank eager (its sums run over the ranks)."""
+        return self._vcycle(v) if self.dec is not None else self._graphed_vcycle(v)
 
     def _pressure_solve(self, f_u, f_p, f_lam):
         return pressure_solve(self.geom, self._cs, f_u, f_p, f_lam,
