@@ -75,6 +75,7 @@ from .. import kernels
 from ..ops import structured as st
 from ..ops.fields import (cells_ext, gather_facet_contribs, gather_sides, interior_mask,
                           slot_values, table_ext)
+from ..utils.logging import span
 from .smallinv import gauss_jordan_inv_bl
 
 __all__ = [
@@ -582,6 +583,10 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True, pc_dtype=Non
     ``Dinv0``, ``Sinv``) this one takes instead of inverting its own (the
     lagged preconditioner, preconditioners.py:450-475); the matvec tables
     are built fresh, so only the preconditioner lags.
+
+    The block inversions (``Dinv`` and each colour's ``Sinv``) and the
+    Schur blocks between them run inside the span ``tentative_inverse``
+    (``utils/logging.py``), synchronised at both ends when timed.
     """
     factored = geom.shift is not None and _fact_wanted()
     if factored and geom.uniform is None:
@@ -650,22 +655,24 @@ def build_tentative_operator(geom, star, c, alpha=1.0, upwind=True, pc_dtype=Non
     if reuse_factors is not None:
         rf = reuse_factors
         return TentativeOperator(Dinv=rf.Dinv, Sinv=rf.Sinv, Dinv0=rf.Dinv0, D=D_bl, Bx=Bx, Cx=Cx)
-    Dinv_bl = gauss_jordan_inv_bl(D_bl)
-    if geom.shift is not None:  # IEHDG_FACT=0 on a structured mesh
-        Sinv, Dinv0 = _schur_structured(
-            geom, D_bl, Dinv_bl, lambda k, b0, b1: (Bx[:, :, b0:b1], Cx[:, :, b0:b1]), store)
-        return TentativeOperator(Dinv=Dinv_bl, Sinv=Sinv, Dinv0=Dinv0, D=D_bl, Bx=Bx, Cx=Cx)
-    # patch Schur factors of every facet; identity blocks on the boundary
-    if geom.part is None:
-        Dinv0, D1 = Dinv_bl[:, :, geom.fcells[0]], D_bl[:, :, geom.fcells[1]]
-    else:  # the ghost cells' blocks, one exchange
-        both = cells_ext(geom, torch.stack([Dinv_bl, D_bl]))
-        Dinv0, D1 = both[0][:, :, geom.fcells[0]], both[1][:, :, geom.fcells[1]]
-    Sc = D1 - _bmm(Cx, _bmm(Dinv0, Bx))
-    eye = torch.eye(nu, dtype=dtype, device=dev)[:, :, None]
-    Sc = torch.where(msk[None, None, :] > 0, Sc, eye)
-    return TentativeOperator(Dinv=Dinv_bl, Sinv=gauss_jordan_inv_bl(Sc).to(store),
-                             Dinv0=Dinv0.to(store), D=D_bl, Bx=Bx, Cx=Cx)
+    with span("tentative_inverse", dev):
+        Dinv_bl = gauss_jordan_inv_bl(D_bl)
+        if geom.shift is not None:  # IEHDG_FACT=0 on a structured mesh
+            Sinv, Dinv0 = _schur_structured(
+                geom, D_bl, Dinv_bl, lambda k, b0, b1: (Bx[:, :, b0:b1], Cx[:, :, b0:b1]), store)
+            return TentativeOperator(Dinv=Dinv_bl, Sinv=Sinv, Dinv0=Dinv0, D=D_bl, Bx=Bx, Cx=Cx)
+        # patch Schur factors of every facet; identity blocks on the boundary
+        if geom.part is None:
+            Dinv0, D1 = Dinv_bl[:, :, geom.fcells[0]], D_bl[:, :, geom.fcells[1]]
+        else:  # the ghost cells' blocks, one exchange
+            both = cells_ext(geom, torch.stack([Dinv_bl, D_bl]))
+            Dinv0, D1 = both[0][:, :, geom.fcells[0]], both[1][:, :, geom.fcells[1]]
+        Sc = D1 - _bmm(Cx, _bmm(Dinv0, Bx))
+        eye = torch.eye(nu, dtype=dtype, device=dev)[:, :, None]
+        Sc = torch.where(msk[None, None, :] > 0, Sc, eye)
+        Sinv = gauss_jordan_inv_bl(Sc).to(store)
+    return TentativeOperator(Dinv=Dinv_bl, Sinv=Sinv, Dinv0=Dinv0.to(store), D=D_bl, Bx=Bx,
+                             Cx=Cx)
 
 
 def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha, store, reuse_factors=None):
@@ -708,13 +715,14 @@ def _build_factored(geom, S_own, K01s, K10s, Pt, c, alpha, store, reuse_factors=
     D_bl = _kron2(S_own)
     D_bl[:, :, :nch] += Pcell[0][:, :, None]
     D_bl[:, :, nch:] += Pcell[1][:, :, None]
-    Dinv_bl = gauss_jordan_inv_bl(D_bl)
 
     def cross(k, b0, b1):
         return (_kron2(K01s[:, :, b0:b1]) + Bp[k][:, :, None],
                 _kron2(K10s[:, :, b0:b1]) + Cp[k][:, :, None])
 
-    Sinv, Dinv0 = _schur_structured(geom, D_bl, Dinv_bl, cross, store)
+    with span("tentative_inverse", dev):
+        Dinv_bl = gauss_jordan_inv_bl(D_bl)
+        Sinv, Dinv0 = _schur_structured(geom, D_bl, Dinv_bl, cross, store)
     return TentativeOperator(Dinv=Dinv_bl, Sinv=Sinv, Dinv0=Dinv0, **tables)
 
 

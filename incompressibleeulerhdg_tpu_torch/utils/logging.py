@@ -16,9 +16,11 @@ sets the one module flag that every span checks, in one of three states
   ``torch.profiler.record_function("iehdg." + name)``, so it sits in the
   trace on the clock of the CUDA activity and names the host's time there;
 - ``IEHDG_PHASE_TIMING=1`` on one rank: each span appends its own host
-  seconds to ``PerformanceLog.data[name]``, with no synchronise; a phase
-  span (the callable that :func:`step_spans` yields) appends instead the
-  interval since the previous phase ended, after the card has finished;
+  seconds to ``PerformanceLog.data[name]``, with no synchronise; a span
+  given a ``device`` synchronises it at its start and end, so that its
+  sample is the card's time for the work inside; a phase span (the
+  callable that :func:`step_spans` yields) appends instead the interval
+  since the previous phase ended, after the card has finished;
 - otherwise a span costs one check of the flag: no clock, no allocation and
   no ``record_function``.
 """
@@ -79,17 +81,22 @@ _OFF = _Off()
 
 class _Span:
     """A span in the recording or timing state; a phase span (``phases``
-    given) times from the previous phase's end, after a synchronise."""
+    given) times from the previous phase's end, after a synchronise; a
+    span with a CUDA ``sync`` device synchronises it at both ends when
+    timed."""
 
-    __slots__ = ("name", "mode", "phases", "rf", "t0")
+    __slots__ = ("name", "mode", "phases", "sync", "rf", "t0")
 
-    def __init__(self, name, mode, phases=None):
+    def __init__(self, name, mode, phases=None, sync=None):
         self.name, self.mode, self.phases, self.rf = name, mode, phases, None
+        self.sync = sync if mode & TIME and sync is not None and sync.type == "cuda" else None
 
     def __enter__(self):
         if self.mode & RECORD:
             self.rf = torch.profiler.record_function(SPAN_PREFIX + self.name)
             self.rf.__enter__()
+        if self.sync is not None:
+            torch.cuda.synchronize(self.sync)
         self.t0 = time.perf_counter()
         return self
 
@@ -97,6 +104,8 @@ class _Span:
         if self.mode & TIME:
             ph = self.phases
             if ph is None:
+                if self.sync is not None:
+                    torch.cuda.synchronize(self.sync)
                 PerformanceLog.data[self.name].append(time.perf_counter() - self.t0)
             else:
                 if ph.cuda:
@@ -109,9 +118,11 @@ class _Span:
         return False
 
 
-def span(name):
-    """The span ``name`` of the running step (see the module docstring)."""
-    return _Span(name, _mode) if _mode else _OFF
+def span(name, device=None):
+    """The span ``name`` of the running step (see the module docstring);
+    timed, it synchronises ``device`` at its start and end where that is
+    a CUDA device."""
+    return _Span(name, _mode, sync=device) if _mode else _OFF
 
 
 class _Phases:

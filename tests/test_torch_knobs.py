@@ -304,8 +304,9 @@ def test_lagged_preconditioner_cli_matches_jax_composite(tmp_path, monkeypatch, 
 
 
 # the port's spans that the JAX package has no label for (utils/logging.py)
-PORT_SPANS = {"step", "bdm_projection", "tentative_build", "solve.tentative", "solve.pressure",
-              "krylov.precond", "krylov.matvec", "krylov.orthogonalise", "host.read"}
+PORT_SPANS = {"step", "bdm_projection", "tentative_build", "tentative_inverse", "solve.tentative",
+              "solve.pressure", "krylov.precond", "krylov.matvec", "krylov.orthogonalise",
+              "host.read"}
 
 
 def test_phase_timing_fills_the_jax_labels(monkeypatch):

@@ -20,8 +20,8 @@ from incompressibleeulerhdg_tpu_torch.timesteppers.hdg_imex import (
 from incompressibleeulerhdg_tpu_torch.utils import logging as L
 
 PHASES = {"forcing", "star+build", "residual", "sweep", "final", "reconstruct"}
-SPANS = {"step", "bdm_projection", "tentative_build", "solve.tentative", "solve.pressure",
-         "krylov.precond", "krylov.matvec", "krylov.orthogonalise", "host.read"}
+SPANS = {"step", "bdm_projection", "tentative_build", "tentative_inverse", "solve.tentative",
+         "solve.pressure", "krylov.precond", "krylov.matvec", "krylov.orthogonalise", "host.read"}
 # the tensor methods that hand a value to the host: a blocking read on a card
 READS = ("cpu", "item", "tolist", "__float__", "__int__", "__index__", "__bool__")
 
@@ -144,6 +144,7 @@ def test_profiler_trace_nests_the_spans_under_the_step(tmp_path, monkeypatch):
     assert parent_of["step"] == {None}
     assert parent_of["forcing"] == parent_of["sweep"] == parent_of["final"] == {"step"}
     assert parent_of["bdm_projection"] == parent_of["tentative_build"] == {"star+build"}
+    assert parent_of["tentative_inverse"] == {"tentative_build"}
     assert parent_of["solve.tentative"] == {"sweep"}
     assert parent_of["solve.pressure"] == {"sweep", "final", "reconstruct"}
     assert parent_of["krylov.orthogonalise"] <= {"solve.tentative", "solve.pressure"}
